@@ -1,0 +1,149 @@
+"""Weights carried into the port: from the JAX package's param tree, and from
+the reference implementation's state dict (the port's own copy of
+audiodec_tpu/utils/torch_import.py `fold_weight_norm` and
+`import_autoencoder`).
+
+Both return the port's tree: the JAX tree's structure with torch's weight
+orientation, as CPU float32 tensors.
+
+    JAX conv           (K, I, O)            -> (O, I, K)
+    JAX transposed     (K, I, O) gathering  -> (I, O, K), K flipped
+                       (w[k, i, o] = W_torch[i, o, K-1-k])
+    reference conv     (O, I, K), reference transposed (I, O, K): as is
+    reference embed    (D, N) per quantizer -> (N, D)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def tree_map(fn: Callable, tree):
+    """Apply fn to every tensor of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# from the JAX param tree (numpy leaves)
+# ---------------------------------------------------------------------------
+
+def _conv_from_jax(p: dict) -> dict:
+    out = {"w": _tensor(np.transpose(p["w"], (2, 1, 0)))}
+    if "b" in p:
+        out["b"] = _tensor(p["b"])
+    return out
+
+
+def _convt_from_jax(p: dict) -> dict:
+    out = {"w": _tensor(np.transpose(np.asarray(p["w"])[::-1], (1, 2, 0)))}
+    if "b" in p:
+        out["b"] = _tensor(p["b"])
+    return out
+
+
+def _res_from_jax(units) -> list:
+    return [{"conv1": _conv_from_jax(u["conv1"]),
+             "conv2": _conv_from_jax(u["conv2"])} for u in units]
+
+
+def params_from_jax(tree: dict) -> dict:
+    """JAX generator params (as numpy arrays) -> the port's params."""
+    enc, dec = tree["encoder"], tree["decoder"]
+    proj = {"conv": _conv_from_jax(tree["projector"]["conv"])}
+    if "bn" in tree["projector"]:
+        proj["bn"] = {k: _tensor(v)
+                      for k, v in tree["projector"]["bn"].items()}
+    return {
+        "encoder": {
+            "conv": _conv_from_jax(enc["conv"]),
+            "blocks": [{"res": _res_from_jax(b["res"]),
+                        "conv": _conv_from_jax(b["conv"])}
+                       for b in enc["blocks"]],
+        },
+        "projector": proj,
+        "quantizer": {"embed": _tensor(tree["quantizer"]["embed"])},
+        "decoder": {
+            "conv1": _conv_from_jax(dec["conv1"]),
+            "blocks": [{"conv": _convt_from_jax(b["conv"]),
+                        "res": _res_from_jax(b["res"])}
+                       for b in dec["blocks"]],
+            "conv2": _conv_from_jax(dec["conv2"]),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# from the reference state dict (as in tests/golden/*.npz `sd__*` keys)
+# ---------------------------------------------------------------------------
+
+def fold_weight_norm(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Fold every `X.weight_g`/`X.weight_v` pair into `X.weight`
+    (torch weight norm, dim=0: w = g * v / ||v|| over the other dims)."""
+    out = {}
+    for k, a in sd.items():
+        if k.endswith("weight_g"):
+            base = k[: -len("weight_g")]
+            v = np.asarray(sd[base + "weight_v"], dtype=np.float64)
+            g = np.asarray(a, dtype=np.float64)
+            norm = np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)),
+                                  keepdims=True))
+            out[base + "weight"] = (g * v / norm).astype(np.float32)
+        elif not k.endswith("weight_v"):
+            out.setdefault(k, np.asarray(a))
+    return out
+
+
+def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
+    """Reference AudioDec Generator state dict -> the port's params."""
+    sd = fold_weight_norm(sd)
+
+    def conv(prefix):
+        p = {"w": _tensor(sd[prefix + ".weight"])}
+        if prefix + ".bias" in sd:
+            p["b"] = _tensor(sd[prefix + ".bias"])
+        return p
+
+    def res(prefix):
+        return [{"conv1": conv(f"{prefix}.res_units.{j}.conv1.conv"),
+                 "conv2": conv(f"{prefix}.res_units.{j}.conv2")}
+                for j in range(len(cfg.res_dilations))]
+
+    if "projector.project.conv.weight" in sd:
+        proj = {"conv": conv("projector.project.conv")}
+    else:  # conv1d_bn: Sequential(CausalConv1d, BatchNorm1d)
+        bn = "projector.project.1."
+        proj = {"conv": conv("projector.project.0.conv"),
+                "bn": {"scale": _tensor(sd[bn + "weight"]),
+                       "bias": _tensor(sd[bn + "bias"]),
+                       "mean": _tensor(sd[bn + "running_mean"]),
+                       "var": _tensor(sd[bn + "running_var"])}}
+    embed = np.stack([np.asarray(sd[f"quantizer.codebook.layers.{q}.embed"]).T
+                      for q in range(cfg.codebook_num)])
+    return {
+        "encoder": {
+            "conv": conv("encoder.conv.conv"),
+            "blocks": [{"res": res(f"encoder.conv_blocks.{i}"),
+                        "conv": conv(f"encoder.conv_blocks.{i}.conv.conv")}
+                       for i in range(len(cfg.enc_strides))],
+        },
+        "projector": proj,
+        "quantizer": {"embed": _tensor(embed)},
+        "decoder": {
+            "conv1": conv("decoder.conv1.conv"),
+            "blocks": [{"conv": conv(f"decoder.conv_blocks.{i}.conv.deconv"),
+                        "res": res(f"decoder.conv_blocks.{i}")}
+                       for i in range(len(cfg.dec_strides))],
+            "conv2": conv("decoder.conv2.conv"),
+        },
+    }
