@@ -1,12 +1,15 @@
 """Batch transcode: waveform -> RVQ indices -> waveform (counterpart of
 audiodec_tpu/bin/codec_test.py `BatchTranscoder`).
 
-Ported: stack="folded" (the residual stacks the JAX package runs in its
-folded kernel go to the CUDA kernel) and stack="plain" (cuDNN convs
-throughout), dtype float32 or bfloat16, and dec_dtype for the mixed mode
-(f32 encoder and RVQ, bf16 decoder).  The mesh, the vocoder receiver, int8
-decode, the batch folds, PCM16 I/O and the command line with its YAML
-config and checkpoint files wait for later slices.
+Ported: stack="folded" (the residual stacks and vocoder resblocks the JAX
+package runs in its folded kernel go to the CUDA kernels) and stack="plain"
+(cuDNN convs throughout), dtype float32 or bfloat16, dec_dtype for the
+mixed mode (f32 encoder and RVQ, bf16 decoder), and the vocoder receiver
+(voc=(voc_params, voc_cfg): the AD v0/v1/v2 HiFiGAN decodes the codes in
+place of the symAD decoder).  The mesh, int8 decode, the batch folds (the
+JAX `vocoder_apply_batchfold` among them, ROADMAP A7), PCM16 I/O and the
+command line with its YAML config and checkpoint files wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from audiodec_tpu_torch.models.autoencoder import (
 from audiodec_tpu_torch.models.fast import (
     decoder_apply_folded,
     encoder_apply_folded,
+    vocoder_apply_folded,
 )
+from audiodec_tpu_torch.models.vocoder import vocoder_apply
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
 from audiodec_tpu_torch.utils.bridge import tree_map
 
@@ -50,11 +55,13 @@ class BatchTranscoder:
     """Batch encode/decode of (B, T, 1) waveforms.
 
     dtype: compute dtype of the encoder and projector (the RVQ runs in f32
-    whatever it is); dec_dtype (default dtype) that of the decoder.
+    whatever it is); dec_dtype (default dtype) that of the decoder or
+    vocoder.  voc: None, or (voc_params, VocoderConfig) to decode with the
+    vocoder instead of params["decoder"].
     bf16_dots: operand rounding inside the fused stacks (the JAX default is
     True; False gives true-f32 stacks for parity runs)."""
 
-    def __init__(self, params: dict, cfg: GeneratorConfig, *,
+    def __init__(self, params: dict, cfg: GeneratorConfig, *, voc=None,
                  dtype=torch.float32, dec_dtype=None, stack: str = "folded",
                  bf16_dots: bool = True, device=None):
         if stack not in ("folded", "plain"):
@@ -69,8 +76,14 @@ class BatchTranscoder:
                                      bf16_dots=bf16_dots)
             self.dec_apply = partial(decoder_apply_folded,
                                      bf16_dots=bf16_dots)
+            voc_apply = partial(vocoder_apply_folded, bf16_dots=bf16_dots)
         else:
             self.enc_apply, self.dec_apply = encoder_apply, decoder_apply
+            voc_apply = vocoder_apply
+        # the decoder's or the vocoder's (params, zq, cfg) call
+        self.dec_cfg = cfg if voc is None else voc[1]
+        if voc is not None:
+            self.dec_apply = voc_apply
 
         def on_device(tree, dt):
             return tree_map(lambda a: a.to(self.device, dt), tree)
@@ -79,7 +92,8 @@ class BatchTranscoder:
                                      "projector": params["projector"]},
                                     dtype)
         self.quantizer = on_device(params["quantizer"], torch.float32)
-        self.dec_params = on_device(params["decoder"], self.dec_dtype)
+        self.dec_params = on_device(params["decoder"] if voc is None
+                                    else voc[0], self.dec_dtype)
 
     def encode(self, x) -> torch.Tensor:
         """x: (B, T, 1) -> indices (B, T/hop, Q) int32."""
@@ -92,7 +106,7 @@ class BatchTranscoder:
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
         """indices (B, T', Q) -> waveform (B, T' * hop, 1) float32."""
         zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
-        return self.dec_apply(self.dec_params, zq, self.cfg).float()
+        return self.dec_apply(self.dec_params, zq, self.dec_cfg).float()
 
     def __call__(self, x):
         idx = self.encode(x)

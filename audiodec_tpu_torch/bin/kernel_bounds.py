@@ -1,0 +1,98 @@
+"""Least time an H100 could take for each TPU kernel of the repo, at the
+shapes its caller gives it: `python -m audiodec_tpu_torch.bin.kernel_bounds`.
+
+The bound is the larger of the bytes the function must move (each input
+read once, each output written once) over the memory rate, and its
+operations over the card's peak for their type.  Peaks are the H100 SXM
+data sheet's, dense, at its 700 W power limit.  Needs no card: it reckons
+from shapes only, and prints one JSON line per kernel (or mode) and launch
+shape.
+"""
+
+from __future__ import annotations
+
+import json
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+BATCH, SAMPLES = 16, 480000          # B=16 x 10 s at 48 kHz
+HOP, CODE_DIM, CODEBOOKS, CODES = 300, 64, 8, 1024
+F32, BF16, INT8, INT32 = 4, 2, 1, 4
+
+
+def bound_ms(nbytes: float, ops: float, peak: str) -> dict:
+    row = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "operations_ms": 1e3 * ops / PEAK_OPS_PER_S[peak]}
+    row["bound_ms"] = max(row["bytes_ms"], row["operations_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["operations_ms"]
+                       else "operations")
+    return row
+
+
+def residual_stack(b, t, c, *, k, k2, storage, weight, peak,
+                   units=3, bias=False) -> dict:
+    """One chain of `units` causal residual units at (b, c, t)."""
+    act = b * c * t * storage
+    weights = units * (k + k2) * c * c * weight
+    biases = units * 2 * c * weight if bias else 0
+    ops = units * (k + k2) * c * c * 2 * b * t
+    return bound_ms(2 * act + weights + biases, ops, peak)
+
+
+def rows():
+    """(function, mode, shape note, bound) for every pallas_call function."""
+    stack = "audiodec_tpu/ops/pallas/folded_stack.py:112"
+    out = [
+        (stack, "autoencoder, f32 storage, bf16 dots (encoder block 0)",
+         [BATCH, SAMPLES, 32],
+         residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=F32,
+                        weight=F32, peak="bf16")),
+        (stack, "autoencoder, bf16 (decoder block 3)", [BATCH, SAMPLES, 32],
+         residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=BF16,
+                        weight=BF16, peak="bf16")),
+        (stack, "vocoder, bf16, k=11 (AD v1, per group; 3 per decode)",
+         [BATCH, SAMPLES, 32],
+         residual_stack(BATCH, SAMPLES, 32, k=11, k2=11, storage=BF16,
+                        weight=BF16, peak="bf16", bias=True)),
+    ]
+    # int8 mode: every symAD decoder stack, f32 storage, int8 dots
+    for c, t in ((256, 8000), (128, 40000), (64, 160000), (32, SAMPLES)):
+        out.append((stack, f"int8, decoder stack at C={c}", [BATCH, t, c],
+                    residual_stack(BATCH, t, c, k=7, k2=1, storage=F32,
+                                   weight=INT8, peak="int8")))
+    # rvq_encode_pallas: strict-f32 distances, argmin, gather, update
+    n = BATCH * SAMPLES // HOP
+    nbytes = (n * CODE_DIM * F32 + CODEBOOKS * CODES * (CODE_DIM + 1) * F32
+              + n * CODEBOOKS * INT32 + n * CODE_DIM * F32)
+    out.append(("audiodec_tpu/archive/vq_kernel.py:62", "f32",
+                [BATCH, SAMPLES // HOP, CODE_DIM, CODEBOOKS, CODES],
+                bound_ms(nbytes, CODEBOOKS * 2 * n * CODES * CODE_DIM,
+                         "f32")))
+    out.append(("audiodec_tpu/archive/resunit_kernel.py:57",
+                "autoencoder stack, f32 dots", [BATCH, SAMPLES, 32],
+                residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=F32,
+                               weight=F32, peak="f32")))
+    out.append(("tools/folded_ablate.py:34",
+                "folded stack variants, f32 storage, bf16 dots",
+                [BATCH, SAMPLES, 32],
+                residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=F32,
+                               weight=BF16, peak="bf16")))
+    # mxu_rate_probe defaults: 120 tiles of (1024, 128) @ 64 x (128, 128)
+    m, dots = 120 * 1024, 64
+    for name, size in (("bf16", BF16), ("int8", INT8), ("f32", F32)):
+        out.append(("tools/mxu_rate_probe.py:33", f"dot chain, {name}",
+                    [m, 128, dots],
+                    bound_ms((2 * m * 128 + dots * 128 * 128) * size,
+                             2 * m * dots * 128 * 128, name)))
+    return out
+
+
+def main():
+    for fn, mode, shape, b in rows():
+        print(json.dumps({"function": fn, "mode": mode, "shape": shape,
+                          "peaks": "H100 SXM data sheet, 700 W", **b}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
-"""Batch inference through the fused residual-stack kernel (counterpart of
+"""Batch inference through the fused residual-stack kernels (counterpart of
 audiodec_tpu/models/fast.py: `_use_folded`, `res_stack_auto`,
-`encoder_apply_folded`, `decoder_apply_folded`).
+`encoder_apply_folded`, `decoder_apply_folded`, and the vocoder fast path
+`_voc_resblock_params`, `_voc_use_folded`, `_voc_resblock_folded`,
+`_voc_fusion_auto`, `vocoder_apply_folded`).
 
-The stacks that the JAX package sends to its folded kernel go to the CUDA
-kernel; the rest stay plain cuDNN convs.  The batch-fold and int8 paths
-wait for later slices.
+The stacks and resblocks that the JAX package sends to its folded kernel go
+to the CUDA kernels; the rest stay plain cuDNN convs.  The batch-fold and
+int8 paths wait for later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +18,12 @@ from audiodec_tpu_torch.models.autoencoder import (
     decoder_bct,
     encoder_bct,
     res_stack_plain,
+)
+from audiodec_tpu_torch.models.vocoder import (
+    VocoderConfig,
+    _fusion_apply,
+    fusion_bct,
+    vocoder_bct,
 )
 from audiodec_tpu_torch.ops.kernels.folded_stack import (
     folded_residual_stack,
@@ -55,3 +63,64 @@ def decoder_apply_folded(p, z, cfg: GeneratorConfig, bf16_dots: bool = True):
     """Batch causal decoder.  z: (B, T', D) -> (B, T, C_out)."""
     stack = partial(res_stack_auto, bf16_dots=bf16_dots)
     return decoder_bct(p, z.transpose(1, 2), cfg, stack).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# vocoder fast path (HiFiGAN resblocks in the kernel's vocoder mode)
+# ---------------------------------------------------------------------------
+
+def _voc_resblock_params(p_block):
+    """((w1, w2), ...) and the biases (or None) from a vocoder resblock's
+    convs1/convs2 lists."""
+    units = tuple((c1["w"], c2["w"])
+                  for c1, c2 in zip(p_block["convs1"], p_block["convs2"]))
+    if "b" in p_block["convs1"][0]:
+        biases = tuple((c1["b"], c2["b"])
+                       for c1, c2 in zip(p_block["convs1"],
+                                         p_block["convs2"]))
+    else:
+        biases = None
+    return units, biases
+
+
+def _voc_use_folded(cfg: VocoderConfig, c: int, t: int) -> bool:
+    # verbatim from the JAX package: it decides which stages take bf16
+    # operands, so a looser rule would change the numbers against JAX
+    f = max(1, 128 // max(c, 1))
+    return (cfg.use_additional_convs
+            and cfg.nonlinear_activation == "LeakyReLU"
+            and f >= 4 and t % f == 0)
+
+
+def _voc_resblock_folded(p_block, x, *, kernel_size, dilations, slope,
+                         bf16_dots):
+    units, biases = _voc_resblock_params(p_block)
+    return folded_residual_stack(
+        x, units, dilations=tuple(dilations), kernel_size=kernel_size,
+        kernel_size2=kernel_size, act="leaky_relu", act_param=slope,
+        biases=biases, bf16_dots=bf16_dots)
+
+
+def _voc_fusion_auto(p, x, cfg: VocoderConfig, bf16_dots: bool = True):
+    """Fusion block (MultiGroupConv1d: the groups' dense resblocks on weight
+    slices; MultiReceptiveField: the mean of its resblocks) with the
+    resblocks in the kernel where the JAX package uses its folded kernel,
+    plain convs otherwise.  x: (B, C, T)."""
+    _, c, t = x.shape
+    if not _voc_use_folded(cfg, c, t):
+        return _fusion_apply(p, x, cfg)
+    slope = dict(cfg.nonlinear_activation_params).get("negative_slope", 0.01)
+
+    def resblock(p_block, x, kernel_size, dilations, _groups):
+        return _voc_resblock_folded(p_block, x, kernel_size=kernel_size,
+                                    dilations=dilations, slope=slope,
+                                    bf16_dots=bf16_dots)
+
+    return fusion_bct(p, x, cfg, resblock)
+
+
+def vocoder_apply_folded(p, c, cfg: VocoderConfig, bf16_dots: bool = True):
+    """Batch vocoder decode with its low-channel, high-rate resblocks in
+    the kernel.  c: (B, T, D) codes -> (B, T * hop, out_channels)."""
+    fusion = partial(_voc_fusion_auto, bf16_dots=bf16_dots)
+    return vocoder_bct(p, c.transpose(1, 2), cfg, fusion).transpose(1, 2)

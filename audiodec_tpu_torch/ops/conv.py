@@ -21,11 +21,11 @@ import torch.nn.functional as F
 
 
 def causal_conv1d(x: torch.Tensor, params: dict, *, stride: int = 1,
-                  dilation: int = 1) -> torch.Tensor:
+                  dilation: int = 1, groups: int = 1) -> torch.Tensor:
     w = params["w"]
     pad = (w.shape[-1] - 1) * dilation
     return F.conv1d(F.pad(x, (pad, 0)), w, params.get("b"), stride=stride,
-                    dilation=dilation)
+                    dilation=dilation, groups=groups)
 
 
 def causal_conv_transpose1d(x: torch.Tensor, params: dict, *,

@@ -1,7 +1,7 @@
 """Weights carried into the port: from the JAX package's param tree, and from
 the reference implementation's state dict (the port's own copy of
-audiodec_tpu/utils/torch_import.py `fold_weight_norm` and
-`import_autoencoder`).
+audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`
+and `import_vocoder` with fold=True).
 
 Both return the port's tree: the JAX tree's structure with torch's weight
 orientation, as CPU float32 tensors.
@@ -15,6 +15,7 @@ orientation, as CPU float32 tensors.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict
 
 import numpy as np
@@ -83,6 +84,34 @@ def params_from_jax(tree: dict) -> dict:
     }
 
 
+def _voc_resblock_from_jax(blk: dict) -> dict:
+    return {"convs1": [_conv_from_jax(c) for c in blk["convs1"]],
+            "convs2": [_conv_from_jax(c) for c in blk["convs2"]]}
+
+
+def vocoder_params_from_jax(tree: dict) -> dict:
+    """JAX vocoder params (as numpy arrays) -> the port's params.  A grouped
+    conv's JAX (K, C, G*C) weight becomes torch's (G*C, C, K)."""
+    blocks = []
+    for blk in tree["blocks"]:
+        if "blocks" in blk:   # MultiReceptiveField
+            blocks.append({"blocks": [_voc_resblock_from_jax(b)
+                                      for b in blk["blocks"]]})
+        else:                 # MultiGroupConv1d
+            blocks.append({**_voc_resblock_from_jax(blk),
+                           "conv_out": _conv_from_jax(blk["conv_out"])})
+    out = {
+        "input_conv": _conv_from_jax(tree["input_conv"]),
+        "upsamples": [_convt_from_jax(u) for u in tree["upsamples"]],
+        "blocks": blocks,
+        "output_conv": _conv_from_jax(tree["output_conv"]),
+    }
+    for k in ("mean", "scale"):
+        if k in tree:
+            out[k] = _tensor(tree[k])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # from the reference state dict (as in tests/golden/*.npz `sd__*` keys)
 # ---------------------------------------------------------------------------
@@ -104,15 +133,18 @@ def fold_weight_norm(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _conv_from_sd(sd: Dict[str, np.ndarray], prefix: str) -> dict:
+    """A conv (or transposed conv) of the state dict, in its own layout."""
+    p = {"w": _tensor(sd[prefix + ".weight"])}
+    if prefix + ".bias" in sd:
+        p["b"] = _tensor(sd[prefix + ".bias"])
+    return p
+
+
 def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
     """Reference AudioDec Generator state dict -> the port's params."""
     sd = fold_weight_norm(sd)
-
-    def conv(prefix):
-        p = {"w": _tensor(sd[prefix + ".weight"])}
-        if prefix + ".bias" in sd:
-            p["b"] = _tensor(sd[prefix + ".bias"])
-        return p
+    conv = partial(_conv_from_sd, sd)
 
     def res(prefix):
         return [{"conv1": conv(f"{prefix}.res_units.{j}.conv1.conv"),
@@ -147,3 +179,41 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
             "conv2": conv("decoder.conv2.conv"),
         },
     }
+
+
+def vocoder_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
+    """Reference HiFiGAN Generator state dict -> the port's params (key
+    scheme of ref models/vocoder/HiFiGAN.py:84-123); weight norm folded,
+    the `mean`/`scale` stats carried."""
+    sd = fold_weight_norm(sd)
+    conv = partial(_conv_from_sd, sd)
+
+    def resblock(prefix, dilations):
+        n = len(dilations)
+        return {"convs1": [conv(f"{prefix}.convs1.{j}.conv")
+                           for j in range(n)],
+                "convs2": ([conv(f"{prefix}.convs2.{j}.conv")
+                            for j in range(n)]
+                           if cfg.use_additional_convs else [])}
+
+    blocks = []
+    for i in range(len(cfg.upsample_scales)):
+        pre = f"blocks.{i}"
+        if cfg.grouped:
+            blocks.append({**resblock(pre, cfg.resblock_dilations[0]),
+                           "conv_out": conv(f"{pre}.conv_out")})
+        else:
+            blocks.append({"blocks": [
+                resblock(f"{pre}.blocks.{b}", cfg.resblock_dilations[b])
+                for b in range(len(cfg.resblock_kernel_sizes))]})
+    out = {
+        "input_conv": conv("input_conv.conv"),
+        "upsamples": [conv(f"upsamples.{i}.deconv")
+                      for i in range(len(cfg.upsample_scales))],
+        "blocks": blocks,
+        "output_conv": conv("output_conv.conv"),
+    }
+    for k in ("mean", "scale"):
+        if k in sd:
+            out[k] = _tensor(sd[k])
+    return out

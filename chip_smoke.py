@@ -1,34 +1,47 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, checks the batch transcode against the
-reference goldens, then drives the main path (symAD, B=16 x 10 s at 48 kHz,
-mixed mode: f32 encoder and RVQ, bf16 decoder, residual stacks through the
-kernel) once, times it and profiles one more transcode.  Each phase
-prints one JSON line with its own seconds; any failure raises, so the
-script exits non-zero and prints no result.  Without a CUDA device it exits non-zero at once.
+Builds the port's two CUDA kernels (the residual-stack kernel's autoencoder
+and vocoder modes) from the sources in this checkout, one nvcc each, in
+parallel; holds each against its plain PyTorch version; checks the batch
+transcode and the vocoder against the reference goldens; then drives the
+two paths once each, times them and profiles one more transcode of each:
+
+  - main_path (slice 1): symAD, B=16 x 10 s at 48 kHz, mixed mode (f32
+    encoder and RVQ, bf16 decoder), residual stacks through the kernel;
+  - ad_v1_path (slice 2): the AD v1 receiver, the same encoder and RVQ with
+    the AudioDec_v1 48 kHz HiFiGAN vocoder (full width, random weights from
+    a seed) decoding in bf16, its C=32 resblocks through the kernel.
+
+Each phase prints one JSON line with its own seconds; any failure raises,
+so the script exits non-zero and prints no result.  Without a CUDA device
+it exits non-zero at once.
 
 Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-In the `kernels` line, `launches` is the count from one main-path
-transcode, and `ms`, `plain_ms`, `chain_ms` and `bound_ms` add up those
-launches at their shapes (one f32 stack in the encoder, one bf16 stack in
-the decoder, both (16, 32, 480000)).  `bound_ms` is the larger of bytes
+In the `kernels` line, `launches` is the count from the run of the path
+that brought the mode in (autoencoder mode: main_path; vocoder mode:
+ad_v1_path), `launches_by_path` the counts of both paths, each read with
+the counts set to 0 just before the path and read just after.  `ms`,
+`plain_ms`, `chain_ms` and `bound_ms` add up that path's launches at their
+shapes (autoencoder: one f32 stack in the encoder and one bf16 stack in the
+decoder, both (16, 32, 480000); vocoder: the three groups' resblocks of
+the last stage, (16, 32, 480000) bf16).  `bound_ms` is the larger of bytes
 over 3.35 TB/s and FLOP over 989 TFLOP/s (bf16 operands), per launch.
-`library_ms` is null: no single PyTorch call computes the stack; `chain_ms`
-is the ELU / F.conv1d chain in the working dtype.  Peaks are the H100 SXM
-data sheet's, at 700 W.
+`library_ms` is null: no single PyTorch call computes a stack; `chain_ms`
+is the same units as F.conv1d calls in the working dtype.  Peaks are the
+H100 SXM data sheet's, at 700 W.
 
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
-JAX, no PyYAML) and nvcc; the build goes to build/audiodec_tpu_torch/.
+JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -37,18 +50,72 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
+from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
+from audiodec_tpu_torch.models import fast
 from audiodec_tpu_torch.models.autoencoder import GeneratorConfig
+from audiodec_tpu_torch.models.vocoder import (
+    VocoderConfig,
+    config_from_yaml,
+    group_params,
+    vocoder_init,
+)
 from audiodec_tpu_torch.ops.kernels import _build, folded_stack
-from audiodec_tpu_torch.utils.bridge import params_from_reference_sd
+from audiodec_tpu_torch.utils.bridge import (
+    params_from_reference_sd,
+    tree_map,
+    vocoder_params_from_reference_sd,
+)
 
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 SR = 48000
 BATCH, SECONDS = 16, 10
 DILATIONS = (1, 3, 9)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 SEED = 0
 PROFILE_TOP = 15
+KERNELS = ("folded_stack", "resblock_stack")
+VOC_DILATIONS = (1, 3, 5)
+VOC_SLOPE = 0.1
+# true f32: only the order of the sums differs (tests/test_folded_stack.py
+# :73-75); bf16 operands or storage: max error relative to the output's peak
+F32_RTOL, F32_ATOL_REL, BF16_REL = 1e-4, 5e-5, 1e-2
+
+# generator_params of configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_
+# clean.yaml, as it stands (the card has no PyYAML; a test holds the two
+# equal)
+AD_V1_VOCODER = {
+    "in_channels": 64,
+    "out_channels": 1,
+    "channels": 512,
+    "kernel_size": 7,
+    "upsample_scales": [5, 5, 4, 3],
+    "upsample_kernel_sizes": [10, 10, 8, 6],
+    "resblock_kernel_sizes": [11],
+    "resblock_dilations": [[1, 3, 5]],
+    "groups": 3,
+    "bias": True,
+    "use_additional_convs": True,
+    "nonlinear_activation": "LeakyReLU",
+    "nonlinear_activation_params": {"negative_slope": 0.1},
+    "use_weight_norm": True,
+    "stats": "stats/symAD_vctk_48000_hop300_clean.npy",
+}
+# the vocoder goldens' configs (tests/test_vocoder_parity.py:20-37)
+VOC_GOLDENS = {
+    "voc_mrf": dict(in_channels=16, channels=32,
+                    upsample_scales=(5, 5, 4, 3),
+                    upsample_kernel_sizes=(10, 10, 8, 6)),
+    "voc_group": dict(in_channels=16, channels=32,
+                      upsample_scales=(5, 5, 4, 3),
+                      upsample_kernel_sizes=(10, 10, 8, 6),
+                      resblock_kernel_sizes=(11,),
+                      resblock_dilations=((1, 3, 5),), groups=3, stats=True),
+    "voc_v1_small_trained": dict(in_channels=64, channels=128,
+                                 upsample_scales=(5, 5, 4, 3),
+                                 upsample_kernel_sizes=(10, 10, 8, 6),
+                                 resblock_kernel_sizes=(11,),
+                                 resblock_dilations=((1, 3, 5),), groups=3,
+                                 stats=True),
+}
 
 
 def emit(phase: str, t0: float, **fields):
@@ -93,12 +160,8 @@ def chain(x, units):
     return v
 
 
-def check_kernel(x, units, bf16_dots: bool):
-    """Kernel vs plain version on the same inputs; returns (abs, rel)."""
-    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
-                                             bf16_dots=bf16_dots)
-    ref = folded_stack.folded_residual_stack_plain(x, units, DILATIONS,
-                                                   bf16_dots)
+def check_close(out, ref, x, bf16_dots: bool):
+    """A kernel's output against its plain version's; returns (abs, rel)."""
     torch.cuda.synchronize()
     out, ref = out.float(), ref.float()
     scale = float(ref.abs().max())
@@ -108,13 +171,33 @@ def check_kernel(x, units, bf16_dots: bool):
     if torch.equal(out, x.float()):
         raise AssertionError("kernel returned its input unchanged")
     if x.dtype == torch.float32 and not bf16_dots:
-        # true f32: only the order of the sums differs
-        # (tests/test_folded_stack.py:73-75)
-        torch.testing.assert_close(out, ref, rtol=1e-4, atol=5e-5 * scale)
-    elif err / scale >= 1e-2:
+        torch.testing.assert_close(out, ref, rtol=F32_RTOL,
+                                   atol=F32_ATOL_REL * scale)
+    elif err / scale >= BF16_REL:
         raise AssertionError(f"bf16-mode relative error {err / scale:.3g} "
-                             f">= 1e-2")
+                             f">= {BF16_REL}")
     return err, err / scale
+
+
+def check_kernel(x, units, bf16_dots: bool):
+    """Autoencoder-mode kernel vs plain version on the same inputs."""
+    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
+                                             bf16_dots=bf16_dots)
+    ref = folded_stack.folded_residual_stack_plain(x, units, DILATIONS,
+                                                   bf16_dots)
+    return check_close(out, ref, x, bf16_dots)
+
+
+def check_voc_kernel(x, units, biases, k: int, bf16_dots: bool):
+    """Vocoder-mode kernel vs plain version on the same inputs."""
+    out = folded_stack.folded_residual_stack(
+        x, units, dilations=VOC_DILATIONS, kernel_size=k, kernel_size2=k,
+        act="leaky_relu", act_param=VOC_SLOPE, biases=biases,
+        bf16_dots=bf16_dots)
+    ref = folded_stack.folded_residual_stack_plain(
+        x, units, VOC_DILATIONS, bf16_dots, act="leaky_relu",
+        act_param=VOC_SLOPE, biases=biases)
+    return check_close(out, ref, x, bf16_dots)
 
 
 def random_units(c: int, device, dtype, gen):
@@ -124,6 +207,21 @@ def random_units(c: int, device, dtype, gen):
                   .div((7 * c) ** 0.5).to(dtype),
                   torch.randn(c, c, 1, generator=gen, device=device)
                   .div(c ** 0.5).to(dtype)) for _ in DILATIONS)
+
+
+def random_resblock(c: int, k: int, device, dtype, gen, bias=True):
+    """Seeded vocoder-mode units at width C and K taps, scaled to keep the
+    outputs near unit size, with biases large enough that a fault in the
+    masking before t=0 shows."""
+    units = tuple((torch.randn(c, c, k, generator=gen, device=device)
+                   .div((k * c) ** 0.5).to(dtype),
+                   torch.randn(c, c, k, generator=gen, device=device)
+                   .div((k * c) ** 0.5).to(dtype)) for _ in VOC_DILATIONS)
+    biases = (tuple((0.5 * torch.randn(c, generator=gen, device=device)
+                     .to(dtype),
+                     0.5 * torch.randn(c, generator=gen, device=device)
+                     .to(dtype)) for _ in VOC_DILATIONS) if bias else None)
+    return units, biases
 
 
 def phase_kernel_vs_plain(params, device):
@@ -150,6 +248,40 @@ def phase_kernel_vs_plain(params, device):
                               "bf16_dots": bf16_dots, "max_abs_err": err,
                               "max_rel_err": rel})
     emit("kernel_vs_plain", t0, cases=cases)
+
+
+def phase_voc_kernel_vs_plain(device):
+    """The vocoder-mode kernel against its plain version: K = 3, 7, 11 (the
+    v2, v1-style and v0 sizes, K2 = K), every built width (C = 4, 8, 16, 32
+    and 12 padded to 16), T = 1920 and 50 (shorter than the halo), both
+    storage dtypes and both bf16_dots, with biases; without biases at K=11,
+    C=32; and once at the AD v1 path's shape (16, 32, 480000) in bf16."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    shapes = [(k, c, t, True) for k in (3, 7, 11) for c in (4, 8, 16, 32, 12)
+              for t in (1920, 50)] + [(11, 32, 1920, False)]
+    cases = []
+    for k, c, t, bias in shapes:
+        for storage in (torch.float32, torch.bfloat16):
+            units, biases = random_resblock(c, k, device, storage, gen, bias)
+            x = torch.randn(2, c, t, generator=gen, device=device)
+            for bf16_dots in (True, False):
+                err, rel = check_voc_kernel(x.to(storage), units, biases, k,
+                                            bf16_dots)
+                cases.append({"K": k, "C": c, "T": t, "biases": bias,
+                              "storage": str(storage)[6:],
+                              "bf16_dots": bf16_dots, "max_abs_err": err,
+                              "max_rel_err": rel})
+    units, biases = random_resblock(32, 11, device, torch.bfloat16, gen)
+    x = torch.randn(BATCH, 32, SECONDS * SR, generator=gen,
+                    device=device).to(torch.bfloat16)
+    err, rel = check_voc_kernel(x, units, biases, 11, True)
+    cases.append({"K": 11, "C": 32, "T": SECONDS * SR, "B": BATCH,
+                  "biases": True, "storage": "bfloat16", "bf16_dots": True,
+                  "max_abs_err": err, "max_rel_err": rel})
+    emit("voc_kernel_vs_plain", t0, tolerance={
+        "f32": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak",
+        "bf16": f"max error < {BF16_REL} x peak"}, cases=cases)
 
 
 def phase_golden(device):
@@ -179,6 +311,44 @@ def phase_golden(device):
     emit("golden_parity", t0, goldens=results)
 
 
+def phase_voc_golden(device):
+    """vocoder_apply_folded on the card in true f32 against the reference's
+    batch `y` (rtol 1e-3, atol 1e-5, tests/test_vocoder_parity.py:56,85);
+    the trained golden's biases exercise the masking before t=0."""
+    t0 = time.perf_counter()
+    results = {}
+    for name, kw in VOC_GOLDENS.items():
+        data = np.load(GOLDEN / f"{name}.npz")
+        sd = {k[len("sd__"):]: data[k] for k in data.files
+              if k.startswith("sd__")}
+        cfg = VocoderConfig(**kw)
+        p = tree_map(lambda a: a.to(device),
+                     vocoder_params_from_reference_sd(sd, cfg))
+        c = data["zq"] if "zq" in data.files else data["c"]
+        c = torch.from_numpy(c.transpose(0, 2, 1)).to(device)
+        folded_stack.resblock_launches = 0
+        y = fast.vocoder_apply_folded(p, c, cfg, bf16_dots=False)
+        torch.cuda.synchronize()
+        launches = folded_stack.resblock_launches
+        if launches == 0:
+            raise AssertionError(f"{name}: no vocoder-mode kernel launch")
+        y = y.cpu().numpy().transpose(0, 2, 1)
+        np.testing.assert_allclose(y, data["y"], rtol=1e-3, atol=1e-5)
+        results[name] = {"samples": int(data["y"].shape[-1]),
+                         "max_abs_err": float(np.abs(y - data["y"]).max()),
+                         "resblock_launches": launches}
+    emit("voc_golden", t0, goldens=results)
+
+
+def bound(x, tensors, flop: float) -> dict:
+    """Least time for one launch (bin/kernel_bounds.py): each input read
+    once, each output written once, against the dots' FLOP on the bf16
+    tensor cores."""
+    nbytes = (2 * x.numel() * x.element_size()
+              + sum(w.numel() * w.element_size() for w in tensors))
+    return bound_ms(nbytes, flop, "bf16")
+
+
 def kernel_timing(params, device, dtype, gen):
     """Kernel, plain and chain ms and the bound at (16, 32, 480000)."""
     b, c, t = BATCH, 32, SECONDS * SR
@@ -194,15 +364,87 @@ def kernel_timing(params, device, dtype, gen):
             x, units, DILATIONS), reps=3),
         "chain_ms": cuda_ms(lambda: chain(x, units), reps=3),
     }
-    weights = sum(w.numel() * w.element_size() for u in units for w in u)
-    nbytes = 2 * x.numel() * x.element_size() + weights
     flop = len(units) * (7 + 1) * c * c * 2 * b * t
-    row["bytes_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
-    row["operations_ms"] = 1e3 * flop / BF16_FLOP_PER_S
-    row["bound_ms"] = max(row["bytes_ms"], row["operations_ms"])
-    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["operations_ms"]
-                       else "operations")
+    row.update(bound(x, [w for u in units for w in u], flop))
     return row
+
+
+def voc_chain(x, units, biases, slope):
+    """The yardstick: the same units as plain LeakyReLU / F.conv1d calls in
+    the working dtype, with no rounding emulation."""
+    v = x
+    for (w1, w2), (b1, b2), d in zip(units, biases, VOC_DILATIONS):
+        k = w1.shape[-1]
+        y = F.conv1d(F.pad(F.leaky_relu(v, slope), ((k - 1) * d, 0)), w1, b1,
+                     dilation=d)
+        v = v + F.conv1d(F.pad(F.leaky_relu(y, slope), (k - 1, 0)), w2, b2)
+    return v
+
+
+def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
+    """Per group of the AD v1 path's last stage: the vocoder-mode kernel's,
+    plain and chain ms and the bound at (16, 32, 480000) bf16."""
+    c = cfg.stage_channels(len(cfg.upsample_scales) - 1)
+    b, t = BATCH, SECONDS * SR
+    k = cfg.resblock_kernel_sizes[0]
+    dil = tuple(cfg.resblock_dilations[0])
+    slope = dict(cfg.nonlinear_activation_params)["negative_slope"]
+    x = torch.randn(b, c, t, generator=gen, device=device).to(torch.bfloat16)
+    rows = []
+    for g in range(cfg.groups):
+        units, biases = fast._voc_resblock_params(group_params(p_block, g, c))
+
+        def kernel():
+            return folded_stack.folded_residual_stack(
+                x, units, dilations=dil, kernel_size=k, kernel_size2=k,
+                act="leaky_relu", act_param=slope, biases=biases)
+
+        def plain():
+            return folded_stack.folded_residual_stack_plain(
+                x, units, dil, True, act="leaky_relu", act_param=slope,
+                biases=biases)
+
+        err, _ = check_close(kernel(), plain(), x, True)
+        row = {"group": g, "shape": [b, c, t], "dtype": "bfloat16",
+               "max_abs_err": err, "ms": cuda_ms(kernel, reps=3),
+               "plain_ms": cuda_ms(plain, reps=2),
+               "chain_ms": cuda_ms(lambda: voc_chain(x, units, biases, slope),
+                                   reps=2)}
+        flop = len(units) * (k + k) * c * c * 2 * b * t
+        row.update(bound(x, [w for u in units for w in u]
+                         + [bb for u in biases for bb in u], flop))
+        rows.append(row)
+    return rows
+
+
+def read_launches() -> dict:
+    return {"autoencoder": folded_stack.launches,
+            "vocoder": folded_stack.resblock_launches}
+
+
+def reset_launches():
+    folded_stack.launches = folded_stack.resblock_launches = 0
+
+
+def check_transcode(idx, y, x, cfg: GeneratorConfig):
+    frames = x.shape[1] // cfg.hop_length
+    if tuple(idx.shape) != (x.shape[0], frames, cfg.codebook_num):
+        raise AssertionError(f"indices {tuple(idx.shape)}")
+    if int(idx.min()) < 0 or int(idx.max()) >= cfg.codebook_size:
+        raise AssertionError("index out of range")
+    if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all():
+        raise AssertionError("decoded waveform not finite or misshapen")
+
+
+def time_transcoder(tc, x, idx) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    transcode_ms = cuda_ms(lambda: tc(x), reps=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    return {"transcode_ms": transcode_ms,
+            "encode_ms": cuda_ms(lambda: tc.encode(x), reps=3),
+            "decode_ms": cuda_ms(lambda: tc.decode(idx), reps=3),
+            "rtf": BATCH * SECONDS / (transcode_ms / 1e3),
+            "peak_memory_gib": peak_gib}
 
 
 def phase_main_path(device):
@@ -216,40 +458,73 @@ def phase_main_path(device):
     x = 0.3 * torch.randn(BATCH, SECONDS * SR, 1, generator=gen,
                           device=device)
 
-    folded_stack.launches = 0
+    reset_launches()
     idx, y = tc(x)
     torch.cuda.synchronize()
-    launches = folded_stack.launches
-    if launches != 2:
-        raise AssertionError(f"{launches} kernel launches, expected 2")
-    frames = SECONDS * SR // cfg.hop_length
-    if tuple(idx.shape) != (BATCH, frames, cfg.codebook_num):
-        raise AssertionError(f"indices {tuple(idx.shape)}")
-    if int(idx.min()) < 0 or int(idx.max()) >= cfg.codebook_size:
-        raise AssertionError("index out of range")
-    if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all():
-        raise AssertionError("decoded waveform not finite or misshapen")
+    launches = read_launches()
+    if launches != {"autoencoder": 2, "vocoder": 0}:
+        raise AssertionError(f"kernel launches {launches}, expected 2 "
+                             f"autoencoder-mode and no vocoder-mode")
+    check_transcode(idx, y, x, cfg)
 
-    torch.cuda.reset_peak_memory_stats()
-    transcode_ms = cuda_ms(lambda: tc(x), reps=3)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    encode_ms = cuda_ms(lambda: tc.encode(x), reps=3)
-    decode_ms = cuda_ms(lambda: tc.decode(idx), reps=3)
+    times = time_transcoder(tc, x, idx)
     rows = [kernel_timing(params, device, dt, gen)
             for dt in (torch.float32, torch.bfloat16)]
     emit("main_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
-         transcode_ms=transcode_ms, encode_ms=encode_ms, decode_ms=decode_ms,
-         rtf=BATCH * SECONDS / (transcode_ms / 1e3),
-         peak_memory_gib=peak_gib, folded_stack_launches=launches,
-         folded_stack=rows)
-    return launches, rows, tc, x
+         **times, launches=launches, folded_stack=rows)
+    return launches, rows, tc, x, idx, params
 
 
-def phase_profile(tc, x):
-    """One more transcode of the main path under torch.profiler: its wall
-    time, the device time summed over all kernels, the device's idle share
-    (one stream, so kernels do not overlap) and the kernels with the most
-    device time."""
+def phase_ad_v1_path(device, params, x, idx_symad):
+    """The AD v1 receiver: the symAD encoder and RVQ with the trained
+    golden's weights, the AudioDec_v1 48 kHz vocoder at full width with
+    random weights from a seed (normal at scale 0.01, zero biases, stats 0
+    and 1, as the JAX vocoder_init), mixed mode, stack="folded"."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    vcfg = config_from_yaml(AD_V1_VOCODER, stats=True)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    voc = vocoder_init(vcfg, gen)
+    tc = BatchTranscoder(params, cfg, voc=(voc, vcfg), dtype=torch.float32,
+                         dec_dtype=torch.bfloat16, stack="folded",
+                         device=device)
+
+    reset_launches()
+    idx, y = tc(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"autoencoder": 1, "vocoder": 3}:
+        raise AssertionError(f"kernel launches {launches}, expected 1 "
+                             f"autoencoder-mode and 3 vocoder-mode")
+    check_transcode(idx, y, x, cfg)
+    if not torch.equal(idx, idx_symad):
+        raise AssertionError("the AD v1 path's indices differ from the "
+                             "main path's (same encoder, same input)")
+    # the mixed-mode decode against the true-f32 one on 2 rows x 1 s
+    short = idx[:2, :SR // cfg.hop_length]
+    ref = BatchTranscoder(params, cfg, voc=(voc, vcfg), stack="folded",
+                          bf16_dots=False, device=device).decode(short)
+    got = tc.decode(short)
+    mixed_rel = float((got - ref).abs().max() / ref.abs().max())
+    if not mixed_rel < 0.05:
+        raise AssertionError(f"mixed decode off the f32 decode by "
+                             f"{mixed_rel:.3g} of its peak")
+
+    times = time_transcoder(tc, x, idx)
+    last = len(vcfg.upsample_scales) - 1
+    rows = voc_kernel_timing(tc.dec_params["blocks"][last], vcfg, device,
+                             gen)
+    emit("ad_v1_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
+         **times, launches=launches, peak_abs_y=float(y.abs().max()),
+         mixed_vs_f32_decode_rel_err=mixed_rel, resblock_stack=rows)
+    return launches, rows, tc
+
+
+def phase_profile(path: str, tc, x):
+    """One more transcode of a path under torch.profiler: its wall time,
+    the device time summed over all kernels, the device's idle share (one
+    stream, so kernels do not overlap) and the kernels with the most device
+    time."""
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -263,11 +538,47 @@ def phase_profile(tc, x):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    emit("profile", t0, wall_ms=wall_ms, device_ms=device_ms,
+    emit("profile", t0, path=path, wall_ms=wall_ms, device_ms=device_ms,
          idle_share=1.0 - device_ms / wall_ms,
          top=[{"name": e.key[:120], "calls": e.count,
                "device_ms": e.self_device_time_total / 1e3}
               for e in kernels[:PROFILE_TOP]])
+
+
+def phase_build():
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+
+    def build(name):
+        t1 = time.perf_counter()
+        lib = _build.build(name)
+        _build.load(name)
+        return {"library": str(lib), "seconds": time.perf_counter() - t1}
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    emit("build", t0, kernels=built)
+
+
+def kernel_entry(name, mode, source, rows, launches_by_path, path):
+    worst = max(rows, key=lambda r: r["bound_ms"])
+    return {
+        "name": name,
+        "mode": mode,
+        "route": "cuda",
+        "source": source,
+        "replaces": "audiodec_tpu/ops/pallas/folded_stack.py:372",
+        "launches": launches_by_path[path][mode],
+        "launches_by_path": {p: n[mode] for p, n in launches_by_path.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": worst["bound_by"],
+        "library_ms": None,
+        "chain_ms": sum(r["chain_ms"] for r in rows),
+        "per_launch": rows,
+    }
 
 
 def main():
@@ -285,33 +596,26 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvidia_smi=card)
 
-    t0 = time.perf_counter()
-    lib = _build.build("folded_stack")
-    _build.load("folded_stack")
-    emit("build", t0, library=str(lib))
-
+    phase_build()
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
+    phase_voc_kernel_vs_plain(device)
     phase_golden(device)
-    launches, rows, tc, x = phase_main_path(device)
-    phase_profile(tc, x)
+    phase_voc_golden(device)
+    ae_launches, ae_rows, tc, x, idx, params = phase_main_path(device)
+    phase_profile("main_path", tc, x)
+    voc_launches, voc_rows, tc_v1 = phase_ad_v1_path(device, params, x, idx)
+    phase_profile("ad_v1_path", tc_v1, x)
 
-    worst = max(rows, key=lambda r: r["bound_ms"])
-    print(json.dumps({"kernels": [{
-        "name": "folded_residual_stack",
-        "route": "cuda",
-        "source": "audiodec_tpu_torch/csrc/folded_stack.cu",
-        "replaces": "audiodec_tpu/ops/pallas/folded_stack.py:372",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": worst["bound_by"],
-        "library_ms": None,
-        "chain_ms": sum(r["chain_ms"] for r in rows),
-        "per_launch": rows,
-    }]}), flush=True)
+    by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches}
+    print(json.dumps({"kernels": [
+        kernel_entry("folded_residual_stack", "autoencoder",
+                     "audiodec_tpu_torch/csrc/folded_stack.cu", ae_rows,
+                     by_path, "main_path"),
+        kernel_entry("folded_residual_stack", "vocoder",
+                     "audiodec_tpu_torch/csrc/resblock_stack.cu", voc_rows,
+                     by_path, "ad_v1_path"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -64,10 +64,13 @@ def test_plain_matches_jax_kernel(c, t, bf16_dots, storage):
         assert float(np.max(np.abs(out - ref))) / scale < 0.03
 
 
+VOC = {"act": "leaky_relu", "act_param": 0.1}
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"act": "leaky_relu", "act_param": 0.1},
-    {"biases": ((torch.zeros(8), torch.zeros(8)),) * 3},
-    {"kernel_size2": 7},
+    {"act": "gelu"},
+    {**VOC, "kernel_size": 5, "kernel_size2": 5},
+    {**VOC, "kernel_size2": 7, "int8_dots": True},
     {"int8_dots": True},
 ])
 def test_off_path_modes_raise(kwargs):
@@ -125,3 +128,171 @@ def test_packed_weights_are_cached_until_changed():
     units[0][0].mul_(2.0)  # an in-place update must repack
     changed = port._packed_weights(units, 8, 8, True)
     assert not torch.equal(changed[0], first[0])
+
+
+# ---------------------------------------------------------------------------
+# vocoder mode: LeakyReLU, second conv with k taps, biases
+# ---------------------------------------------------------------------------
+
+VOC_DILATIONS = (1, 3, 5)
+
+
+def _voc_case(c, t, k, bias, seed):
+    """Weights scaled to keep the stack near unit size; biases large
+    enough that the masking before t=0 shows if it is wrong."""
+    rng = np.random.default_rng(seed)
+    s = (k * c) ** -0.5
+    units = [(s * rng.standard_normal((k, c, c)).astype(np.float32),
+              s * rng.standard_normal((k, c, c)).astype(np.float32))
+             for _ in VOC_DILATIONS]
+    biases = ([(0.5 * rng.standard_normal(c).astype(np.float32),
+                0.5 * rng.standard_normal(c).astype(np.float32))
+               for _ in VOC_DILATIONS] if bias else None)
+    x = rng.standard_normal((2, t, c)).astype(np.float32)
+    return x, units, biases
+
+
+def _port_biases(biases):
+    return (None if biases is None else
+            [(torch.from_numpy(a), torch.from_numpy(b)) for a, b in biases])
+
+
+# a half fraction of K x biases x C x T (every pair of levels appears), each
+# in true f32; four of them also with bf16 storage or bf16 operands, which
+# between them take every level once more (JAX compiles its interpret-mode
+# kernel anew for each case, 1.5-10 s on one CPU core)
+VOC_CASES = [(3, True, 8, 1920), (3, True, 32, 1799), (3, False, 8, 1799),
+             (3, False, 32, 1920), (11, True, 8, 1799), (11, True, 32, 1920),
+             (11, False, 8, 1920), (11, False, 32, 1799)]
+VOC_BF16_CASES = [((3, True, 8, 1920), "bfloat16"),
+                  ((3, False, 32, 1920), "float32"),
+                  ((11, True, 32, 1920), "float32"),
+                  ((11, False, 32, 1799), "bfloat16")]
+
+
+@pytest.mark.parametrize(
+    "k,bias,c,t,storage,bf16_dots",
+    [(*case, "float32", False) for case in VOC_CASES]
+    + [(*case, storage, True) for case, storage in VOC_BF16_CASES])
+def test_plain_vocoder_mode_matches_jax_kernel(k, bias, c, t, storage,
+                                               bf16_dots):
+    x, units, biases = _voc_case(c, t, k, bias, seed=k + c + t)
+    ref = jax_stack(
+        jnp.asarray(x).astype(storage),
+        tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in units),
+        dilations=VOC_DILATIONS, kernel_size=k, kernel_size2=k,
+        act="leaky_relu", act_param=0.1,
+        biases=(None if biases is None else
+                tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in biases)),
+        bf16_dots=bf16_dots, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    xt = torch.from_numpy(x).transpose(1, 2).to(getattr(torch, storage))
+    out = port.folded_residual_stack(
+        xt, _port_units(units), dilations=VOC_DILATIONS, kernel_size=k,
+        kernel_size2=k, act="leaky_relu", act_param=0.1,
+        biases=_port_biases(biases), bf16_dots=bf16_dots)
+    assert out.dtype == xt.dtype and out.shape == xt.shape
+    out = out.float().transpose(1, 2).numpy()
+    scale = float(np.max(np.abs(ref)))
+    if not bf16_dots:
+        # true f32 on both sides: only the order of the sums differs
+        # (tests/test_folded_stack.py:196-197)
+        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=5e-5 * scale)
+    else:
+        # bf16 operands or storage: bf16-class error
+        assert float(np.max(np.abs(out - ref))) / scale < 0.03
+
+
+def test_plain_vocoder_mode_masks_before_t0():
+    """With biases, each conv's output is zero before t=0: the stack's
+    first samples equal those of a longer input cut at the same time,
+    and a zero input gives the biases' response only from t=0 on."""
+    x, units, biases = _voc_case(8, 64, 3, True, seed=4)
+    units, biases = _port_units(units), _port_biases(biases)
+    kw = dict(dilations=VOC_DILATIONS, kernel_size=3, kernel_size2=3,
+              act="leaky_relu", act_param=0.1, biases=biases,
+              bf16_dots=False)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    full = port.folded_residual_stack(xt, units, **kw)
+    part = port.folded_residual_stack(xt[..., :40].contiguous(), units, **kw)
+    torch.testing.assert_close(part, full[..., :40], rtol=0, atol=0)
+    # by hand, for one unit on a zero input: y(t) = conv2(act(b1)) over the
+    # taps at t' >= 0, plus b2
+    one = port.folded_residual_stack(torch.zeros(1, 8, 5), units[:1],
+                                     **{**kw, "dilations": (1,),
+                                        "biases": biases[:1]})
+    m = torch.nn.functional.leaky_relu(biases[0][0], 0.1)
+    w2 = units[0][1]
+    for t in range(5):
+        taps = [k for k in range(3) if t - (2 - k) >= 0]
+        want = sum(w2[:, :, k] @ m for k in taps) + biases[0][1]
+        torch.testing.assert_close(one[0, :, t], want, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_vocoder_call_launches_no_kernel():
+    x, units, biases = _voc_case(8, 64, 3, True, seed=5)
+    port.folded_residual_stack(
+        torch.from_numpy(x).transpose(1, 2), _port_units(units),
+        dilations=VOC_DILATIONS, kernel_size=3, kernel_size2=3,
+        act="leaky_relu", act_param=0.1, biases=_port_biases(biases))
+    assert port.resblock_launches == 0 and port.launches == 0
+
+
+@pytest.mark.parametrize("c", [4, 12])
+def test_packed_resblock_layout_and_padding(c):
+    """The vocoder-mode kernel's weights, [u][k][i][o], and biases, [u][j][o],
+    zero-padded to the next built width, give the plain stack's result on
+    the first C channels and keep the padded channels at exactly zero."""
+    cp = next(p for p in port.PADDED_CHANNELS if c <= p)
+    x, units, biases = _voc_case(c, 200, 7, True, seed=c)
+    units, biases = _port_units(units), _port_biases(biases)
+    w1, w2, b = port._pack_resblock(units, biases, c, cp, False)
+    assert w1.shape == w2.shape == (3, 7, cp, cp) and b.shape == (3, 2, cp)
+    assert port._pack_resblock(units, None, c, cp, False)[2] is None
+    packed = [(a.permute(2, 1, 0), bb.permute(2, 1, 0)) for a, bb in zip(w1, w2)]
+    kw = dict(act="leaky_relu", act_param=0.1)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    xp = torch.nn.functional.pad(xt, (0, 0, 0, cp - c))
+    out = port.folded_residual_stack_plain(
+        xp, packed, VOC_DILATIONS, False, biases=[(u[0], u[1]) for u in b],
+        **kw)
+    ref = port.folded_residual_stack_plain(xt, units, VOC_DILATIONS, False,
+                                           biases=biases, **kw)
+    torch.testing.assert_close(out[:, :c], ref, rtol=1e-6, atol=1e-6)
+    assert not out[:, c:].any()
+
+
+def test_group_slices_hit_the_pack_cache():
+    """A grouped resblock's weight slices are new views on every call; two
+    views of one storage at one offset share a pack."""
+    from audiodec_tpu_torch.models.vocoder import slice_group
+
+    rng = np.random.default_rng(6)
+    full = [{"w": torch.from_numpy(rng.standard_normal((24, 8, 3))
+                                   .astype(np.float32)),
+             "b": torch.zeros(24)} for _ in range(2)]
+
+    def unit_views(g):
+        a, b = (slice_group(cv, g, 8) for cv in full)
+        return [(a["w"], b["w"])], [(a["b"], b["b"])]
+
+    first = port._packed_resblock(*unit_views(1), 8, 8, True)
+    again = port._packed_resblock(*unit_views(1), 8, 8, True)
+    assert all(a is b for a, b in zip(first, again))
+    other = port._packed_resblock(*unit_views(2), 8, 8, True)
+    assert not torch.equal(other[0], first[0])
+
+
+def test_vocoder_mode_bound():
+    """The vocoder mode's bound at AD v1's last stage, per launch: 0.98 GB
+    of bf16 activation (0.29 ms at 3.35 TB/s) against 1.04e12 FLOP
+    (1.05 ms at 989 TFLOP/s), so bound by operations."""
+    from audiodec_tpu_torch.bin import kernel_bounds
+
+    b = kernel_bounds.residual_stack(16, 480000, 32, k=11, k2=11,
+                                     storage=2, weight=2, peak="bf16",
+                                     bias=True)
+    assert abs(b["bytes_ms"] - 0.2935) < 1e-4
+    assert abs(b["operations_ms"] - 1.0496) < 1e-4
+    assert b["bound_by"] == "operations"
+    assert len({r[0] for r in kernel_bounds.rows()}) == 5
