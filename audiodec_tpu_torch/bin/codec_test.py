@@ -1,23 +1,52 @@
-"""Batch transcode: waveform -> RVQ indices -> waveform (counterpart of
-audiodec_tpu/bin/codec_test.py `BatchTranscoder`).
+"""Batch transcode of a directory of wav files: waveform -> RVQ indices ->
+waveform (counterpart of audiodec_tpu/bin/codec_test.py: `plan_buckets`,
+`load_planned_batch`, `bucket_batches`, `_pcm16`, `BatchTranscoder`,
+`load_codec`, `main`).
 
-Ported: stack="folded" (the residual stacks and vocoder resblocks the JAX
-package runs in its folded kernel go to the CUDA kernels) and stack="plain"
-(cuDNN convs throughout), dtype float32 or bfloat16, dec_dtype for the
-mixed mode (f32 encoder and RVQ, bf16 decoder), and the vocoder receiver
-(voc=(voc_params, voc_cfg): the AD v0/v1/v2 HiFiGAN decodes the codes in
-place of the symAD decoder).  The mesh, int8 decode, the batch folds (the
-JAX `vocoder_apply_batchfold` among them, ROADMAP A7), PCM16 I/O and the
-command line with its YAML config and checkpoint files wait for later
-slices.
+    python -m audiodec_tpu_torch.bin.codec_test --encoder E.ckpt \\
+        --decoder D.ckpt --data-path DIR --outdir OUT [--dtype int8-decode]
+
+E.ckpt and D.ckpt are JAX-format checkpoints (utils/checkpoint.py), each
+with its `config.yml` beside it; the same file for both is a symAD pair, a
+HiFiGAN decoder config makes the AD v0/v1/v2 receiver.  Utterances are
+bucketed by length from their headers, padded to a multiple of the hop and
+transcoded in batches on the card (`--device cpu` runs the same code on
+the CPU, with the kernels' plain versions).  A prefetch thread reads wavs
+ahead, up to `--inflight` batches are queued on the device before the
+oldest is fetched, and writer threads write `<uid>_output.wav` as PCM16.
+The last line printed is the JAX CLI's JSON summary (`utterances`,
+`audio_seconds`, `wall_seconds`, `rtf`, `hosts`).
+
+`--stack folded` (the default) equals JAX `--stack folded`; `--stack
+plain` equals JAX `--stack xla --encode-fold off --decode-fold off`.  The
+mesh and multi-host options, the batch folds and `--profile` are not
+ported.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import logging
+import math
+import os
+import queue
+import threading
+import time
+import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
+import numpy as np
 import torch
 
+from audiodec_tpu_torch.data.dataset import SingleDataset
+from audiodec_tpu_torch.data.wav import (
+    read_wav_pcm16,
+    wav_is_pcm16,
+    write_wav,
+)
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
     decoder_apply,
@@ -31,7 +60,16 @@ from audiodec_tpu_torch.models.fast import (
 )
 from audiodec_tpu_torch.models.vocoder import vocoder_apply
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
-from audiodec_tpu_torch.utils.bridge import tree_map
+from audiodec_tpu_torch.utils.bridge import (
+    params_from_jax,
+    tree_map,
+    vocoder_params_from_jax,
+)
+from audiodec_tpu_torch.utils.checkpoint import load_only_params
+from audiodec_tpu_torch.utils.config import (
+    generator_config,
+    load_config_near_checkpoint,
+)
 
 
 def require_device(device=None) -> torch.device:
@@ -51,6 +89,106 @@ def require_device(device=None) -> torch.device:
     return device
 
 
+# ---------------------------------------------------------------------------
+# batches from a corpus
+# ---------------------------------------------------------------------------
+
+def plan_buckets(dataset, batch_size: int, chunk: int):
+    """Batch plan [(indices, lens, padded_len)] from header-only length
+    scans: utterances longest first, grouped into batches padded to a
+    multiple of `chunk`."""
+    order = sorted(range(len(dataset)),
+                   key=lambda i: -dataset.num_frames(i))
+    plans = []
+    for i in range(0, len(order), batch_size):
+        idxs = order[i:i + batch_size]
+        lens = [dataset.num_frames(j) for j in idxs]
+        padded = math.ceil(max(lens) / chunk) * chunk
+        plans.append((idxs, lens, padded))
+    return plans
+
+
+def load_planned_batch(dataset, plan, pcm16_in=False):
+    """Read and zero-pad one planned batch -> (uids, batch, lens).
+
+    pcm16_in: when every file of the batch is PCM16, the batch holds the
+    raw int16 samples (the transcoder normalizes them by 1/32768 on the
+    device, exactly as the float read does, at half the bytes); if any file
+    is not PCM16 the batch is float32."""
+    idxs, lens, padded = plan
+    uids = [dataset.utt_ids[j] for j in idxs]
+    if (pcm16_in and dataset.load_fn == "audio"
+            and all(wav_is_pcm16(dataset.filenames[j]) for j in idxs)):
+        raws = [read_wav_pcm16(dataset.filenames[j]) for j in idxs]
+        if all(r is not None for r in raws):
+            batch = np.zeros((len(idxs), padded, raws[0][0].shape[-1]),
+                             np.int16)
+            for row, (x, _) in enumerate(raws):
+                batch[row, :lens[row]] = x
+            return uids, batch, lens
+
+    def data(j):
+        item = dataset[j]
+        return item[1] if isinstance(item, tuple) else item
+
+    first = data(idxs[0])
+    batch = np.zeros((len(idxs), padded, first.shape[-1]), np.float32)
+    batch[0, :lens[0]] = first
+    for row, j in enumerate(idxs[1:], start=1):
+        batch[row, :lens[row]] = data(j)
+    return uids, batch, lens
+
+
+def bucket_batches(dataset, batch_size: int, chunk: int, prefetch: int = 2,
+                   pcm16_in: bool = False):
+    """Yield (uids, batch, lens), read by a thread that runs `prefetch`
+    batches ahead of the consumer; its exceptions are raised here."""
+    plans = plan_buckets(dataset, batch_size, chunk)
+    out: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+    stop = threading.Event()
+
+    def producer():
+        try:
+            for plan in plans:
+                if stop.is_set():
+                    return
+                out.put(load_planned_batch(dataset, plan, pcm16_in))
+            out.put(None)
+        except BaseException as e:  # re-raised in the consumer
+            out.put(e)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = out.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():  # let a blocked put finish
+            try:
+                out.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        thread.join()
+
+
+# ---------------------------------------------------------------------------
+# the transcoder
+# ---------------------------------------------------------------------------
+
+def _pcm16(y: torch.Tensor) -> torch.Tensor:
+    """PCM16 on the device, as write_wav quantizes on the host: scale 2^15,
+    round half away from zero (exact in f32), clip."""
+    v = y.float() * 32768.0
+    q = torch.trunc(v + torch.where(v >= 0, 0.5, -0.5))
+    return torch.clamp(q, -32768, 32767).to(torch.int16)
+
+
 class BatchTranscoder:
     """Batch encode/decode of (B, T, 1) waveforms.
 
@@ -59,11 +197,20 @@ class BatchTranscoder:
     vocoder.  voc: None, or (voc_params, VocoderConfig) to decode with the
     vocoder instead of params["decoder"].
     bf16_dots: operand rounding inside the fused stacks (the JAX default is
-    True; False gives true-f32 stacks for parity runs)."""
+    True; False gives true-f32 stacks for parity runs).
+    int8_decode: every decoder residual stack in the kernel's int8 mode;
+    the decoder's params and activations stay f32 whatever dec_dtype is.
+    A vocoder or a config that is not causal audiodec cannot take it: it
+    warns, as JAX does, and decodes in dec_dtype instead.
+    pcm16: decode returns int16 PCM, quantized on the device.
+    exact_k: the RVQ argmin runs `vq_nearest_2pass` with this shortlist.
+    An int16 batch is read as PCM16 and normalized by 1/32768 on the
+    device, which equals the float read exactly."""
 
     def __init__(self, params: dict, cfg: GeneratorConfig, *, voc=None,
                  dtype=torch.float32, dec_dtype=None, stack: str = "folded",
-                 bf16_dots: bool = True, device=None):
+                 bf16_dots: bool = True, pcm16: bool = False,
+                 int8_decode: bool = False, exact_k=None, device=None):
         if stack not in ("folded", "plain"):
             raise ValueError(f"stack must be 'folded' or 'plain', got "
                              f"{stack!r}")
@@ -71,6 +218,17 @@ class BatchTranscoder:
         self.cfg = cfg
         self.dtype = dtype
         self.dec_dtype = dtype if dec_dtype is None else dec_dtype
+        self.pcm16 = pcm16
+        self.exact_k = exact_k
+        if int8_decode and (voc is not None or cfg.mode != "causal"
+                            or cfg.codec != "audiodec"):
+            warnings.warn(
+                "int8-decode cannot be honored for "
+                + ("vocoder-pair decodes" if voc is not None
+                   else f"mode={cfg.mode}/codec={cfg.codec}")
+                + "; running the non-int8 decoder instead")
+            int8_decode = False
+        self.int8_decode = int8_decode
         if stack == "folded":
             self.enc_apply = partial(encoder_apply_folded,
                                      bf16_dots=bf16_dots)
@@ -80,6 +238,10 @@ class BatchTranscoder:
         else:
             self.enc_apply, self.dec_apply = encoder_apply, decoder_apply
             voc_apply = vocoder_apply
+        if int8_decode:
+            # the int8 quantization rounds from f32 (JAX codec_test.py:256-265)
+            self.dec_apply = partial(decoder_apply_folded, int8=True)
+            self.dec_dtype = torch.float32
         # the decoder's or the vocoder's (params, zq, cfg) call
         self.dec_cfg = cfg if voc is None else voc[1]
         if voc is not None:
@@ -95,19 +257,184 @@ class BatchTranscoder:
         self.dec_params = on_device(params["decoder"] if voc is None
                                     else voc[0], self.dec_dtype)
 
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            # a pinned copy lets the upload queue behind earlier batches
+            # instead of waiting for them
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x
+
     def encode(self, x) -> torch.Tensor:
-        """x: (B, T, 1) -> indices (B, T/hop, Q) int32."""
-        x = torch.as_tensor(x, device=self.device).to(self.dtype)
-        h = self.enc_apply(self.enc_params["encoder"], x, self.cfg)
+        """x: (B, T, 1) float, or int16 PCM -> indices (B, T/hop, Q)
+        int32."""
+        x = self._to_device(x)
+        if x.dtype == torch.int16:
+            x = x.to(torch.float32) / 32768.0
+        h = self.enc_apply(self.enc_params["encoder"], x.to(self.dtype),
+                           self.cfg)
         z = projector_apply(self.enc_params["projector"], h, self.cfg)
-        _, idx = rvq_forward_index(z.float(), self.quantizer)
+        _, idx = rvq_forward_index(z.float(), self.quantizer,
+                                   exact_k=self.exact_k)
         return idx
 
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
-        """indices (B, T', Q) -> waveform (B, T' * hop, 1) float32."""
+        """indices (B, T', Q) -> waveform (B, T' * hop, 1), float32 or, with
+        pcm16, int16."""
         zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
-        return self.dec_apply(self.dec_params, zq, self.dec_cfg).float()
+        y = self.dec_apply(self.dec_params, zq, self.dec_cfg)
+        return _pcm16(y) if self.pcm16 else y.float()
 
     def __call__(self, x):
         idx = self.encode(x)
         return idx, self.decode(idx)
+
+
+def load_codec(encoder_ckpt: str, decoder_ckpt: str, **kwargs):
+    """A BatchTranscoder from a checkpoint pair: one symAD checkpoint for
+    both, or a symAD encoder and a HiFiGAN vocoder (each with the
+    config.yml beside it).  kwargs go to BatchTranscoder.
+    -> (transcoder, the encoder's config dict)."""
+    enc_config = load_config_near_checkpoint(encoder_ckpt)
+    cfg = generator_config(enc_config)
+    tree, _ = load_only_params(encoder_ckpt, "gen")
+    params = params_from_jax(tree)
+    voc = None
+    if os.path.abspath(decoder_ckpt) != os.path.abspath(encoder_ckpt):
+        dec_config = load_config_near_checkpoint(decoder_ckpt)
+        if dec_config.get("model_type") in ("HiFiGAN", "UnivNet"):
+            vtree, _ = load_only_params(decoder_ckpt, "gen")
+            voc = (vocoder_params_from_jax(vtree),
+                   generator_config(dec_config))
+    return BatchTranscoder(params, cfg, voc=voc, **kwargs), enc_config
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Batch transcode a directory of wav files.")
+    p.add_argument("--encoder", required=True)
+    p.add_argument("--decoder", required=True)
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--subset", default="test")
+    p.add_argument("--subset-num", type=int, default=-1,
+                   help="only transcode the first N utterances")
+    p.add_argument("--outdir", default=None)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16", "mixed", "int8-decode"],
+                   help="bfloat16: bf16 convs; mixed: f32 encoder and RVQ "
+                        "(the indices of float32), bf16 decoder; "
+                        "int8-decode: f32 encoder and RVQ, every decoder "
+                        "residual stack with int8 dots, quantized from f32")
+    p.add_argument("--stack", default="folded", choices=["folded", "plain"],
+                   help="folded: residual stacks in the CUDA kernels where "
+                        "the JAX package uses its folded kernel (JAX "
+                        "--stack folded); plain: cuDNN convs throughout "
+                        "(JAX --stack xla with the batch folds off)")
+    p.add_argument("--precision", default="default",
+                   choices=["default", "exact", "highest"],
+                   help="exact: the RVQ argmin runs the two-pass shortlist "
+                        "re-score (--exact-k); highest: --stack plain.  "
+                        "TF32 is off either way, so every f32 product is "
+                        "true f32")
+    p.add_argument("--exact-k", type=int, default=16,
+                   help="two-pass argmin shortlist size for --precision "
+                        "exact")
+    p.add_argument("--float-in", action="store_true",
+                   help="convert PCM16 input to float32 on the host instead "
+                        "of on the device (the same numbers)")
+    p.add_argument("--float-out", action="store_true",
+                   help="fetch float32 waveforms instead of PCM16 quantized "
+                        "on the device (the same files)")
+    p.add_argument("--inflight", type=int, default=2,
+                   help="batches queued on the device before the oldest is "
+                        "fetched; 1 = synchronous")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the command line; prints the JSON summary and returns it."""
+    parser = _parser()
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    stack, exact_k = args.stack, None
+    if args.precision == "highest":
+        stack = "plain"
+    elif args.precision == "exact":
+        if args.dtype == "bfloat16":
+            parser.error("--precision exact needs an f32 encoder "
+                         "(--dtype float32, mixed, or int8-decode)")
+        exact_k = args.exact_k
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    dec_dtype = (torch.bfloat16 if args.dtype in ("mixed", "int8-decode")
+                 else None)
+    transcoder, config = load_codec(
+        args.encoder, args.decoder, dtype=dtype, stack=stack,
+        dec_dtype=dec_dtype, pcm16=not args.float_out,
+        int8_decode=args.dtype == "int8-decode", exact_k=exact_k,
+        device=args.device)
+    sr = config.get("sampling_rate", 48000)
+
+    data_path = args.data_path or os.path.join(
+        config["data"]["path"], config["data"]["subset"][args.subset])
+    dataset = SingleDataset(data_path, return_utt_id=True,
+                            subset_num=args.subset_num)
+    outdir = args.outdir or (
+        os.path.splitext(os.path.basename(args.encoder))[0] + "-"
+        + os.path.splitext(os.path.basename(args.decoder))[0])
+    os.makedirs(outdir, exist_ok=True)
+
+    # pipelined: the prefetch thread reads wavs ahead, up to --inflight
+    # batches are queued on the device before the oldest is fetched
+    # (.cpu() waits for it), and writer threads drain the files
+    inflight: deque = deque()
+    writes = []
+    total_audio, n_utts = 0.0, 0
+    with ThreadPoolExecutor(max_workers=2) as writer:
+        def drain_one():
+            uids, lens, batch_t, t_disp, y = inflight.popleft()
+            y_np = y.cpu().numpy()
+            dt = time.perf_counter() - t_disp
+            logging.info("batch of %d (T=%d): ready %.3fs after dispatch, "
+                         "RTF>=%.1fx", len(uids), batch_t, dt,
+                         sum(lens) / sr / dt)
+            for j, uid in enumerate(uids):
+                writes.append(writer.submit(
+                    write_wav, os.path.join(outdir, f"{uid}_output.wav"),
+                    y_np[j, :lens[j]], sr))
+
+        t_start = time.perf_counter()
+        for uids, batch, lens in bucket_batches(
+                dataset, args.batch_size, transcoder.cfg.hop_length,
+                prefetch=args.inflight, pcm16_in=not args.float_in):
+            _, y = transcoder(batch)
+            inflight.append((uids, lens, batch.shape[1],
+                             time.perf_counter(), y))
+            total_audio += sum(lens) / sr
+            n_utts += len(uids)
+            while len(inflight) > max(0, args.inflight - 1):
+                drain_one()
+        while inflight:
+            drain_one()
+        total_time = time.perf_counter() - t_start  # end-to-end wall clock
+        for w in writes:
+            w.result()
+    summary = {"utterances": n_utts, "audio_seconds": total_audio,
+               "wall_seconds": total_time,
+               "rtf": total_audio / total_time if total_time else 0.0,
+               "hosts": 1}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

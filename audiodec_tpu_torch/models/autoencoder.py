@@ -61,6 +61,25 @@ class GeneratorConfig:
         return math.prod(self.enc_strides)
 
 
+def config_from_yaml(d: dict) -> GeneratorConfig:
+    """A config's `generator_params` dict (already parsed) -> GeneratorConfig;
+    the reference's `quantier` key (its typo) is read as `quantizer`, and
+    keys the config has no field for are skipped."""
+    aliases = {"quantier": "quantizer"}
+    fields = {f.name for f in dataclasses.fields(GeneratorConfig)}
+    out = {}
+    for k, v in d.items():
+        k = aliases.get(k, k)
+        if k not in fields:
+            continue
+        if k == "nonlinear_activation_params":
+            v = tuple(sorted(v.items()))
+        elif isinstance(v, list):
+            v = tuple(v)
+        out[k] = v
+    return GeneratorConfig(**out)
+
+
 def _check_supported(cfg: GeneratorConfig):
     if cfg.mode != "causal" or cfg.codec != "audiodec":
         raise NotImplementedError(

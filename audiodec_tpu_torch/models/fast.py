@@ -1,16 +1,19 @@
 """Batch inference through the fused residual-stack kernels (counterpart of
-audiodec_tpu/models/fast.py: `_use_folded`, `res_stack_auto`,
-`encoder_apply_folded`, `decoder_apply_folded`, and the vocoder fast path
+audiodec_tpu/models/fast.py: `_use_folded`, `res_stack_auto` with its int8
+branch, `encoder_apply_folded`, `decoder_apply_folded`, and the vocoder fast
+path
 `_voc_resblock_params`, `_voc_use_folded`, `_voc_resblock_folded`,
 `_voc_fusion_auto`, `vocoder_apply_folded`).
 
 The stacks and resblocks that the JAX package sends to its folded kernel go
-to the CUDA kernels; the rest stay plain cuDNN convs.  The batch-fold and
-int8 paths wait for later slices.
+to the CUDA kernels; the rest stay plain cuDNN convs.  With int8=True every
+decoder stack, of any width, goes to the kernel's int8 mode.  The batch-fold
+paths wait for a later slice.
 """
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 
 from audiodec_tpu_torch.models.autoencoder import (
@@ -41,10 +44,26 @@ def _use_folded(c: int, t: int, cfg: GeneratorConfig) -> bool:
 
 
 def res_stack_auto(x, block_params, cfg: GeneratorConfig,
-                   bf16_dots: bool = True):
+                   bf16_dots: bool = True, int8: bool = False):
     """Residual stack of a block: the kernel where the JAX package uses its
-    folded kernel, plain convs otherwise.  x: (B, C, T)."""
+    folded kernel, plain convs otherwise.  x: (B, C, T).
+
+    int8=True (the int8 decode): every stack, of any width, goes to the
+    kernel's int8 mode, which needs param-free ELU units; with any other
+    activation it warns, as JAX does, and takes the normal route."""
     _, c, t = x.shape
+    if int8:
+        if (cfg.nonlinear_activation == "ELU"
+                and not cfg.nonlinear_activation_params):
+            return folded_residual_stack(
+                x, res_stack_params(block_params),
+                dilations=tuple(cfg.res_dilations),
+                kernel_size=cfg.res_kernel_size, int8_dots=True)
+        warnings.warn(
+            f"int8 residual stacks require param-free ELU activation "
+            f"(got {cfg.nonlinear_activation}"
+            f"{dict(cfg.nonlinear_activation_params) or ''}); "
+            f"falling back to the non-int8 path")
     if _use_folded(c, t, cfg):
         return folded_residual_stack(
             x, res_stack_params(block_params),
@@ -59,9 +78,12 @@ def encoder_apply_folded(p, x, cfg: GeneratorConfig, bf16_dots: bool = True):
     return encoder_bct(p, x.transpose(1, 2), cfg, stack).transpose(1, 2)
 
 
-def decoder_apply_folded(p, z, cfg: GeneratorConfig, bf16_dots: bool = True):
-    """Batch causal decoder.  z: (B, T', D) -> (B, T, C_out)."""
-    stack = partial(res_stack_auto, bf16_dots=bf16_dots)
+def decoder_apply_folded(p, z, cfg: GeneratorConfig, bf16_dots: bool = True,
+                         int8: bool = False):
+    """Batch causal decoder.  z: (B, T', D) -> (B, T, C_out).  int8=True:
+    every residual stack in the kernel's int8 mode; the transposed and the
+    plain convs keep their input dtype."""
+    stack = partial(res_stack_auto, bf16_dots=bf16_dots, int8=int8)
     return decoder_bct(p, z.transpose(1, 2), cfg, stack).transpose(1, 2)
 
 

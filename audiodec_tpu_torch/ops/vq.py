@@ -9,7 +9,7 @@ whenever the f32 products agree (TF32 must be off on the card).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,18 +29,39 @@ def vq_nearest(z: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return torch.argmin(vq_distances(z, embed), dim=-1).to(torch.int32)
 
 
-def rvq_forward_index(z: torch.Tensor, params: dict, flatten: bool = False
+def vq_nearest_2pass(z: torch.Tensor, embed: torch.Tensor,
+                     k: int = 16) -> torch.Tensor:
+    """Two-pass argmin: shortlist the k nearest codes by vq_distances, then
+    re-score only those with an f32 cross term; ties go to the lowest code
+    index.  The JAX package needs it where its first pass multiplies in
+    bf16; with TF32 off both passes here are f32, so it gives
+    vq_nearest's indices.  z: (..., D); embed: (N, D) -> (...) int32."""
+    _, cand = torch.topk(-vq_distances(z, embed), k, dim=-1)
+    e = embed[cand]                                    # (..., k, D)
+    z2 = torch.sum(torch.square(z), dim=-1, keepdim=True)
+    e2 = torch.sum(torch.square(e), dim=-1)
+    cross = torch.matmul(e, z.unsqueeze(-1)).squeeze(-1)
+    dk = z2 - 2.0 * cross + e2
+    m = torch.min(dk, dim=-1, keepdim=True).values
+    best = torch.where(dk <= m, cand, embed.shape[0]).min(dim=-1).values
+    return best.to(torch.int32)
+
+
+def rvq_forward_index(z: torch.Tensor, params: dict, flatten: bool = False,
+                      exact_k: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize-dequantize with indices.  z: (B, T, D) -> (zq, idx (B, T, Q)
     int32); with `flatten`, layer-q indices are offset by q*N (the
-    reference's wire format)."""
+    reference's wire format); with `exact_k`, each layer's argmin is
+    vq_nearest_2pass with that shortlist."""
     embed = params["embed"]
     num_q, n_embed = embed.shape[0], embed.shape[1]
     residual = z
     zq = torch.zeros_like(z)
     idxs = []
     for q in range(num_q):
-        idx = vq_nearest(residual, embed[q])
+        idx = (vq_nearest_2pass(residual, embed[q], k=exact_k) if exact_k
+               else vq_nearest(residual, embed[q]))
         quant = embed[q][idx.long()]
         # JAX's straight-through form, residual + (quant - residual), which
         # rounds differently from quant itself

@@ -1,1 +1,2 @@
-"""Utilities: weights carried in from JAX and from the reference."""
+"""Utilities: configs, checkpoints, and weights carried in from JAX and from
+the reference."""

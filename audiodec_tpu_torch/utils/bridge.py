@@ -1,10 +1,12 @@
 """Weights carried into the port: from the JAX package's param tree, and from
 the reference implementation's state dict (the port's own copy of
 audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`
-and `import_vocoder` with fold=True).
+and `import_vocoder` with fold=True); and back to the JAX tree
+(`params_to_jax`, `vocoder_params_to_jax`), so that port weights can be
+written as a JAX-format checkpoint (utils/checkpoint.py).
 
-Both return the port's tree: the JAX tree's structure with torch's weight
-orientation, as CPU float32 tensors.
+The port's tree is the JAX tree's structure with torch's weight
+orientation, as CPU float32 tensors; the JAX tree holds numpy arrays.
 
     JAX conv           (K, I, O)            -> (O, I, K)
     JAX transposed     (K, I, O) gathering  -> (I, O, K), K flipped
@@ -73,7 +75,8 @@ def params_from_jax(tree: dict) -> dict:
                        for b in enc["blocks"]],
         },
         "projector": proj,
-        "quantizer": {"embed": _tensor(tree["quantizer"]["embed"])},
+        # the EMA statistics (training state) ride along, unused
+        "quantizer": {k: _tensor(v) for k, v in tree["quantizer"].items()},
         "decoder": {
             "conv1": _conv_from_jax(dec["conv1"]),
             "blocks": [{"conv": _convt_from_jax(b["conv"]),
@@ -109,6 +112,101 @@ def vocoder_params_from_jax(tree: dict) -> dict:
     for k in ("mean", "scale"):
         if k in tree:
             out[k] = _tensor(tree[k])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# back to the JAX param tree (numpy leaves)
+# ---------------------------------------------------------------------------
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _conv_to_jax(p: dict) -> dict:
+    out = {"w": np.ascontiguousarray(np.transpose(_array(p["w"]), (2, 1, 0)))}
+    if "b" in p:
+        out["b"] = _array(p["b"])
+    return out
+
+
+def _convt_to_jax(p: dict) -> dict:
+    w = np.transpose(_array(p["w"]), (2, 0, 1))[::-1]
+    out = {"w": np.ascontiguousarray(w)}
+    if "b" in p:
+        out["b"] = _array(p["b"])
+    return out
+
+
+def _res_to_jax(units) -> list:
+    return [{"conv1": _conv_to_jax(u["conv1"]),
+             "conv2": _conv_to_jax(u["conv2"])} for u in units]
+
+
+def _quantizer_to_jax(q: dict) -> dict:
+    """The codebooks, with the EMA statistics the JAX tree holds for
+    training: carried where the port's params have them, else as JAX's
+    init sets them (cluster_size 0, embed_avg = embed)."""
+    embed = _array(q["embed"])
+    out = {"embed": embed,
+           "cluster_size": np.zeros(embed.shape[:2], np.float32),
+           "embed_avg": embed.copy()}
+    out.update({k: _array(v) for k, v in q.items()})
+    return out
+
+
+def params_to_jax(params: dict) -> dict:
+    """The port's generator params -> the JAX tree (inverse of
+    params_from_jax)."""
+    enc, dec = params["encoder"], params["decoder"]
+    proj = {"conv": _conv_to_jax(params["projector"]["conv"])}
+    if "bn" in params["projector"]:
+        proj["bn"] = {k: _array(v)
+                      for k, v in params["projector"]["bn"].items()}
+    return {
+        "encoder": {
+            "conv": _conv_to_jax(enc["conv"]),
+            "blocks": [{"res": _res_to_jax(b["res"]),
+                        "conv": _conv_to_jax(b["conv"])}
+                       for b in enc["blocks"]],
+        },
+        "projector": proj,
+        "quantizer": _quantizer_to_jax(params["quantizer"]),
+        "decoder": {
+            "conv1": _conv_to_jax(dec["conv1"]),
+            "blocks": [{"conv": _convt_to_jax(b["conv"]),
+                        "res": _res_to_jax(b["res"])}
+                       for b in dec["blocks"]],
+            "conv2": _conv_to_jax(dec["conv2"]),
+        },
+    }
+
+
+def _voc_resblock_to_jax(blk: dict) -> dict:
+    return {"convs1": [_conv_to_jax(c) for c in blk["convs1"]],
+            "convs2": [_conv_to_jax(c) for c in blk["convs2"]]}
+
+
+def vocoder_params_to_jax(params: dict) -> dict:
+    """The port's vocoder params -> the JAX tree (inverse of
+    vocoder_params_from_jax)."""
+    blocks = []
+    for blk in params["blocks"]:
+        if "blocks" in blk:   # MultiReceptiveField
+            blocks.append({"blocks": [_voc_resblock_to_jax(b)
+                                      for b in blk["blocks"]]})
+        else:                 # MultiGroupConv1d
+            blocks.append({**_voc_resblock_to_jax(blk),
+                           "conv_out": _conv_to_jax(blk["conv_out"])})
+    out = {
+        "input_conv": _conv_to_jax(params["input_conv"]),
+        "upsamples": [_convt_to_jax(u) for u in params["upsamples"]],
+        "blocks": blocks,
+        "output_conv": _conv_to_jax(params["output_conv"]),
+    }
+    for k in ("mean", "scale"):
+        if k in params:
+            out[k] = _array(params[k])
     return out
 
 
@@ -160,8 +258,12 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
                        "bias": _tensor(sd[bn + "bias"]),
                        "mean": _tensor(sd[bn + "running_mean"]),
                        "var": _tensor(sd[bn + "running_var"])}}
-    embed = np.stack([np.asarray(sd[f"quantizer.codebook.layers.{q}.embed"]).T
-                      for q in range(cfg.codebook_num)])
+    def codebooks(name, transpose):
+        return _tensor(np.stack([
+            np.asarray(sd[f"quantizer.codebook.layers.{q}.{name}"]).T
+            if transpose else sd[f"quantizer.codebook.layers.{q}.{name}"]
+            for q in range(cfg.codebook_num)]))
+
     return {
         "encoder": {
             "conv": conv("encoder.conv.conv"),
@@ -170,7 +272,10 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
                        for i in range(len(cfg.enc_strides))],
         },
         "projector": proj,
-        "quantizer": {"embed": _tensor(embed)},
+        # embed (D, N) -> (N, D); the EMA statistics ride along, unused
+        "quantizer": {"embed": codebooks("embed", True),
+                      "cluster_size": codebooks("cluster_size", False),
+                      "embed_avg": codebooks("embed_avg", True)},
         "decoder": {
             "conv1": conv("decoder.conv1.conv"),
             "blocks": [{"conv": conv(f"decoder.conv_blocks.{i}.conv.deconv"),

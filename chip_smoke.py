@@ -1,16 +1,24 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's two CUDA kernels (the residual-stack kernel's autoencoder
-and vocoder modes) from the sources in this checkout, one nvcc each, in
-parallel; holds each against its plain PyTorch version; checks the batch
-transcode and the vocoder against the reference goldens; then drives the
-two paths once each, times them and profiles one more transcode of each:
+Builds the port's three CUDA kernels (the residual-stack kernel's
+autoencoder, vocoder and int8 modes) from the sources in this checkout, one
+nvcc each, in parallel; holds each against its plain PyTorch version;
+checks the batch transcode and the vocoder against the reference goldens;
+then drives the paths once each, times them and profiles one more
+transcode of each:
 
   - main_path (slice 1): symAD, B=16 x 10 s at 48 kHz, mixed mode (f32
     encoder and RVQ, bf16 decoder), residual stacks through the kernel;
   - ad_v1_path (slice 2): the AD v1 receiver, the same encoder and RVQ with
     the AudioDec_v1 48 kHz HiFiGAN vocoder (full width, random weights from
-    a seed) decoding in bf16, its C=32 resblocks through the kernel.
+    a seed) decoding in bf16, its C=32 resblocks through the kernel;
+  - int8_path (slice 3): the same symAD transcode with the int8 decode
+    (`BatchTranscoder(int8_decode=True)`), every decoder stack (C = 256,
+    128, 64, 32) through the int8-mode kernel;
+  - cli_path (slice 3): the batch command line (`bin/codec_test.py main`)
+    on the trained golden written as a JAX-format checkpoint beside the
+    symAD config, over seeded PCM16 wavs of 2-10 s, with --dtype
+    int8-decode and with --dtype mixed.  It prints the CLI's JSON line.
 
 Each phase prints one JSON line with its own seconds; any failure raises,
 so the script exits non-zero and prints no result.  Without a CUDA device
@@ -22,22 +30,26 @@ them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 
 In the `kernels` line, `launches` is the count from the run of the path
 that brought the mode in (autoencoder mode: main_path; vocoder mode:
-ad_v1_path), `launches_by_path` the counts of both paths, each read with
-the counts set to 0 just before the path and read just after.  `ms`,
-`plain_ms`, `chain_ms` and `bound_ms` add up that path's launches at their
-shapes (autoencoder: one f32 stack in the encoder and one bf16 stack in the
-decoder, both (16, 32, 480000); vocoder: the three groups' resblocks of
-the last stage, (16, 32, 480000) bf16).  `bound_ms` is the larger of bytes
-over 3.35 TB/s and FLOP over 989 TFLOP/s (bf16 operands), per launch.
-`library_ms` is null: no single PyTorch call computes a stack; `chain_ms`
-is the same units as F.conv1d calls in the working dtype.  Peaks are the
-H100 SXM data sheet's, at 700 W.
+ad_v1_path; int8 mode: int8_path), `launches_by_path` the counts of every
+path, each read with the counts set to 0 just before the path and read
+just after.  `ms`, `plain_ms`, `chain_ms` and `bound_ms` add up that
+path's launches at their shapes (autoencoder: one f32 stack in the encoder
+and one bf16 stack in the decoder, both (16, 32, 480000); vocoder: the
+three groups' resblocks of the last stage, (16, 32, 480000) bf16; int8:
+the four decoder stacks, (16, C, T) f32 at C = 256/128/64/32 and T =
+8000/40000/160000/480000).  `bound_ms` is the larger of bytes over 3.35
+TB/s and operations over the peak of the dots' type (989 TFLOP/s bf16,
+1979 TOP/s int8), per launch.  `library_ms` is null: no single PyTorch
+call computes a stack; `chain_ms` is the same units as F.conv1d calls in
+the working dtype (f32 for the int8 mode).  Peaks are the H100 SXM data
+sheet's, at 700 W.
 
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from audiodec_tpu_torch.bin import codec_test
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
 from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
 from audiodec_tpu_torch.models import fast
@@ -60,24 +73,40 @@ from audiodec_tpu_torch.models.vocoder import (
     vocoder_init,
 )
 from audiodec_tpu_torch.ops.kernels import _build, folded_stack
+from audiodec_tpu_torch.data.wav import read_wav_pcm16, write_wav
 from audiodec_tpu_torch.utils.bridge import (
     params_from_reference_sd,
+    params_to_jax,
     tree_map,
     vocoder_params_from_reference_sd,
 )
+from audiodec_tpu_torch.utils.checkpoint import save_checkpoint
 
-GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "golden"
+SYMAD_YAML = ROOT / "configs" / "autoencoder" / "symAD_vctk_48000_hop300.yaml"
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_SECONDS = (10.0, 8.5, 7.0, 5.5, 4.0, 2.0)
 SR = 48000
 BATCH, SECONDS = 16, 10
 DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
-KERNELS = ("folded_stack", "resblock_stack")
+KERNELS = ("folded_stack", "resblock_stack", "int8_stack")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
 # true f32: only the order of the sums differs (tests/test_folded_stack.py
 # :73-75); bf16 operands or storage: max error relative to the output's peak
 F32_RTOL, F32_ATOL_REL, BF16_REL = 1e-4, 5e-5, 1e-2
+# int8 mode: the kernel and the plain version make the same f32 roundings
+# (the plain version's fma is exact f64 arithmetic rounded once, which can
+# differ from fmaf by an ulp in about 2^-29 of cases); max error relative to
+# the output's peak
+INT8_REL = 1e-5
+# the symAD decoder's stacks at B=16 x 10 s: (C, T)
+INT8_SHAPES = ((256, 8000), (128, 40000), (64, 160000), (32, 480000))
+# the int8 decode against the true-f32 decode, relative to its peak
+INT8_DECODE_REL = 5e-2
 
 # generator_params of configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_
 # clean.yaml, as it stands (the card has no PyYAML; a test holds the two
@@ -419,11 +448,13 @@ def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
 
 def read_launches() -> dict:
     return {"autoencoder": folded_stack.launches,
-            "vocoder": folded_stack.resblock_launches}
+            "vocoder": folded_stack.resblock_launches,
+            "int8": folded_stack.int8_launches}
 
 
 def reset_launches():
     folded_stack.launches = folded_stack.resblock_launches = 0
+    folded_stack.int8_launches = 0
 
 
 def check_transcode(idx, y, x, cfg: GeneratorConfig):
@@ -462,9 +493,9 @@ def phase_main_path(device):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 2, "vocoder": 0}:
+    if launches != {"autoencoder": 2, "vocoder": 0, "int8": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 2 "
-                             f"autoencoder-mode and no vocoder-mode")
+                             f"autoencoder-mode and no other")
     check_transcode(idx, y, x, cfg)
 
     times = time_transcoder(tc, x, idx)
@@ -493,9 +524,10 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 1, "vocoder": 3}:
+    if launches != {"autoencoder": 1, "vocoder": 3, "int8": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 1 "
-                             f"autoencoder-mode and 3 vocoder-mode")
+                             f"autoencoder-mode, 3 vocoder-mode and no "
+                             f"int8-mode")
     check_transcode(idx, y, x, cfg)
     if not torch.equal(idx, idx_symad):
         raise AssertionError("the AD v1 path's indices differ from the "
@@ -518,6 +550,176 @@ def phase_ad_v1_path(device, params, x, idx_symad):
          **times, launches=launches, peak_abs_y=float(y.abs().max()),
          mixed_vs_f32_decode_rel_err=mixed_rel, resblock_stack=rows)
     return launches, rows, tc
+
+
+def check_int8(x, units):
+    """int8-mode kernel vs its plain version on the same inputs; returns
+    (max abs error, the same relative to the peak, the kernel's error
+    relative to the f32 chain's peak)."""
+    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
+                                             int8_dots=True)
+    ref = folded_stack.folded_residual_stack_int8_plain(x, units, DILATIONS)
+    f32 = chain(x, units)  # f32, no quantization
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("int8 kernel output is not finite")
+    if torch.equal(out, x):
+        raise AssertionError("int8 kernel returned its input unchanged")
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= INT8_REL:
+        raise AssertionError(f"int8 kernel off its plain version by "
+                             f"{rel:.3g} of the peak (bound {INT8_REL})")
+    return err, rel, float((out - f32).abs().max() / f32.abs().max())
+
+
+def decoder_units(params, block: int, device):
+    """Unit weights of a symAD decoder block's stack, f32."""
+    bp = params["decoder"]["blocks"][block]
+    return tuple((u["conv1"]["w"].to(device), u["conv2"]["w"].to(device))
+                 for u in bp["res"])
+
+
+def phase_int8_kernel_vs_plain(params, device):
+    """The int8-mode kernel against its plain version: random weights at
+    C = 4, 32, 64, 128 and 256 with ragged T (T not a multiple of the fold
+    F = 128 // C, one T shorter than the halo), and the trained golden's
+    four decoder stacks at their main-path lengths (B=2)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cases = []
+    for c, t in ((4, 1999), (4, 50), (32, 4803), (64, 1601), (128, 803),
+                 (256, 161), (256, 8001)):
+        units = random_units(c, device, torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        err, rel, chain_rel = check_int8(x, units)
+        cases.append({"C": c, "T": t, "weights": "random",
+                      "max_abs_err": err, "max_rel_err": rel,
+                      "rel_err_vs_f32_chain": chain_rel})
+    for block, (c, t) in enumerate(INT8_SHAPES):
+        units = decoder_units(params, block, device)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        err, rel, chain_rel = check_int8(x, units)
+        cases.append({"C": c, "T": t, "weights": f"decoder block {block}",
+                      "max_abs_err": err, "max_rel_err": rel,
+                      "rel_err_vs_f32_chain": chain_rel})
+    emit("int8_kernel_vs_plain", t0,
+         tolerance=f"max error < {INT8_REL} x peak", cases=cases)
+
+
+def int8_kernel_timing(params, device, gen):
+    """Per decoder stack of the int8 path: the int8-mode kernel's, plain
+    and f32-chain ms and the bound at (16, C, T) f32."""
+    rows = []
+    for block, (c, t) in enumerate(INT8_SHAPES):
+        units = decoder_units(params, block, device)
+        x = torch.randn(BATCH, c, t, generator=gen, device=device)
+        err, _, _ = check_int8(x, units)
+        row = {
+            "shape": [BATCH, c, t], "dtype": "float32", "max_abs_err": err,
+            "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                x, units, dilations=DILATIONS, int8_dots=True), reps=5),
+            "plain_ms": cuda_ms(
+                lambda: folded_stack.folded_residual_stack_int8_plain(
+                    x, units, DILATIONS), reps=2),
+            "chain_ms": cuda_ms(lambda: chain(x, units), reps=3),
+            "cuda_launches_per_call": len(units),
+        }
+        # each input read once (x f32, int8 weights), the output written
+        # once; the dots' operations at the int8 tensor-core peak
+        nbytes = 2 * x.numel() * x.element_size() + sum(
+            w.numel() for u in units for w in u)
+        ops = len(units) * (7 + 1) * c * c * 2 * BATCH * t
+        row.update(bound_ms(nbytes, ops, "int8"))
+        rows.append(row)
+    return rows
+
+
+def phase_int8_path(device, params, x, idx_main):
+    """symAD with the int8 decode, B=16 x 10 s: the f32 encoder and RVQ
+    (its C=32 stack in the autoencoder-mode kernel) and every decoder
+    stack in the int8-mode kernel, f32 params, as `codec_test --dtype
+    int8-decode` builds it (dec_dtype bf16, overridden to f32)."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    tc = BatchTranscoder(params, cfg, dtype=torch.float32,
+                         dec_dtype=torch.bfloat16, int8_decode=True,
+                         stack="folded", device=device)
+    if not tc.int8_decode or tc.dec_dtype != torch.float32:
+        raise AssertionError("the int8 decode was not taken")
+
+    reset_launches()
+    idx, y = tc(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"autoencoder": 1, "vocoder": 0, "int8": 4}:
+        raise AssertionError(f"kernel launches {launches}, expected 1 "
+                             f"autoencoder-mode and 4 int8-mode")
+    check_transcode(idx, y, x, cfg)
+    if not torch.equal(idx, idx_main):
+        raise AssertionError("the int8 path's indices differ from the main "
+                             "path's (same encoder, same input)")
+    ref = BatchTranscoder(params, cfg, stack="folded", bf16_dots=False,
+                          device=device).decode(idx)
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    if not rel < INT8_DECODE_REL:
+        raise AssertionError(f"int8 decode off the f32 decode by {rel:.3g} "
+                             f"of its peak (bound {INT8_DECODE_REL})")
+
+    times = time_transcoder(tc, x, idx)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows = int8_kernel_timing(params, device, gen)
+    emit("int8_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
+         **times, launches=launches, int8_vs_f32_decode_rel_err=rel,
+         int8_stack=rows)
+    return launches, rows, tc
+
+
+def phase_cli_path(params):
+    """The command line on the card: the trained golden as a JAX-format
+    checkpoint with the symAD config beside it, seeded PCM16 wavs of 2-10 s,
+    `main` with --dtype int8-decode and with --dtype mixed."""
+    t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    exp, wavs = CLI_DIR / "exp", CLI_DIR / "wavs"
+    exp.mkdir(parents=True)
+    wavs.mkdir()
+    shutil.copyfile(SYMAD_YAML, exp / "config.yml")
+    ckpt = exp / "checkpoint-golden.ckpt"
+    save_checkpoint(str(ckpt), {"gen": params_to_jax(params)}, 0)
+    rng = np.random.default_rng(SEED)
+    lengths = {}
+    for i, sec in enumerate(CLI_SECONDS):
+        n = int(sec * SR)
+        x = np.clip(0.3 * rng.standard_normal((n, 1)), -1, 1)
+        write_wav(str(wavs / f"utt{i}.wav"), x.astype(np.float32), SR)
+        lengths[f"utt{i}_output.wav"] = n
+    runs = {}
+    for dtype in ("int8-decode", "mixed"):
+        outdir = CLI_DIR / f"out_{dtype}"
+        reset_launches()
+        summary = codec_test.main([
+            "--encoder", str(ckpt), "--decoder", str(ckpt),
+            "--data-path", str(wavs), "--outdir", str(outdir),
+            "--dtype", dtype, "--batch-size", "16"])
+        launches = read_launches()
+        files = sorted(p.name for p in outdir.iterdir())
+        if files != sorted(lengths):
+            raise AssertionError(f"--dtype {dtype} wrote {files}")
+        for name, n in lengths.items():
+            got = read_wav_pcm16(str(outdir / name))
+            if got is None or got[0].shape != (n, 1) or got[1] != SR:
+                raise AssertionError(f"--dtype {dtype}: {name} is not a "
+                                     f"{n}-sample PCM16 wav")
+            if not np.abs(got[0]).max() > 0:
+                raise AssertionError(f"--dtype {dtype}: {name} is silent")
+        want = 4 if dtype == "int8-decode" else 0
+        if launches["int8"] != want:
+            raise AssertionError(f"--dtype {dtype}: {launches}")
+        runs[dtype] = {"cli": summary, "launches": launches,
+                       "files": len(files)}
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    emit("cli_path", t0, runs=runs)
 
 
 def phase_profile(path: str, tc, x):
@@ -600,14 +802,22 @@ def main():
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
     phase_voc_kernel_vs_plain(device)
+    phase_int8_kernel_vs_plain(trained, device)
     phase_golden(device)
     phase_voc_golden(device)
     ae_launches, ae_rows, tc, x, idx, params = phase_main_path(device)
     phase_profile("main_path", tc, x)
     voc_launches, voc_rows, tc_v1 = phase_ad_v1_path(device, params, x, idx)
     phase_profile("ad_v1_path", tc_v1, x)
+    del tc_v1
+    int8_launches, int8_rows, tc_int8 = phase_int8_path(device, params, x,
+                                                        idx)
+    phase_profile("int8_path", tc_int8, x)
+    del tc_int8
+    phase_cli_path(params)
 
-    by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches}
+    by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
+               "int8_path": int8_launches}
     print(json.dumps({"kernels": [
         kernel_entry("folded_residual_stack", "autoencoder",
                      "audiodec_tpu_torch/csrc/folded_stack.cu", ae_rows,
@@ -615,6 +825,9 @@ def main():
         kernel_entry("folded_residual_stack", "vocoder",
                      "audiodec_tpu_torch/csrc/resblock_stack.cu", voc_rows,
                      by_path, "ad_v1_path"),
+        kernel_entry("folded_residual_stack", "int8",
+                     "audiodec_tpu_torch/csrc/int8_stack.cu", int8_rows,
+                     by_path, "int8_path"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

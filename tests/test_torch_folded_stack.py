@@ -71,7 +71,7 @@ VOC = {"act": "leaky_relu", "act_param": 0.1}
     {"act": "gelu"},
     {**VOC, "kernel_size": 5, "kernel_size2": 5},
     {**VOC, "kernel_size2": 7, "int8_dots": True},
-    {"int8_dots": True},
+    {"int8_dots": True, "kernel_size2": 7},
 ])
 def test_off_path_modes_raise(kwargs):
     x, units = _case(8, 64, seed=0)

@@ -1,0 +1,219 @@
+"""The port's int8 residual stack (plain version) against the JAX folded
+kernel's int8 mode ("row" scales), in interpret mode.
+
+The CUDA kernel (csrc/int8_stack.cu) is held to the plain version on the
+card by chip_smoke.py.
+
+Tolerance against JAX.  The two do not agree bit for bit: XLA's f32 exp
+differs from PyTorch's by an ulp on part of the arguments, and XLA fuses
+some of the kernel's multiply-adds differently.  Where no int8 code moves,
+that leaves an f32-rounding difference (about 1e-7 of the output's peak,
+bound 1e-5 of it).  Where an ulp lands on a rounding boundary of the
+quantizer, one activation's int8 code moves by one step, 1/127 of its
+row's peak, and that step runs on through the later units.  So one unit
+must agree within 1e-5 of the peak on 95% of its outputs, and every output
+of one unit or of the whole stack within 1e-2 of the peak; a wrong scale
+grouping or rounding misses the first bound on most outputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audiodec_tpu.models.autoencoder import GeneratorConfig as JaxConfig
+from audiodec_tpu.models.autoencoder import generator_init
+from audiodec_tpu.models import fast as jax_fast
+from audiodec_tpu.ops.pallas.folded_stack import fold_conv_weight
+from audiodec_tpu.ops.pallas.folded_stack import (
+    folded_residual_stack as jax_stack,
+)
+from audiodec_tpu_torch.models.autoencoder import (
+    GeneratorConfig,
+    res_stack_plain,
+)
+from audiodec_tpu_torch.models import fast
+from audiodec_tpu_torch.ops.kernels import folded_stack as port
+from audiodec_tpu_torch.utils.bridge import params_from_jax
+
+torch.set_num_threads(1)
+
+DILATIONS = (1, 3, 9)
+T = 203           # not a multiple of any F
+NEAR, STEP, SHARE = 1e-5, 1e-2, 0.95
+
+
+def _case(c, t, dilations, seed, x_scale=1.0):
+    rng = np.random.default_rng(seed)
+    units = [((rng.standard_normal((7, c, c)) / np.sqrt(7 * c))
+              .astype(np.float32),
+              (rng.standard_normal((1, c, c)) / np.sqrt(c))
+              .astype(np.float32)) for _ in dilations]
+    x = (x_scale * rng.standard_normal((2, t, c))).astype(np.float32)
+    return x, units
+
+
+def _port_units(units):
+    # JAX (K, I, O) -> torch (O, I, K)
+    return [(torch.from_numpy(w1).permute(2, 1, 0),
+             torch.from_numpy(w2).permute(2, 1, 0)) for w1, w2 in units]
+
+
+def _run_both(x, units, dilations):
+    ref = np.asarray(jax_stack(
+        jnp.asarray(x), tuple((jnp.asarray(a), jnp.asarray(b))
+                              for a, b in units),
+        dilations=dilations, int8_dots=True, interpret=True))
+    out = port.folded_residual_stack(
+        torch.from_numpy(x).transpose(1, 2).contiguous(), _port_units(units),
+        dilations=dilations, int8_dots=True)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (
+        x.shape[0], x.shape[2], x.shape[1])
+    return out.transpose(1, 2).numpy(), ref
+
+
+@pytest.mark.parametrize("dilations", [(9,), DILATIONS])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_plain_matches_jax_int8_kernel(c, dilations):
+    """Every fold F = 4, 2, 1, 1; T = 203 leaves a partial last row."""
+    x, units = _case(c, T, dilations, seed=c)
+    out, ref = _run_both(x, units, dilations)
+    peak = float(np.abs(ref).max())
+    err = np.abs(out - ref)
+    assert err.max() <= STEP * peak
+    if len(dilations) == 1:
+        assert (err <= NEAR * peak).mean() >= SHARE
+
+
+def test_plain_close_to_f32_chain():
+    """The JAX test's bar (tests/test_folded_stack.py:240-266): with the
+    JAX init's weights the int8 stack is within 2e-3 of the f32 chain at
+    C=32 (fold 4) and C=64 (fold 2)."""
+    jcfg = JaxConfig()
+    jp = jax.tree_util.tree_map(np.asarray,
+                                generator_init(jax.random.PRNGKey(0), jcfg))
+    params = params_from_jax(jp)
+    cfg = GeneratorConfig()
+    for bi, scale in ((0, 1.0), (1, 4.0)):
+        bp = params["encoder"]["blocks"][bi]
+        c = bp["res"][0]["conv1"]["w"].shape[0]
+        x = torch.from_numpy(scale * np.random.default_rng(bi)
+                             .standard_normal((2, c, 900))
+                             .astype(np.float32))
+        ref = res_stack_plain(x, bp, cfg)
+        out = port.folded_residual_stack(x, port.res_stack_params(bp),
+                                         int8_dots=True)
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        assert rel < 2e-3, f"C={c}: int8 rel err {rel:.2e}"
+
+
+def test_row_outlier_needs_row_scales(monkeypatch):
+    """One large value in a folded row of F = 4 samples coarsens the codes
+    of the whole row.  The plain version agrees with JAX; the same
+    arithmetic with one scale per sample does not."""
+    x, units = _case(32, 64, (1,), seed=5)
+    x[:, 21, 3] = 60.0          # row 5 holds samples 20..23
+    out, ref = _run_both(x, units, (1,))
+    peak = float(np.abs(ref).max())
+    assert np.abs(out - ref).max() <= NEAR * peak
+    monkeypatch.setattr(port, "int8_fold", lambda c: 1)
+    per_sample = port.folded_residual_stack(
+        torch.from_numpy(x).transpose(1, 2).contiguous(), _port_units(units),
+        dilations=(1,), int8_dots=True).transpose(1, 2).numpy()
+    assert np.abs(per_sample - ref)[:, 20:24].max() > 100 * NEAR * peak
+
+
+@pytest.mark.parametrize("c", [32, 128])
+def test_weight_scales_match_jax(c):
+    """Per output channel: the JAX kernel's per-lane absmax over all folded
+    offset planes (folded_stack.py:230-238) gives the same scale in every
+    lane of a channel, equal to the port's; at F = 1 the folded planes are
+    the taps, so the int8 weights match too."""
+    _, units = _case(c, 8, (3,), seed=c + 1)
+    w1 = units[0][0]
+    f = port.int8_fold(c)
+    wf = fold_conv_weight(jnp.asarray(w1), 3, f)
+    s_jax = np.asarray(jnp.maximum(jnp.max(jnp.abs(wf), axis=(0, 1)),
+                                   1e-12) / 127.)
+    q, s = port.int8_weight_scales(torch.from_numpy(w1).permute(2, 1, 0))
+    np.testing.assert_array_equal(s_jax.reshape(f, c),
+                                  np.tile(s.numpy(), (f, 1)))
+    if f == 1:
+        q_jax = np.asarray(jnp.round(wf / s_jax))
+        np.testing.assert_array_equal(q_jax, q.permute(2, 1, 0).numpy())
+    assert float(q.abs().max()) == 127.0
+
+
+@pytest.mark.parametrize("c", [4, 12, 32])
+def test_packed_int8_layout(c):
+    """(n, K, cp/16, C, 16) int8 with input channels zero-padded to cp,
+    the 1x1 conv (n, cp/16, C, 16), scales (n, 2, C)."""
+    _, units = _case(c, 8, DILATIONS, seed=c)
+    pu = _port_units(units)
+    cp = -(-c // 16) * 16
+    w1, w2, scales = port._pack_int8(pu, c, cp, False)
+    assert w1.dtype == w2.dtype == torch.int8
+    assert tuple(w1.shape) == (3, 7, cp // 16, c, 16)
+    assert tuple(w2.shape) == (3, cp // 16, c, 16)
+    assert tuple(scales.shape) == (3, 2, c)
+    for u, (a, b) in enumerate(pu):
+        qa, sa = port.int8_weight_scales(a)
+        qb, sb = port.int8_weight_scales(b)
+        got = w1[u].permute(0, 2, 1, 3).reshape(7, c, cp)
+        assert torch.equal(got[:, :, :c].float(), qa.permute(2, 0, 1))
+        assert not got[:, :, c:].any()
+        got2 = w2[u].permute(1, 0, 2).reshape(c, cp)
+        assert torch.equal(got2[:, :c].float(), qb[:, :, 0])
+        assert torch.equal(scales[u, 0], sa) and torch.equal(scales[u, 1], sb)
+
+
+def test_int8_wrapper_checks_and_cpu_count():
+    x, units = _case(8, 64, DILATIONS, seed=3)
+    xt = torch.from_numpy(x).transpose(1, 2).contiguous()
+    before = port.int8_launches
+    port.folded_residual_stack(xt, _port_units(units), int8_dots=True)
+    assert port.int8_launches == before == 0
+    with pytest.raises(TypeError):
+        port.folded_residual_stack(xt.to(torch.bfloat16),
+                                   _port_units(units), int8_dots=True)
+    x2, units2 = _case(2, 64, DILATIONS, seed=3)
+    with pytest.raises(ValueError):
+        port.folded_residual_stack(
+            torch.from_numpy(x2).transpose(1, 2).contiguous(),
+            _port_units(units2), int8_dots=True)
+
+
+def test_int8_zero_input_stays_zero():
+    """Zero rows scale by zero: a silent input gives a silent output of
+    its own length."""
+    _, units = _case(64, 8, DILATIONS, seed=4)
+    x = torch.zeros(1, 64, 51)
+    out = port.folded_residual_stack(x, _port_units(units), int8_dots=True)
+    assert torch.equal(out, x)
+
+
+def test_int8_stack_needs_plain_elu_and_warns_as_jax():
+    """res_stack_auto(int8=True) with an ELU that has parameters: both
+    packages warn with the same text and take the normal route."""
+    kw = dict(encode_channels=4, decode_channels=4, code_dim=16,
+              codebook_num=4, codebook_size=32,
+              nonlinear_activation_params=(("alpha", 0.5),))
+    jcfg = JaxConfig(**kw)
+    jp = jax.tree_util.tree_map(np.asarray,
+                                generator_init(jax.random.PRNGKey(0), jcfg))
+    block = jp["decoder"]["blocks"][3]
+    x = np.random.default_rng(6).standard_normal((1, 64, 4)).astype(
+        np.float32)
+    with pytest.warns(UserWarning) as jw:
+        ref = jax_fast.res_stack_auto(jnp.asarray(x), block, jcfg,
+                                      interpret=True, int8=True)
+    cfg = GeneratorConfig(**kw)
+    with pytest.warns(UserWarning) as w:
+        out = fast.res_stack_auto(
+            torch.from_numpy(x).transpose(1, 2),
+            params_from_jax(jp)["decoder"]["blocks"][3], cfg, int8=True)
+    assert [str(m.message) for m in w] == [str(m.message) for m in jw]
+    np.testing.assert_allclose(out.transpose(1, 2).numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-6)

@@ -283,3 +283,43 @@ def test_batch_transcoder_with_vocoder_matches_jax(monkeypatch):
         [(ch, torch.bfloat16, "leaky_relu")
          for ch in (32, 16, 8, 4) for _ in range(3)]
     assert folded_stack.resblock_launches == 0  # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("stack", ["plain", "folded"])
+def test_batch_transcoder_with_vocoder_f32_matches_jax(stack):
+    """The receiver in f32 (not mixed): gen_small's encoder and the grouped
+    vocoder against the JAX transcoder.  stack="plain" against JAX
+    stack="xla" with the encoder's batch fold off is true f32 on both
+    sides: equal indices, waveform within f32 tolerance.  stack="folded"
+    rounds the kernel stages' dot operands to bf16 on both sides, so the
+    waveform is held at that class (as the mixed test above, 3e-2 of the
+    peak)."""
+    data = np.load(os.path.join(GOLDEN, "gen_small.npz"))
+    sd = {k[len("sd__"):]: data[k] for k in data.files
+          if k.startswith("sd__")}
+    jcfg = JaxConfig(**SMALL)
+    jparams = jax.tree_util.tree_map(np.asarray, import_autoencoder(sd, jcfg))
+    vcfg = dict(FOLDED_CFGS["grouped"])
+    jvcfg = jax_voc.VocoderConfig(**vcfg)
+    jvoc = _random_jax_vocoder(jvcfg, seed=4)
+    x = (0.3 * np.random.default_rng(0)
+         .standard_normal((2, 2400, 1))).astype(np.float32)
+    jkw = ({"stack": "xla", "encode_fold": False} if stack == "plain"
+           else {"stack": "folded"})
+    jidx, jy = JaxTranscoder(
+        jax.tree_util.tree_map(jnp.asarray, jparams), jcfg,
+        voc=(jax.tree_util.tree_map(jnp.asarray, jvoc), jvcfg), **jkw)(x)
+    idx, y = BatchTranscoder(params_from_jax(jparams),
+                             GeneratorConfig(**SMALL),
+                             voc=(vocoder_params_from_jax(jvoc),
+                                  VocoderConfig(**vcfg)),
+                             stack=stack, device="cpu")(x)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    jy = np.asarray(jy)
+    scale = float(np.max(np.abs(jy)))
+    assert y.dtype == torch.float32 and scale > 0.01
+    if stack == "plain":
+        np.testing.assert_allclose(y.numpy(), jy, rtol=1e-4,
+                                   atol=1e-5 * scale)
+    else:
+        assert float(np.max(np.abs(y.numpy() - jy))) / scale < 3e-2
