@@ -19,6 +19,9 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 BATCH, SAMPLES = 16, 480000          # B=16 x 10 s at 48 kHz
 HOP, CODE_DIM, CODEBOOKS, CODES = 300, 64, 8, 1024
 F32, BF16, INT8, INT32 = 4, 2, 1, 4
+# (C, T) of the symAD residual stacks at B=16 x 10 s: encoder block i, and
+# decoder block 3 - i
+SYMAD_STACKS = ((32, SAMPLES), (64, 160000), (128, 40000), (256, 8000))
 
 
 def bound_ms(nbytes: float, ops: float, peak: str) -> dict:
@@ -40,6 +43,21 @@ def residual_stack(b, t, c, *, k, k2, storage, weight, peak,
     return bound_ms(2 * act + weights + biases, ops, peak)
 
 
+def resunit_stack(b, t, c) -> dict:
+    """The archived fused stack at (b, c, t): three k=7 units in true f32
+    (f32 operands and weights, the FMA units' peak)."""
+    return residual_stack(b, t, c, k=7, k2=1, storage=F32, weight=F32,
+                          peak="f32")
+
+
+def rvq_encode(n, d=CODE_DIM, q=CODEBOOKS, codes=CODES) -> dict:
+    """The fused RVQ encode of n frames: z read, the codebooks and their
+    norms read, idx and zq written; the cross terms' FLOP in f32."""
+    nbytes = (n * d * F32 + q * codes * (d + 1) * F32 + n * q * INT32
+              + n * d * F32)
+    return bound_ms(nbytes, q * 2 * n * codes * d, "f32")
+
+
 def rows():
     """(function, mode, shape note, bound) for every pallas_call function."""
     stack = "audiodec_tpu/ops/pallas/folded_stack.py:112"
@@ -57,22 +75,22 @@ def rows():
                         weight=BF16, peak="bf16", bias=True)),
     ]
     # int8 mode: every symAD decoder stack, f32 storage, int8 dots
-    for c, t in ((256, 8000), (128, 40000), (64, 160000), (32, SAMPLES)):
+    for c, t in reversed(SYMAD_STACKS):
         out.append((stack, f"int8, decoder stack at C={c}", [BATCH, t, c],
                     residual_stack(BATCH, t, c, k=7, k2=1, storage=F32,
                                    weight=INT8, peak="int8")))
     # rvq_encode_pallas: strict-f32 distances, argmin, gather, update
-    n = BATCH * SAMPLES // HOP
-    nbytes = (n * CODE_DIM * F32 + CODEBOOKS * CODES * (CODE_DIM + 1) * F32
-              + n * CODEBOOKS * INT32 + n * CODE_DIM * F32)
     out.append(("audiodec_tpu/archive/vq_kernel.py:62", "f32",
                 [BATCH, SAMPLES // HOP, CODE_DIM, CODEBOOKS, CODES],
-                bound_ms(nbytes, CODEBOOKS * 2 * n * CODES * CODE_DIM,
-                         "f32")))
-    out.append(("audiodec_tpu/archive/resunit_kernel.py:57",
-                "autoencoder stack, f32 dots", [BATCH, SAMPLES, 32],
-                residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=F32,
-                               weight=F32, peak="f32")))
+                rvq_encode(BATCH * SAMPLES // HOP)))
+    # fused_residual_stack: every stack of the fused transcode, true f32
+    for where, blocks in (("encoder", range(4)), ("decoder", range(3, -1, -1))):
+        for i in blocks:
+            c, t = SYMAD_STACKS[i]
+            out.append(("audiodec_tpu/archive/resunit_kernel.py:57",
+                        f"f32 stack, {where} block "
+                        f"{i if where == 'encoder' else 3 - i}",
+                        [BATCH, t, c], resunit_stack(BATCH, t, c)))
     out.append(("tools/folded_ablate.py:34",
                 "folded stack variants, f32 storage, bf16 dots",
                 [BATCH, SAMPLES, 32],

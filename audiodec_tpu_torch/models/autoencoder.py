@@ -2,7 +2,10 @@
 audiodec_tpu/models/autoencoder.py).
 
 Causal mode and codec="audiodec" only; streaming state, the noncausal and
-"activate_audiodec" variants and training wait for later slices.  Params are
+"activate_audiodec" variants and training wait for later slices.  The
+initializers (`encoder_init`, `projector_init`, `decoder_init`,
+`generator_init`) draw from an explicit `torch.Generator` with the JAX
+package's shapes and scales; they do not give JAX's numbers.  Params are
 nested dicts of tensors with the JAX tree's structure and torch's weight
 orientation (see utils/bridge.py).  The `_bct` functions work in the
 package's (B, C, T) layout and take the residual-stack function, so the
@@ -19,8 +22,13 @@ from typing import Callable, Sequence
 import torch
 
 from audiodec_tpu_torch.ops.activations import get_activation
-from audiodec_tpu_torch.ops.conv import causal_conv1d, causal_conv_transpose1d
-from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
+from audiodec_tpu_torch.ops.conv import (
+    causal_conv1d,
+    causal_conv_transpose1d,
+    conv1d_init,
+    conv_transpose1d_init,
+)
+from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_init, rvq_lookup
 
 _BN_EPS = 1e-5  # torch.nn.BatchNorm1d default
 
@@ -60,6 +68,10 @@ class GeneratorConfig:
     def hop_length(self) -> int:
         return math.prod(self.enc_strides)
 
+    @property
+    def enc_out_channels(self) -> int:
+        return self.encode_channels * self.enc_ratios[-1]
+
 
 def config_from_yaml(d: dict) -> GeneratorConfig:
     """A config's `generator_params` dict (already parsed) -> GeneratorConfig;
@@ -85,6 +97,77 @@ def _check_supported(cfg: GeneratorConfig):
         raise NotImplementedError(
             f"mode={cfg.mode}, codec={cfg.codec}: only the causal audiodec "
             f"codec is ported")
+
+
+def _res_unit_init(gen, channels: int, kernel_size: int) -> dict:
+    return {"conv1": conv1d_init(gen, kernel_size, channels, channels,
+                                 bias=False),
+            "conv2": conv1d_init(gen, 1, channels, channels, bias=False)}
+
+
+def encoder_init(cfg: GeneratorConfig, gen: torch.Generator) -> dict:
+    params = {"conv": conv1d_init(gen, cfg.kernel_size, cfg.input_channels,
+                                  cfg.encode_channels, bias=False),
+              "blocks": []}
+    in_ch = cfg.encode_channels
+    for i, stride in enumerate(cfg.enc_strides):
+        out_ch = cfg.encode_channels * cfg.enc_ratios[i]
+        params["blocks"].append({
+            "res": [_res_unit_init(gen, in_ch, cfg.res_kernel_size)
+                    for _ in cfg.res_dilations],
+            "conv": conv1d_init(gen, 2 * stride, in_ch, out_ch,
+                                bias=cfg.bias),
+        })
+        in_ch = out_ch
+    return params
+
+
+def projector_init(cfg: GeneratorConfig, gen: torch.Generator) -> dict:
+    if cfg.projector not in ("conv1d", "conv1d_bn"):
+        raise NotImplementedError(
+            f"Projector ({cfg.projector}) is not supported!")
+    p = {"conv": conv1d_init(gen, 3, cfg.enc_out_channels, cfg.code_dim,
+                             bias=False)}
+    if cfg.projector == "conv1d_bn":
+        d, dev = cfg.code_dim, gen.device
+        p["bn"] = {"scale": torch.ones(d, device=dev),
+                   "bias": torch.zeros(d, device=dev),
+                   "mean": torch.zeros(d, device=dev),
+                   "var": torch.ones(d, device=dev),
+                   "count": torch.zeros((), device=dev)}
+    return p
+
+
+def decoder_init(cfg: GeneratorConfig, gen: torch.Generator) -> dict:
+    ch0 = cfg.decode_channels * cfg.dec_ratios[0]
+    params = {"conv1": conv1d_init(gen, cfg.kernel_size, cfg.code_dim, ch0,
+                                   bias=False),
+              "blocks": []}
+    out_ch = ch0
+    for i, stride in enumerate(cfg.dec_strides):
+        in_ch = cfg.decode_channels * cfg.dec_ratios[i]
+        out_ch = (cfg.decode_channels * cfg.dec_ratios[i + 1]
+                  if i < len(cfg.dec_ratios) - 1 else cfg.decode_channels)
+        params["blocks"].append({
+            "conv": conv_transpose1d_init(gen, 2 * stride, in_ch, out_ch,
+                                          bias=cfg.bias),
+            "res": [_res_unit_init(gen, out_ch, cfg.res_kernel_size)
+                    for _ in cfg.res_dilations],
+        })
+    params["conv2"] = conv1d_init(gen, cfg.kernel_size, out_ch,
+                                  cfg.output_channels, bias=False)
+    return params
+
+
+def generator_init(cfg: GeneratorConfig, gen: torch.Generator) -> dict:
+    """Random generator params with the JAX `generator_init`'s tree,
+    shapes and scales (normal convs at 0.01, zero biases, normal codebooks),
+    in torch's orientation, drawn from `gen` on its device."""
+    return {"encoder": encoder_init(cfg, gen),
+            "projector": projector_init(cfg, gen),
+            "quantizer": rvq_init(gen, cfg.codebook_num, cfg.codebook_size,
+                                  cfg.code_dim),
+            "decoder": decoder_init(cfg, gen)}
 
 
 def _res_unit_apply(p, x, *, dilation, act):
@@ -154,8 +237,21 @@ def decoder_apply(p, z, cfg: GeneratorConfig):
                        res_stack_plain).transpose(1, 2)
 
 
+def _channel_fold(x, input_channels: int):
+    """(B, T, C) -> (B*C/ic, T, ic) MIMO fold (ref: AudioDec.py:113-115)."""
+    b, t, c = x.shape
+    if c == input_channels:
+        return x
+    # (B, T, G*ic) -> (B, G, T, ic) -> (B*G, T, ic), grouping consecutive chans
+    g = c // input_channels
+    x = x.reshape(b, t, g, input_channels)
+    x = torch.movedim(x, 2, 1)
+    return x.reshape(b * g, t, input_channels)
+
+
 def generator_encode(params, x, cfg: GeneratorConfig):
-    """Waveform (B, T, 1) -> code indices (B, T', Q)."""
+    """Waveform (B, T, C) -> code indices (B*C/ic, T', Q)."""
+    x = _channel_fold(x, cfg.input_channels)
     h = encoder_apply(params["encoder"], x, cfg)
     z = projector_apply(params["projector"], h, cfg)
     _, idx = rvq_forward_index(z, params["quantizer"])

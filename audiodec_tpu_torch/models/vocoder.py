@@ -26,9 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from audiodec_tpu_torch.ops.activations import get_activation
-from audiodec_tpu_torch.ops.conv import causal_conv1d, causal_conv_transpose1d
-
-_INIT_SCALE = 0.01  # the JAX package's conv1d_init / conv_transpose1d_init
+from audiodec_tpu_torch.ops.conv import (
+    causal_conv1d,
+    causal_conv_transpose1d,
+    conv1d_init,
+    conv_transpose1d_init,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,24 +162,15 @@ def _fusion_apply(p, x, cfg: VocoderConfig):
 # generator
 # ---------------------------------------------------------------------------
 
-def _conv_init(gen, c_out, c_in, k, bias=True, groups=1):
-    dev = gen.device
-    p = {"w": _INIT_SCALE * torch.randn(c_out, c_in // groups, k,
-                                        generator=gen, device=dev)}
-    if bias:
-        p["b"] = torch.zeros(c_out, device=dev)
-    return p
-
-
 def _resblock_init(gen, channels, kernel_size, dilations, groups, bias,
                    use_additional):
     p = {"convs1": [], "convs2": []}
     for _ in dilations:
-        p["convs1"].append(_conv_init(gen, channels, channels, kernel_size,
-                                      bias, groups))
+        p["convs1"].append(conv1d_init(gen, kernel_size, channels, channels,
+                                       groups, bias))
         if use_additional:
-            p["convs2"].append(_conv_init(gen, channels, channels,
-                                          kernel_size, bias, groups))
+            p["convs2"].append(conv1d_init(gen, kernel_size, channels,
+                                           channels, groups, bias))
     return p
 
 
@@ -186,8 +180,8 @@ def _fusion_init(gen, cfg: VocoderConfig, channels):
                            cfg.resblock_kernel_sizes[0],
                            cfg.resblock_dilations[0], cfg.groups, cfg.bias,
                            cfg.use_additional_convs)
-        p["conv_out"] = _conv_init(gen, channels, channels * cfg.groups, 1,
-                                   bias=False)
+        p["conv_out"] = conv1d_init(gen, 1, channels * cfg.groups, channels,
+                                    bias=False)
         return p
     return {"blocks": [
         _resblock_init(gen, channels, cfg.resblock_kernel_sizes[i],
@@ -204,22 +198,19 @@ def vocoder_init(cfg: VocoderConfig, generator: torch.Generator) -> dict:
     gen, dev = generator, generator.device
     n_up = len(cfg.upsample_scales)
     p = {
-        "input_conv": _conv_init(gen, cfg.channels, cfg.in_channels,
-                                 cfg.kernel_size),
+        "input_conv": conv1d_init(gen, cfg.kernel_size, cfg.in_channels,
+                                  cfg.channels),
         "upsamples": [],
         "blocks": [],
-        "output_conv": _conv_init(gen, cfg.out_channels,
-                                  cfg.stage_channels(n_up - 1),
-                                  cfg.kernel_size),
+        "output_conv": conv1d_init(gen, cfg.kernel_size,
+                                   cfg.stage_channels(n_up - 1),
+                                   cfg.out_channels),
     }
     for i in range(n_up):
         c_in = cfg.channels // (2 ** i)
         c_out = cfg.stage_channels(i)
         k = cfg.upsample_kernel_sizes[i]
-        p["upsamples"].append({   # transposed conv, torch's (I, O, K)
-            "w": _INIT_SCALE * torch.randn(c_in, c_out, k, generator=gen,
-                                           device=dev),
-            "b": torch.zeros(c_out, device=dev)})
+        p["upsamples"].append(conv_transpose1d_init(gen, k, c_in, c_out))
         p["blocks"].append(_fusion_init(gen, cfg, c_out))
     if cfg.stats:
         p["mean"] = torch.zeros(cfg.in_channels, device=dev)

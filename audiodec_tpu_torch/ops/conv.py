@@ -9,6 +9,11 @@ with torch's weight orientation: conv (O, I, K), transposed conv (I, O, K).
                    transposed conv, trim [s:-s]
                    (ref: layers/conv_layer.py:189-192)
 
+Initializers (`conv1d_init`, `conv_transpose1d_init`): the JAX package's
+shapes and scale (normal at 0.01, zero bias) in torch's orientation, drawn
+from an explicit `torch.Generator` on its device; the numbers differ from
+JAX's, since the two frameworks' generators differ.
+
 Streaming state is not ported yet.
 """
 
@@ -18,6 +23,32 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+INIT_SCALE = 0.01  # the JAX package's conv1d_init / conv_transpose1d_init
+
+
+def conv1d_init(gen: torch.Generator, kernel_size: int, in_channels: int,
+                out_channels: int, groups: int = 1, bias: bool = True,
+                scale: float = INIT_SCALE) -> dict:
+    """{'w': (C_out, C_in // groups, K) [, 'b': (C_out,)]}."""
+    p = {"w": scale * torch.randn(out_channels, in_channels // groups,
+                                  kernel_size, generator=gen,
+                                  device=gen.device)}
+    if bias:
+        p["b"] = torch.zeros(out_channels, device=gen.device)
+    return p
+
+
+def conv_transpose1d_init(gen: torch.Generator, kernel_size: int,
+                          in_channels: int, out_channels: int,
+                          bias: bool = True,
+                          scale: float = INIT_SCALE) -> dict:
+    """{'w': (C_in, C_out, K) [, 'b': (C_out,)]}."""
+    p = {"w": scale * torch.randn(in_channels, out_channels, kernel_size,
+                                  generator=gen, device=gen.device)}
+    if bias:
+        p["b"] = torch.zeros(out_channels, device=gen.device)
+    return p
 
 
 def causal_conv1d(x: torch.Tensor, params: dict, *, stride: int = 1,

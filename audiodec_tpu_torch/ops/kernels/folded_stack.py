@@ -54,6 +54,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from audiodec_tpu_torch.ops.activations import elu_exp
 from audiodec_tpu_torch.ops.kernels import _build
 
 KERNEL_SIZE = 7
@@ -125,12 +126,6 @@ def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     # a true f32 division: with a Python divisor PyTorch may multiply by
     # the divisor's reciprocal, which rounds differently from JAX's division
     return a / torch.full_like(a, b)
-
-
-def _elu_exp(v: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel's ELU, exp(min(v, 0)) - 1 (`folded_stack.py:49-54`),
-    not expm1: near a rounding boundary one ulp moves a quantized value."""
-    return torch.where(v > 0, v, torch.exp(torch.clamp(v, max=0.0)) - 1.0)
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -214,9 +209,11 @@ def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
     for (w1, w2), d in zip(unit_params, dilations):
         q1w, s1 = int8_weight_scales(w1)
         q2w, s2 = int8_weight_scales(w2)
-        q, sd = _quantize_rows(_elu_exp(v), f)
+        # the TPU kernel's ELU (`folded_stack.py:49-54`), not expm1: near a
+        # rounding boundary one ulp moves a quantized value
+        q, sd = _quantize_rows(elu_exp(v), f)
         acc = _int8_conv(q, sd, q1w, d, f) * s1[:, None]
-        q, sd = _quantize_rows(_elu_exp(acc), f)
+        q, sd = _quantize_rows(elu_exp(acc), f)
         v = _fma(_int8_conv(q, sd, q2w, 1, f), s2[:, None], v)
     return v[:, :, :t].contiguous()
 
@@ -308,7 +305,7 @@ _packed = {}
 _PACKED_MAX = 16
 
 
-def _cached_pack(pack, tensors, c: int, cp: int, rounded: bool, *args):
+def cached_pack(pack, tensors, c: int, cp: int, rounded: bool, *args):
     key = (pack.__name__, rounded,
            tuple((w.device, w.dtype, w.data_ptr(), tuple(w.shape), w.stride(),
                   w._version) for w in tensors))
@@ -322,19 +319,19 @@ def _cached_pack(pack, tensors, c: int, cp: int, rounded: bool, *args):
 
 def _packed_weights(unit_params, c: int, cp: int, rounded: bool):
     weights = tuple(w for u in unit_params for w in u)
-    return _cached_pack(_pack_weights, weights, c, cp, rounded, unit_params)
+    return cached_pack(_pack_weights, weights, c, cp, rounded, unit_params)
 
 
 def _packed_int8(unit_params, c: int, cp: int):
     weights = tuple(w for u in unit_params for w in u)
-    return _cached_pack(_pack_int8, weights, c, cp, False, unit_params)
+    return cached_pack(_pack_int8, weights, c, cp, False, unit_params)
 
 
 def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
     tensors = tuple(w for u in unit_params for w in u)
     if biases is not None:
         tensors += tuple(b for u in biases for b in u)
-    return _cached_pack(_pack_resblock, tensors, c, cp, rounded,
+    return cached_pack(_pack_resblock, tensors, c, cp, rounded,
                         unit_params, biases)
 
 

@@ -14,6 +14,20 @@ from typing import Optional, Tuple
 import torch
 
 
+def rvq_init(gen: torch.Generator, num_quantizers: int, codebook_size: int,
+             dim: int) -> dict:
+    """Random-normal codebooks with the JAX `rvq_init`'s keys and shapes
+    (`embed` (Q, N, D), `cluster_size` (Q, N) zeros, `embed_avg` a copy of
+    `embed`), drawn from `gen` on its device; the numbers differ from
+    JAX's."""
+    embed = torch.randn(num_quantizers, codebook_size, dim, generator=gen,
+                        device=gen.device)
+    return {"embed": embed,
+            "cluster_size": torch.zeros(num_quantizers, codebook_size,
+                                        device=gen.device),
+            "embed_avg": embed.clone()}
+
+
 def vq_distances(z: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances in f32, |z|^2 - 2 z.E^T + |E|^2 in that order.
     z: (..., D); embed: (N, D) -> (..., N)."""

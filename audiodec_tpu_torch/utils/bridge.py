@@ -60,6 +60,13 @@ def _res_from_jax(units) -> list:
              "conv2": _conv_from_jax(u["conv2"])} for u in units]
 
 
+def unit_params_from_jax(units) -> tuple:
+    """A bare JAX unit tuple ((w1 (K, C, C), w2 (1, C, C)), ...) -> torch's
+    ((w1 (C, C, K), w2 (C, C, 1)), ...)."""
+    return tuple((_tensor(np.transpose(w1, (2, 1, 0))),
+                  _tensor(np.transpose(w2, (2, 1, 0)))) for w1, w2 in units)
+
+
 def params_from_jax(tree: dict) -> dict:
     """JAX generator params (as numpy arrays) -> the port's params."""
     enc, dec = tree["encoder"], tree["decoder"]

@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's three CUDA kernels (the residual-stack kernel's
-autoencoder, vocoder and int8 modes) from the sources in this checkout, one
-nvcc each, in parallel; holds each against its plain PyTorch version;
-checks the batch transcode and the vocoder against the reference goldens;
-then drives the paths once each, times them and profiles one more
-transcode of each:
+Builds the port's five CUDA kernels (the folded residual-stack kernel's
+autoencoder, vocoder and int8 modes, the archived per-tap residual stack
+and the fused RVQ encode) from the sources in this checkout, one nvcc
+each, all started together; holds each against its plain PyTorch version;
+checks the batch transcode, the fused transcode and the vocoder against
+the reference goldens; then drives the paths once each, times them and
+profiles one more transcode of each:
 
   - main_path (slice 1): symAD, B=16 x 10 s at 48 kHz, mixed mode (f32
     encoder and RVQ, bf16 decoder), residual stacks through the kernel;
@@ -18,7 +19,22 @@ transcode of each:
   - cli_path (slice 3): the batch command line (`bin/codec_test.py main`)
     on the trained golden written as a JAX-format checkpoint beside the
     symAD config, over seeded PCM16 wavs of 2-10 s, with --dtype
-    int8-decode and with --dtype mixed.  It prints the CLI's JSON line.
+    int8-decode and with --dtype mixed.  It prints the CLI's JSON line;
+  - fused_path (slice 4): `bin/fused_probe.py`'s fused_path, symAD in true
+    f32 at B=16 x 10 s, every residual stack (C = 32/64/128/256, encoder
+    and decoder) through csrc/resunit_stack.cu and the RVQ through
+    csrc/rvq_encode.cu, whose zq the decoder reads; beside it the true-f32
+    plain_path on the same input (index flips, the two decoders on the
+    plain indices, its time).
+
+The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
+256 with ragged T, and the trained golden's eight stacks at B=2, f32
+tolerance), `rvq_kernel_vs_plain` (random codebooks at the JAX test's
+shapes and the trained golden's on the true-f32 encoder's z at
+(16, 1600, 64): every index flip, counted at its first layer, a near tie
+in f64, zq bit-equal on agreeing frames) and `fused_golden` (the fused
+path on gen_symad and gen_symad_trained: 0 index flips, y within rtol
+1e-3, atol 1e-4).
 
 Each phase prints one JSON line with its own seconds; any failure raises,
 so the script exits non-zero and prints no result.  Without a CUDA device
@@ -28,21 +44,30 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-In the `kernels` line, `launches` is the count from the run of the path
-that brought the mode in (autoencoder mode: main_path; vocoder mode:
-ad_v1_path; int8 mode: int8_path), `launches_by_path` the counts of every
-path, each read with the counts set to 0 just before the path and read
-just after.  `ms`, `plain_ms`, `chain_ms` and `bound_ms` add up that
-path's launches at their shapes (autoencoder: one f32 stack in the encoder
-and one bf16 stack in the decoder, both (16, 32, 480000); vocoder: the
-three groups' resblocks of the last stage, (16, 32, 480000) bf16; int8:
-the four decoder stacks, (16, C, T) f32 at C = 256/128/64/32 and T =
-8000/40000/160000/480000).  `bound_ms` is the larger of bytes over 3.35
-TB/s and operations over the peak of the dots' type (989 TFLOP/s bf16,
-1979 TOP/s int8), per launch.  `library_ms` is null: no single PyTorch
-call computes a stack; `chain_ms` is the same units as F.conv1d calls in
-the working dtype (f32 for the int8 mode).  Peaks are the H100 SXM data
-sheet's, at 700 W.
+Every path sets the five launch counts to 0 just before it and reads them
+just after (autoencoder, vocoder, int8: ops/kernels/folded_stack.py;
+resunit: archive/resunit_kernel.py; rvq: archive/vq_kernel.py; one per
+wrapper call): main_path 2/0/0/0/0, ad_v1_path 1/3/0/0/0, int8_path
+1/0/4/0/0, cli_path 0 or 4 int8 and no resunit or rvq, fused_path
+0/0/0/8/1.  In the `kernels` line, `launches` is the count from the run
+of the path that brought the kernel in (autoencoder mode: main_path;
+vocoder mode: ad_v1_path; int8 mode: int8_path; the archived stack and
+the RVQ encode: fused_path), `launches_by_path` the counts of every path,
+and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`, `chain_ms`
+and `bound_ms` add up that path's launches at their shapes (autoencoder:
+one f32 stack in the encoder and one bf16 stack in the decoder, both
+(16, 32, 480000); vocoder: the three groups' resblocks of the last stage,
+(16, 32, 480000) bf16; int8: the four decoder stacks, (16, C, T) f32 at
+C = 256/128/64/32 and T = 8000/40000/160000/480000; archived stack: the
+eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
+(16, 1600, 64) with 8 x 1024 codes).  `bound_ms` is the larger of bytes
+over 3.35 TB/s and operations over the peak of the dots' type (989
+TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32), per launch
+(bin/kernel_bounds.py).  `library_ms` is null: no single PyTorch call
+computes a stack or the RVQ cascade; `chain_ms` is the same units as
+F.elu / F.conv1d calls in the working dtype (f32 for the int8 mode and the
+archived stack), and for the RVQ `ops/vq.py rvq_forward_index` on cuBLAS
+with TF32 off.  Peaks are the H100 SXM data sheet's, at 700 W.
 
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
@@ -61,11 +86,17 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from audiodec_tpu_torch.bin import codec_test
+from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
+from audiodec_tpu_torch.archive import vq_kernel
+from audiodec_tpu_torch.bin import codec_test, fused_probe, kernel_bounds
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
 from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
 from audiodec_tpu_torch.models import fast
-from audiodec_tpu_torch.models.autoencoder import GeneratorConfig
+from audiodec_tpu_torch.models.autoencoder import (
+    GeneratorConfig,
+    encoder_apply,
+    projector_apply,
+)
 from audiodec_tpu_torch.models.vocoder import (
     VocoderConfig,
     config_from_yaml,
@@ -74,6 +105,7 @@ from audiodec_tpu_torch.models.vocoder import (
 )
 from audiodec_tpu_torch.ops.kernels import _build, folded_stack
 from audiodec_tpu_torch.data.wav import read_wav_pcm16, write_wav
+from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
 from audiodec_tpu_torch.utils.bridge import (
     params_from_reference_sd,
     params_to_jax,
@@ -92,7 +124,8 @@ BATCH, SECONDS = 16, 10
 DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
-KERNELS = ("folded_stack", "resblock_stack", "int8_stack")
+KERNELS = ("folded_stack", "resblock_stack", "int8_stack", "resunit_stack",
+           "rvq_encode")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
 # true f32: only the order of the sums differs (tests/test_folded_stack.py
@@ -107,6 +140,16 @@ INT8_REL = 1e-5
 INT8_SHAPES = ((256, 8000), (128, 40000), (64, 160000), (32, 480000))
 # the int8 decode against the true-f32 decode, relative to its peak
 INT8_DECODE_REL = 5e-2
+# the fused RVQ encode: a flipped index (at its first layer) must be a near
+# tie, the two codes' f64 distances within this fraction of |r|^2 + |E|^2
+RVQ_TIE_REL = 1e-5
+# the fused transcode against the true-f32 plain transcode: index flips as a
+# share of the indices, and the two decoders on the same indices relative to
+# the peak
+FUSED_FLIP_SHARE, FUSED_DECODE_REL = 1e-3, 1e-3
+# RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T))
+RVQ_SHAPES = (((4, 32, 16), (2, 10)), ((8, 1024, 64), (1, 300)),
+              ((2, 16, 8), (1, 3)))
 
 # generator_params of configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_
 # clean.yaml, as it stands (the card has no PyYAML; a test holds the two
@@ -449,12 +492,15 @@ def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
 def read_launches() -> dict:
     return {"autoencoder": folded_stack.launches,
             "vocoder": folded_stack.resblock_launches,
-            "int8": folded_stack.int8_launches}
+            "int8": folded_stack.int8_launches,
+            "resunit": resunit_kernel.launches,
+            "rvq": vq_kernel.launches}
 
 
 def reset_launches():
     folded_stack.launches = folded_stack.resblock_launches = 0
     folded_stack.int8_launches = 0
+    resunit_kernel.launches = vq_kernel.launches = 0
 
 
 def check_transcode(idx, y, x, cfg: GeneratorConfig):
@@ -493,7 +539,8 @@ def phase_main_path(device):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 2, "vocoder": 0, "int8": 0}:
+    if launches != {"autoencoder": 2, "vocoder": 0, "int8": 0, "resunit": 0,
+                    "rvq": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 2 "
                              f"autoencoder-mode and no other")
     check_transcode(idx, y, x, cfg)
@@ -524,7 +571,8 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 1, "vocoder": 3, "int8": 0}:
+    if launches != {"autoencoder": 1, "vocoder": 3, "int8": 0, "resunit": 0,
+                    "rvq": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode, 3 vocoder-mode and no "
                              f"int8-mode")
@@ -652,7 +700,8 @@ def phase_int8_path(device, params, x, idx_main):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 1, "vocoder": 0, "int8": 4}:
+    if launches != {"autoencoder": 1, "vocoder": 0, "int8": 4, "resunit": 0,
+                    "rvq": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode and 4 int8-mode")
     check_transcode(idx, y, x, cfg)
@@ -714,12 +763,302 @@ def phase_cli_path(params):
             if not np.abs(got[0]).max() > 0:
                 raise AssertionError(f"--dtype {dtype}: {name} is silent")
         want = 4 if dtype == "int8-decode" else 0
-        if launches["int8"] != want:
+        if (launches["int8"] != want or launches["resunit"]
+                or launches["rvq"]):
             raise AssertionError(f"--dtype {dtype}: {launches}")
         runs[dtype] = {"cli": summary, "launches": launches,
                        "files": len(files)}
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     emit("cli_path", t0, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the fused transcode (archived residual-stack and RVQ kernels)
+# ---------------------------------------------------------------------------
+
+def symad_stacks(params, device):
+    """The eight residual stacks of the symAD transcode, in path order:
+    (name, unit weights f32, (C, T) at B=16 x 10 s)."""
+    stacks = []
+    for where, blocks in (("encoder", range(4)), ("decoder", range(4))):
+        for i in blocks:
+            bp = params[where]["blocks"][i]
+            j = i if where == "encoder" else 3 - i
+            stacks.append((f"{where} block {i}",
+                           tuple((u["conv1"]["w"].to(device),
+                                  u["conv2"]["w"].to(device))
+                                 for u in bp["res"]),
+                           kernel_bounds.SYMAD_STACKS[j]))
+    return stacks
+
+
+def check_resunit(x, units):
+    """The archived stack's kernel against its plain version, true f32;
+    returns (max abs error, the same relative to the peak)."""
+    out = resunit_kernel.fused_residual_stack_bct(x, units,
+                                                  dilations=DILATIONS)
+    ref = resunit_kernel.fused_residual_stack_plain(x, units, DILATIONS)
+    return check_close(out, ref, x, bf16_dots=False)
+
+
+def phase_resunit_kernel_vs_plain(params, device):
+    """csrc/resunit_stack.cu against its plain version in f32: random units
+    at C = 4, 8, 32, 64, 128 and 256 with ragged T (1999, and 50, shorter
+    than a dilation-9 span), and the trained golden's eight stacks at
+    their full lengths (B=2)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    cases = []
+    for c in (4, 8, 32, 64, 128, 256):
+        for t in (1999, 50):
+            units = random_units(c, device, torch.float32, gen)
+            x = torch.randn(2, c, t, generator=gen, device=device)
+            err, rel = check_resunit(x, units)
+            cases.append({"C": c, "T": t, "weights": "random",
+                          "max_abs_err": err, "max_rel_err": rel})
+    for name, units, (c, t) in symad_stacks(params, device):
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        err, rel = check_resunit(x, units)
+        cases.append({"C": c, "T": t, "weights": name, "max_abs_err": err,
+                      "max_rel_err": rel})
+    emit("resunit_kernel_vs_plain", t0,
+         tolerance=f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak",
+         cases=cases)
+
+
+def rvq_residuals(z, embed, idx):
+    """The residual entering each layer under the indices `idx`, with the
+    plain update: (N, D), (Q, NE, D), (N, Q) -> (Q, N, D)."""
+    r = z
+    out = []
+    for q in range(embed.shape[0]):
+        out.append(r)
+        r = r - embed[q][idx[:, q].long()]
+    return torch.stack(out)
+
+
+def check_rvq(z, embed):
+    """csrc/rvq_encode.cu against its plain version on (B, T, D) frames.
+    Each frame whose indices differ is counted once, at its first differing
+    layer, where both saw the same residual r; the two codes' distances to
+    r, recomputed in f64, must be within RVQ_TIE_REL * (|r|^2 + |E|^2).
+    zq must be bit-equal on every frame whose indices all agree.  Returns
+    (frames with a flip, the largest flip's gap in units of its bound, the
+    max abs difference of zq over all frames)."""
+    zq, idx = vq_kernel.rvq_encode_pallas(z, embed)
+    zq_p, idx_p = vq_kernel.rvq_encode_plain(z, embed)
+    torch.cuda.synchronize()
+    d, num_q = z.shape[-1], embed.shape[0]
+    idx, idx_p = idx.reshape(-1, num_q), idx_p.reshape(-1, num_q)
+    if int(idx.min()) < 0 or int(idx.max()) >= embed.shape[1]:
+        raise AssertionError("rvq kernel: index out of range")
+    agree = (idx == idx_p).all(dim=1)
+    err = float((zq - zq_p).abs().max()) if zq.numel() else 0.0
+    if not torch.equal(zq.reshape(-1, d)[agree], zq_p.reshape(-1, d)[agree]):
+        raise AssertionError("rvq kernel: zq differs on frames whose "
+                             "indices agree")
+    frames = (~agree).nonzero().flatten()
+    if not len(frames):
+        return 0, 0.0, err
+    first = (idx[frames] != idx_p[frames]).int().argmax(dim=1)
+    r = rvq_residuals(z.reshape(-1, d), embed.float(), idx_p)[first, frames]
+    e_k = embed[first, idx[frames, first].long()].double()
+    e_p = embed[first, idx_p[frames, first].long()].double()
+    r = r.double()
+    gap = ((r - e_k).square().sum(1) - (r - e_p).square().sum(1)).abs()
+    scale = r.square().sum(1) + torch.maximum(e_k.square().sum(1),
+                                              e_p.square().sum(1))
+    worst = float((gap / (RVQ_TIE_REL * scale)).max())
+    if worst > 1.0:
+        raise AssertionError(f"rvq kernel: an index flip is no near tie "
+                             f"({worst:.3g} x the bound)")
+    return len(frames), worst, err
+
+
+def main_input(device):
+    """main_path's seeded input, (16, 480000, 1) at 0.3."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return 0.3 * torch.randn(BATCH, SECONDS * SR, 1, generator=gen,
+                             device=device)
+
+
+def on_device(params, device):
+    return tree_map(lambda a: a.to(device, torch.float32), params)
+
+
+def phase_rvq_kernel_vs_plain(params, device):
+    """csrc/rvq_encode.cu against its plain version: seeded random
+    codebooks and z at tests/test_pallas_vq.py's shapes, and the trained
+    golden's codebooks on the true-f32 encoder's z of main_path's input
+    (16, 1600, 64)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = []
+    for (q, n, d), bt in RVQ_SHAPES:
+        embed = torch.randn(q, n, d, generator=gen, device=device)
+        z = torch.randn(*bt, d, generator=gen, device=device)
+        flips, worst, err = check_rvq(z, embed)
+        cases.append({"Q": q, "N": n, "D": d, "frames": bt[0] * bt[1],
+                      "codebooks": "random", "flipped_frames": flips,
+                      "worst_flip_vs_bound": worst, "zq_max_abs_err": err})
+    cfg = GeneratorConfig()
+    p = on_device(params, device)
+    h = encoder_apply(p["encoder"], main_input(device), cfg)
+    z = projector_apply(p["projector"], h, cfg).contiguous()
+    embed = p["quantizer"]["embed"]
+    flips, worst, err = check_rvq(z, embed)
+    cases.append({"Q": embed.shape[0], "N": embed.shape[1], "D": z.shape[-1],
+                  "frames": z.shape[0] * z.shape[1],
+                  "codebooks": "gen_symad_trained", "flipped_frames": flips,
+                  "worst_flip_vs_bound": worst, "zq_max_abs_err": err})
+    emit("rvq_kernel_vs_plain", t0,
+         tolerance=f"flips only at near ties (f64 gap <= {RVQ_TIE_REL} x "
+                   f"(|r|^2 + |E|^2)), zq bit-equal on agreeing frames",
+         cases=cases)
+    return z
+
+
+def phase_fused_golden(device):
+    """bin/fused_probe.py's fused_path on the card in f32 against the
+    goldens: idx_stream with 0 flips, y within rtol 1e-3, atol 1e-4."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    flat = np.arange(cfg.codebook_num)[:, None] * cfg.codebook_size
+    results = {}
+    for name in ("gen_symad", "gen_symad_trained"):
+        data, params = load_golden(name)
+        x = torch.from_numpy(data["x"].transpose(0, 2, 1).copy()).to(device)
+        reset_launches()
+        idx, y = fused_probe.fused_path(on_device(params, device), x, cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        flips = int((idx[0].cpu().numpy().T + flat
+                     != data["idx_stream"]).sum())
+        if flips:
+            raise AssertionError(f"{name}: {flips} index flips on the fused "
+                                 f"path")
+        y = y.cpu().numpy().transpose(0, 2, 1)
+        np.testing.assert_allclose(y, data["y"], rtol=1e-3, atol=1e-4)
+        if launches["resunit"] != 8 or launches["rvq"] != 1:
+            raise AssertionError(f"{name}: kernel launches {launches}")
+        results[name] = {"index_flips": 0,
+                         "frames": int(data["idx_stream"].shape[1]),
+                         "max_abs_err": float(np.abs(y - data["y"]).max()),
+                         "launches": launches}
+    emit("fused_golden", t0, goldens=results)
+
+
+def resunit_timing(params, device, gen):
+    """Per stack of the fused transcode: csrc/resunit_stack.cu's, the plain
+    version's and the F.elu / F.conv1d chain's ms at (16, C, T) f32 with
+    the trained golden's weights, and the bound."""
+    rows = []
+    for name, units, (c, t) in symad_stacks(params, device):
+        x = torch.randn(BATCH, c, t, generator=gen, device=device)
+        err, _ = check_resunit(x, units)
+        row = {
+            "stack": name, "shape": [BATCH, c, t], "dtype": "float32",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: resunit_kernel.fused_residual_stack_bct(
+                x, units, dilations=DILATIONS), reps=3),
+            "plain_ms": cuda_ms(
+                lambda: resunit_kernel.fused_residual_stack_plain(
+                    x, units, DILATIONS), reps=2),
+            "chain_ms": cuda_ms(lambda: chain(x, units), reps=2),
+            "cuda_launches_per_call": 2 * len(units),
+        }
+        b, c, t = x.shape
+        row.update(kernel_bounds.resunit_stack(b, t, c))
+        rows.append(row)
+    return rows
+
+
+def rvq_timing(z, embed):
+    """csrc/rvq_encode.cu's, the plain version's and ops/vq.py
+    rvq_forward_index's (cuBLAS, TF32 off) ms on (16, 1600, 64) frames, and
+    the bound."""
+    flips, _, err = check_rvq(z, embed)
+    row = {
+        "shape": list(z.shape), "codebooks": list(embed.shape),
+        "max_abs_err": err, "flipped_frames": flips,
+        "ms": cuda_ms(lambda: vq_kernel.rvq_encode_pallas(z, embed), reps=5),
+        "plain_ms": cuda_ms(lambda: vq_kernel.rvq_encode_plain(z, embed),
+                            reps=3),
+        "chain_ms": cuda_ms(lambda: rvq_forward_index(z, {"embed": embed}),
+                            reps=3),
+        "cuda_launches_per_call": 1,
+    }
+    row.update(kernel_bounds.rvq_encode(z.shape[0] * z.shape[1],
+                                        d=z.shape[2], q=embed.shape[0],
+                                        codes=embed.shape[1]))
+    return row
+
+
+def phase_fused_path(device, params, x, z_main):
+    """The slice at full width: bin/fused_probe.py's fused_path on the
+    trained golden's weights (f32) with main_path's input, B=16 x 10 s:
+    every stack in csrc/resunit_stack.cu, the RVQ in csrc/rvq_encode.cu;
+    beside it the true-f32 plain_path on the same input."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    p = on_device(params, device)
+
+    def fused(x):
+        return fused_probe.fused_path(p, x, cfg)
+
+    def plain(x):
+        return fused_probe.plain_path(p, x, cfg)
+
+    def encode(x):
+        h = fast_experiments.encoder_apply_fused(p["encoder"], x, cfg)
+        z = projector_apply(p["projector"], h, cfg)
+        return vq_kernel.rvq_encode_pallas(z, p["quantizer"]["embed"])
+
+    reset_launches()
+    idx, y = fused(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"autoencoder": 0, "vocoder": 0, "int8": 0, "resunit": 8,
+                    "rvq": 1}:
+        raise AssertionError(f"kernel launches {launches}, expected 8 "
+                             f"resunit_stack and 1 rvq_encode")
+    check_transcode(idx, y, x, cfg)
+    idx_p, y_p = plain(x)
+    flips = int((idx != idx_p).sum())
+    if flips > FUSED_FLIP_SHARE * idx.numel():
+        raise AssertionError(f"{flips} index flips against the plain f32 "
+                             f"path (bound {FUSED_FLIP_SHARE} of "
+                             f"{idx.numel()})")
+    # the plain path's indices through both decoders
+    zq = rvq_lookup(idx_p, p["quantizer"])
+    y_f = fast_experiments.decoder_apply_fused(p["decoder"], zq, cfg)
+    dec_rel = float((y_f - y_p).abs().max() / y_p.abs().max())
+    if not dec_rel <= FUSED_DECODE_REL:
+        raise AssertionError(f"fused decoder off the plain one by "
+                             f"{dec_rel:.3g} of the peak")
+
+    zq_k, _ = encode(x)
+    torch.cuda.reset_peak_memory_stats()
+    transcode_ms = cuda_ms(lambda: fused(x), reps=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    times = {
+        "transcode_ms": transcode_ms,
+        "encode_ms": cuda_ms(lambda: encode(x), reps=3),
+        "decode_ms": cuda_ms(lambda: fast_experiments.decoder_apply_fused(
+            p["decoder"], zq_k, cfg), reps=3),
+        "rtf": BATCH * SECONDS / (transcode_ms / 1e3),
+        "peak_memory_gib": peak_gib,
+        "plain_transcode_ms": cuda_ms(lambda: plain(x), reps=2),
+    }
+    times["plain_rtf"] = BATCH * SECONDS / (times["plain_transcode_ms"] / 1e3)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    rows = resunit_timing(params, device, gen)
+    rvq_row = rvq_timing(z_main, p["quantizer"]["embed"])
+    emit("fused_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
+         **times, launches=launches, index_flips_vs_plain=flips,
+         indices=idx.numel(), fused_vs_plain_decode_rel_err=dec_rel,
+         resunit_stack=rows, rvq_encode=rvq_row)
+    return launches, rows, [rvq_row], fused
 
 
 def phase_profile(path: str, tc, x):
@@ -762,16 +1101,21 @@ def phase_build():
     emit("build", t0, kernels=built)
 
 
-def kernel_entry(name, mode, source, rows, launches_by_path, path):
+def kernel_entry(name, mode, counter, source, replaces, rows,
+                 launches_by_path, path):
+    """One kernel's entry of the `kernels` line: its launches on `path` and
+    on every path (read from the `counter` count), and its rows' times and
+    bounds summed."""
     worst = max(rows, key=lambda r: r["bound_ms"])
     return {
         "name": name,
         "mode": mode,
         "route": "cuda",
         "source": source,
-        "replaces": "audiodec_tpu/ops/pallas/folded_stack.py:372",
-        "launches": launches_by_path[path][mode],
-        "launches_by_path": {p: n[mode] for p, n in launches_by_path.items()},
+        "replaces": replaces,
+        "launches": launches_by_path[path][counter],
+        "launches_by_path": {p: n[counter]
+                             for p, n in launches_by_path.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -803,8 +1147,11 @@ def main():
     phase_kernel_vs_plain(trained, device)
     phase_voc_kernel_vs_plain(device)
     phase_int8_kernel_vs_plain(trained, device)
+    phase_resunit_kernel_vs_plain(trained, device)
+    z_main = phase_rvq_kernel_vs_plain(trained, device)
     phase_golden(device)
     phase_voc_golden(device)
+    phase_fused_golden(device)
     ae_launches, ae_rows, tc, x, idx, params = phase_main_path(device)
     phase_profile("main_path", tc, x)
     voc_launches, voc_rows, tc_v1 = phase_ad_v1_path(device, params, x, idx)
@@ -815,19 +1162,32 @@ def main():
     phase_profile("int8_path", tc_int8, x)
     del tc_int8
     phase_cli_path(params)
+    fused_launches, resunit_rows, rvq_rows, fused = phase_fused_path(
+        device, params, x, z_main)
+    phase_profile("fused_path", fused, x)
+    del fused
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
-               "int8_path": int8_launches}
+               "int8_path": int8_launches, "fused_path": fused_launches}
+    folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
     print(json.dumps({"kernels": [
-        kernel_entry("folded_residual_stack", "autoencoder",
-                     "audiodec_tpu_torch/csrc/folded_stack.cu", ae_rows,
-                     by_path, "main_path"),
-        kernel_entry("folded_residual_stack", "vocoder",
-                     "audiodec_tpu_torch/csrc/resblock_stack.cu", voc_rows,
-                     by_path, "ad_v1_path"),
-        kernel_entry("folded_residual_stack", "int8",
-                     "audiodec_tpu_torch/csrc/int8_stack.cu", int8_rows,
-                     by_path, "int8_path"),
+        kernel_entry("folded_residual_stack", "autoencoder", "autoencoder",
+                     "audiodec_tpu_torch/csrc/folded_stack.cu", folded,
+                     ae_rows, by_path, "main_path"),
+        kernel_entry("folded_residual_stack", "vocoder", "vocoder",
+                     "audiodec_tpu_torch/csrc/resblock_stack.cu", folded,
+                     voc_rows, by_path, "ad_v1_path"),
+        kernel_entry("folded_residual_stack", "int8", "int8",
+                     "audiodec_tpu_torch/csrc/int8_stack.cu", folded,
+                     int8_rows, by_path, "int8_path"),
+        kernel_entry("fused_residual_stack", "f32", "resunit",
+                     "audiodec_tpu_torch/csrc/resunit_stack.cu",
+                     "audiodec_tpu/archive/resunit_kernel.py:118",
+                     resunit_rows, by_path, "fused_path"),
+        kernel_entry("rvq_encode_pallas", "f32", "rvq",
+                     "audiodec_tpu_torch/csrc/rvq_encode.cu",
+                     "audiodec_tpu/archive/vq_kernel.py:78", rvq_rows,
+                     by_path, "fused_path"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

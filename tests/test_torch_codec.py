@@ -180,3 +180,23 @@ def test_mixed_mode_keeps_f32_indices(small):
     assert y_m.dtype == torch.float32
     rel = float((y_m - y).abs().max() / y.abs().max())
     assert rel < 0.05
+
+
+def test_generator_encode_folds_channels():
+    """A multi-channel waveform is folded into the batch as JAX's
+    generator_encode does (`_channel_fold`, consecutive channels grouped):
+    (1, 1200, 2) gives indices (2, 4, 2), equal to JAX's."""
+    narrow = dict(encode_channels=2, decode_channels=2, code_dim=8,
+                  codebook_num=2, codebook_size=16)
+    jcfg = JaxConfig(**narrow)
+    jp = jax.tree_util.tree_map(
+        np.array, jax_ae.generator_init(jax.random.PRNGKey(0), jcfg))
+    x = (0.3 * np.random.default_rng(0)
+         .standard_normal((1, 1200, 2))).astype(np.float32)
+    jidx = np.asarray(jax_ae.generator_encode(
+        jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(x), jcfg))
+    idx = autoencoder.generator_encode(params_from_jax(jp),
+                                       torch.from_numpy(x),
+                                       GeneratorConfig(**narrow))
+    assert jidx.shape == (2, 4, 2)
+    np.testing.assert_array_equal(idx.numpy(), jidx)
