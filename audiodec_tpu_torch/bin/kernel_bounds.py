@@ -58,6 +58,22 @@ def rvq_encode(n, d=CODE_DIM, q=CODEBOOKS, codes=CODES) -> dict:
     return bound_ms(nbytes, q * 2 * n * codes * d, "f32")
 
 
+def dot_chain(m, dots, peak) -> dict:
+    """The rate probe's chain: x (m, 128) read, w (dots, 128, 128) read and
+    the output written in the dtype of `peak`; 2 * m * dots * 128^2
+    operations."""
+    size = {"bf16": BF16, "int8": INT8, "f32": F32}[peak]
+    return bound_ms((2 * m * 128 + dots * 128 * 128) * size,
+                    2 * m * dots * 128 * 128, peak)
+
+
+def ablate_stack(b, t, c) -> dict:
+    """The ablation probe's stack at (b, c, t): three k=7 units, f32
+    storage, bf16 weights and dots."""
+    return residual_stack(b, t, c, k=7, k2=1, storage=F32, weight=BF16,
+                          peak="bf16")
+
+
 def rows():
     """(function, mode, shape note, bound) for every pallas_call function."""
     stack = "audiodec_tpu/ops/pallas/folded_stack.py:112"
@@ -93,16 +109,12 @@ def rows():
                         [BATCH, t, c], resunit_stack(BATCH, t, c)))
     out.append(("tools/folded_ablate.py:34",
                 "folded stack variants, f32 storage, bf16 dots",
-                [BATCH, SAMPLES, 32],
-                residual_stack(BATCH, SAMPLES, 32, k=7, k2=1, storage=F32,
-                               weight=BF16, peak="bf16")))
+                [BATCH, SAMPLES, 32], ablate_stack(BATCH, SAMPLES, 32)))
     # mxu_rate_probe defaults: 120 tiles of (1024, 128) @ 64 x (128, 128)
     m, dots = 120 * 1024, 64
-    for name, size in (("bf16", BF16), ("int8", INT8), ("f32", F32)):
+    for name in ("bf16", "int8", "f32"):
         out.append(("tools/mxu_rate_probe.py:33", f"dot chain, {name}",
-                    [m, 128, dots],
-                    bound_ms((2 * m * 128 + dots * 128 * 128) * size,
-                             2 * m * dots * 128 * 128, name)))
+                    [m, 128, dots], dot_chain(m, dots, name)))
     return out
 
 

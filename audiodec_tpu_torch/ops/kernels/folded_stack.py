@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from audiodec_tpu_torch.ops.activations import elu_exp
 from audiodec_tpu_torch.ops.kernels import _build
+from audiodec_tpu_torch.ops.kernels.fold import fold_factor, fold_offsets
 
 KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
@@ -116,10 +117,9 @@ def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
 # int8 mode, plain version
 # ---------------------------------------------------------------------------
 
-def int8_fold(c: int) -> int:
-    """Samples per folded row: the TPU kernel folds F = 128 // C samples
-    into its 128 lanes, and its activation scales are per folded row."""
-    return max(1, 128 // c)
+# samples per folded row: the TPU kernel folds F = 128 // C samples into
+# its 128 lanes, and its activation scales are per folded row
+int8_fold = fold_factor
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -156,12 +156,9 @@ def _quantize_rows(y: torch.Tensor, f: int):
     return q, s * (1.0 / INT8_QMAX)
 
 
-def _int8_offsets(k: int, d: int, f: int) -> list:
-    """The folded-row offsets of a causal conv(k, dilation d) under fold f,
-    ascending (the TPU kernel's `_fold_offsets`, `folded_stack.py:57-62`)."""
-    span = (k - 1) * d
-    return sorted({(p + j * d - span) // f
-                   for p in range(f) for j in range(k)})
+# the folded-row offsets of a causal conv(k, dilation d) under fold f,
+# ascending (the TPU kernel's `_fold_offsets`, `folded_stack.py:57-62`)
+_int8_offsets = fold_offsets
 
 
 def _int8_conv(q: torch.Tensor, sd: torch.Tensor, wq: torch.Tensor, d: int,

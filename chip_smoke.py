@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's five CUDA kernels (the folded residual-stack kernel's
-autoencoder, vocoder and int8 modes, the archived per-tap residual stack
-and the fused RVQ encode) from the sources in this checkout, one nvcc
-each, all started together; holds each against its plain PyTorch version;
+Builds the port's seven CUDA kernels (the folded residual-stack kernel's
+autoencoder, vocoder and int8 modes, the archived per-tap residual stack,
+the fused RVQ encode, the rate probe's dot chain and the ablation probe's
+stack) from the sources in this checkout, one nvcc each, all started
+together; holds each against its plain PyTorch version;
 checks the batch transcode, the fused transcode and the vocoder against
 the reference goldens; then drives the paths once each, times them and
 profiles one more transcode of each:
@@ -25,7 +26,16 @@ profiles one more transcode of each:
     and decoder) through csrc/resunit_stack.cu and the RVQ through
     csrc/rvq_encode.cu, whose zq the decoder reads; beside it the true-f32
     plain_path on the same input (index flips, the two decoders on the
-    plain indices, its time).
+    plain indices, its time);
+  - mxu_rate_path (slice 5): `bin/mxu_rate_probe.py`'s main at its
+    defaults, the dot chain of 120 x 1024 rows through 64 (128, 128)
+    products in bf16, int8 and f32, chained and independent, in
+    csrc/dot_chain.cu (bf16 and int8 on the tensor cores) and in one
+    PyTorch product per dot;
+  - ablate_path (slice 5): `bin/folded_ablate.py`'s main at
+    (16, 32, 480000), the five ablation variants in csrc/ablate_stack.cu
+    (tensor cores), one F.elu pass and the autoencoder-mode kernel with
+    bf16 dots.
 
 The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
 256 with ragged T, and the trained golden's eight stacks at B=2, f32
@@ -36,6 +46,14 @@ in f64, zq bit-equal on agreeing frames) and `fused_golden` (the fused
 path on gen_symad and gen_symad_trained: 0 index flips, y within rtol
 1e-3, atol 1e-4).
 
+The checks of slice 5: `dot_chain_vs_plain` (the 6 dtype x mode cases at
+(64 rows, 4 dots, 3 tiles) and at the probe's full size on its inputs,
+with an int8 row that wraps: int8 bit-equal, f32 within 5e-5 of the peak,
+bf16 relative L2 within 1e-3 independent and 3e-4 per dot chained) and
+`ablate_kernel_vs_plain` (the five variants at C = 32 and 16 with B = 2,
+T = 4000 and B = 1, T = 64, and at (16, 32, 480000): relative L2 within
+5e-4, max error within 1e-2 of the peak).
+
 Each phase prints one JSON line with its own seconds; any failure raises,
 so the script exits non-zero and prints no result.  Without a CUDA device
 it exits non-zero at once.
@@ -44,15 +62,20 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-Every path sets the five launch counts to 0 just before it and reads them
-just after (autoencoder, vocoder, int8: ops/kernels/folded_stack.py;
-resunit: archive/resunit_kernel.py; rvq: archive/vq_kernel.py; one per
-wrapper call): main_path 2/0/0/0/0, ad_v1_path 1/3/0/0/0, int8_path
-1/0/4/0/0, cli_path 0 or 4 int8 and no resunit or rvq, fused_path
-0/0/0/8/1.  In the `kernels` line, `launches` is the count from the run
-of the path that brought the kernel in (autoencoder mode: main_path;
-vocoder mode: ad_v1_path; int8 mode: int8_path; the archived stack and
-the RVQ encode: fused_path), `launches_by_path` the counts of every path,
+Every path sets the seven launch counts to 0 just before it and reads
+them just after (autoencoder, vocoder, int8: ops/kernels/folded_stack.py;
+resunit: archive/resunit_kernel.py; rvq: archive/vq_kernel.py; dot_chain:
+ops/kernels/dot_chain.py; ablate: ops/kernels/ablate_stack.py; one per
+wrapper call): main_path 2/0/0/0/0/0/0, ad_v1_path 1/3/0/0/0/0/0,
+int8_path 1/0/4/0/0/0/0, cli_path 0 or 4 int8 and no resunit or rvq,
+fused_path 0/0/0/8/1/0/0, mxu_rate_path 0/0/0/0/0/24/0 (6 cases, one
+warm-up and 3 timed calls each), ablate_path 7/0/0/0/0/0/35 (7 calls of
+each of the five variants and of the autoencoder-mode kernel).  In the
+`kernels` line, `launches` is the count from the run of the path that
+brought the kernel in (autoencoder mode: main_path; vocoder mode:
+ad_v1_path; int8 mode: int8_path; the archived stack and the RVQ encode:
+fused_path; the dot chain: mxu_rate_path; the ablation stack:
+ablate_path), `launches_by_path` the counts of every path,
 and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`, `chain_ms`
 and `bound_ms` add up that path's launches at their shapes (autoencoder:
 one f32 stack in the encoder and one bf16 stack in the decoder, both
@@ -60,14 +83,18 @@ one f32 stack in the encoder and one bf16 stack in the decoder, both
 (16, 32, 480000) bf16; int8: the four decoder stacks, (16, C, T) f32 at
 C = 256/128/64/32 and T = 8000/40000/160000/480000; archived stack: the
 eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
-(16, 1600, 64) with 8 x 1024 codes).  `bound_ms` is the larger of bytes
-over 3.35 TB/s and operations over the peak of the dots' type (989
+(16, 1600, 64) with 8 x 1024 codes; dot chain: one call of each of the
+6 cases at (122880, 128) x 64 dots; ablation stack: one call of each of
+the five variants at (16, 32, 480000)).  `bound_ms` is the larger of
+bytes over 3.35 TB/s and operations over the peak of the dots' type (989
 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32), per launch
-(bin/kernel_bounds.py).  `library_ms` is null: no single PyTorch call
-computes a stack or the RVQ cascade; `chain_ms` is the same units as
-F.elu / F.conv1d calls in the working dtype (f32 for the int8 mode and the
-archived stack), and for the RVQ `ops/vq.py rvq_forward_index` on cuBLAS
-with TF32 off.  Peaks are the H100 SXM data sheet's, at 700 W.
+(bin/kernel_bounds.py).  `library_ms` is the dot chain's torch chain
+(one `torch.matmul` or `torch._int_mm` per dot, the probe's `torch`
+impl); it is null for the rest: no single PyTorch call computes a stack or
+the RVQ cascade.  `chain_ms` is the same units as F.elu / F.conv1d calls
+in the working dtype (f32 for the int8 mode and the archived stack), and
+for the RVQ `ops/vq.py rvq_forward_index` on cuBLAS with TF32 off; the
+probes have none.  Peaks are the H100 SXM data sheet's, at 700 W.
 
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
@@ -88,7 +115,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
-from audiodec_tpu_torch.bin import codec_test, fused_probe, kernel_bounds
+from audiodec_tpu_torch.bin import (
+    codec_test,
+    folded_ablate,
+    fused_probe,
+    kernel_bounds,
+    mxu_rate_probe,
+)
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
 from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
 from audiodec_tpu_torch.models import fast
@@ -103,7 +136,12 @@ from audiodec_tpu_torch.models.vocoder import (
     group_params,
     vocoder_init,
 )
-from audiodec_tpu_torch.ops.kernels import _build, folded_stack
+from audiodec_tpu_torch.ops.kernels import (
+    _build,
+    ablate_stack,
+    dot_chain,
+    folded_stack,
+)
 from audiodec_tpu_torch.data.wav import read_wav_pcm16, write_wav
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
 from audiodec_tpu_torch.utils.bridge import (
@@ -125,7 +163,7 @@ DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
 KERNELS = ("folded_stack", "resblock_stack", "int8_stack", "resunit_stack",
-           "rvq_encode")
+           "rvq_encode", "dot_chain", "ablate_stack")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
 # true f32: only the order of the sums differs (tests/test_folded_stack.py
@@ -147,6 +185,16 @@ RVQ_TIE_REL = 1e-5
 # share of the indices, and the two decoders on the same indices relative to
 # the peak
 FUSED_FLIP_SHARE, FUSED_DECODE_REL = 1e-3, 1e-3
+# slice 5.  The dot chain against its plain version: int8 bit-equal; f32
+# within this share of the peak (the same products summed in another
+# order, up to 128 x 64 terms); bf16 in relative L2 (a one-ulp flip is
+# 3.9e-3 relative and a chained step carries it into the next product, so
+# the chained bar grows with the number of dots)
+DOT_F32_REL, DOT_BF16_RL2, DOT_BF16_RL2_PER_DOT = 5e-5, 1e-3, 3e-4
+DOT_FULL = (1024, 64, 120)          # the probe's rows, dots, tiles
+# the ablation stack against its plain version: bf16 operand flips, see
+# tests/test_torch_folded_ablate.py
+ABLATE_RL2, ABLATE_MAX_REL = 5e-4, 1e-2
 # RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T))
 RVQ_SHAPES = (((4, 32, 16), (2, 10)), ((8, 1024, 64), (1, 300)),
               ((2, 16, 8), (1, 3)))
@@ -494,13 +542,16 @@ def read_launches() -> dict:
             "vocoder": folded_stack.resblock_launches,
             "int8": folded_stack.int8_launches,
             "resunit": resunit_kernel.launches,
-            "rvq": vq_kernel.launches}
+            "rvq": vq_kernel.launches,
+            "dot_chain": dot_chain.launches,
+            "ablate": ablate_stack.launches}
 
 
 def reset_launches():
     folded_stack.launches = folded_stack.resblock_launches = 0
     folded_stack.int8_launches = 0
     resunit_kernel.launches = vq_kernel.launches = 0
+    dot_chain.launches = ablate_stack.launches = 0
 
 
 def check_transcode(idx, y, x, cfg: GeneratorConfig):
@@ -540,7 +591,7 @@ def phase_main_path(device):
     torch.cuda.synchronize()
     launches = read_launches()
     if launches != {"autoencoder": 2, "vocoder": 0, "int8": 0, "resunit": 0,
-                    "rvq": 0}:
+                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 2 "
                              f"autoencoder-mode and no other")
     check_transcode(idx, y, x, cfg)
@@ -572,7 +623,7 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     torch.cuda.synchronize()
     launches = read_launches()
     if launches != {"autoencoder": 1, "vocoder": 3, "int8": 0, "resunit": 0,
-                    "rvq": 0}:
+                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode, 3 vocoder-mode and no "
                              f"int8-mode")
@@ -701,7 +752,7 @@ def phase_int8_path(device, params, x, idx_main):
     torch.cuda.synchronize()
     launches = read_launches()
     if launches != {"autoencoder": 1, "vocoder": 0, "int8": 4, "resunit": 0,
-                    "rvq": 0}:
+                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode and 4 int8-mode")
     check_transcode(idx, y, x, cfg)
@@ -1019,7 +1070,7 @@ def phase_fused_path(device, params, x, z_main):
     torch.cuda.synchronize()
     launches = read_launches()
     if launches != {"autoencoder": 0, "vocoder": 0, "int8": 0, "resunit": 8,
-                    "rvq": 1}:
+                    "rvq": 1, "dot_chain": 0, "ablate": 0}:
         raise AssertionError(f"kernel launches {launches}, expected 8 "
                              f"resunit_stack and 1 rvq_encode")
     check_transcode(idx, y, x, cfg)
@@ -1059,6 +1110,187 @@ def phase_fused_path(device, params, x, z_main):
          indices=idx.numel(), fused_vs_plain_decode_rel_err=dec_rel,
          resunit_stack=rows, rvq_encode=rvq_row)
     return launches, rows, [rvq_row], fused
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the tensor-core probes (dot chain and ablation stack)
+# ---------------------------------------------------------------------------
+
+def dot_bf16_bar(n_dots: int, independent: bool) -> float:
+    """The bf16 chain's bar on relative L2 against its plain version: one
+    bf16 ulp is 3.9e-3 relative, and a chained step's one-ulp flips are
+    carried into the next product, so the bar grows with the chain."""
+    return DOT_BF16_RL2 if independent else DOT_BF16_RL2_PER_DOT * n_dots
+
+
+def check_dot_chain(x, w, independent: bool) -> dict:
+    """csrc/dot_chain.cu against its plain version on the same inputs:
+    int8 bit-equal, f32 within DOT_F32_REL of the peak, bf16 within
+    dot_bf16_bar in relative L2."""
+    out = dot_chain.dot_chain(x, w, independent)
+    ref = dot_chain.dot_chain_plain(x, w, independent)
+    torch.cuda.synchronize()
+    o, r = out.float(), ref.float()
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"dot chain gave {out.dtype} {tuple(out.shape)}")
+    if not torch.isfinite(o).all():
+        raise AssertionError("dot chain output is not finite")
+    err, peak = float((o - r).abs().max()), float(r.abs().max())
+    rl2 = float((o - r).norm() / r.norm())
+    what = f"{x.dtype} {'independent' if independent else 'chained'}"
+    if x.dtype == torch.int8:
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{what}: int8 chain not bit-equal")
+    elif x.dtype == torch.float32:
+        if not err <= DOT_F32_REL * peak:
+            raise AssertionError(f"{what}: error {err / peak:.3g} of the "
+                                 f"peak (bar {DOT_F32_REL})")
+    elif not rl2 <= dot_bf16_bar(w.shape[0], independent):
+        raise AssertionError(f"{what}: relative L2 {rl2:.3g} (bar "
+                             f"{dot_bf16_bar(w.shape[0], independent)})")
+    return {"max_abs_err": err, "max_rel_err": err / peak, "rel_l2": rl2}
+
+
+def dot_inputs(rng, dtype, m: int, n_dots: int, device):
+    """The probe's inputs; for int8, row 0 of x and column 0 of w[0] set to
+    79, so the chained step's d // 4096 = 128 * 79^2 // 4096 = 195 wraps."""
+    x, w = mxu_rate_probe.probe_inputs(rng, dtype, m, n_dots, device)
+    if dtype == torch.int8:
+        x[0], w[0, :, 0] = 79, 79
+        q = int((x[0].long() * w[0, :, 0].long()).sum() // dot_chain.INT8_SHIFT)
+        if q != 195:
+            raise AssertionError(f"wrap row gives {q}")
+    return x, w
+
+
+def phase_dot_chain_vs_plain(device):
+    """csrc/dot_chain.cu against its plain version in the 6 dtype x mode
+    cases, at (64 rows, 4 dots, 3 tiles) and at the probe's full
+    (1024, 64, 120) on its own inputs (the int8 wrap row added)."""
+    t0 = time.perf_counter()
+    cases, rows = [], []
+    for (rows_, dots, tiles), seed in (((64, 4, 3), SEED + 7),
+                                       (DOT_FULL, SEED)):
+        rng = np.random.default_rng(seed)
+        m = rows_ * tiles
+        for dtype_s, dtype, peak in mxu_rate_probe.DTYPES:
+            x, w = dot_inputs(rng, dtype, m, dots, device)
+            for mode, independent in mxu_rate_probe.MODES:
+                res = check_dot_chain(x, w, independent)
+                case = {"dtype": dtype_s, "mode": mode, "rows": rows_,
+                        "dots": dots, "tiles": tiles, **res}
+                cases.append(case)
+                if (rows_, dots, tiles) == DOT_FULL:
+                    case["plain_ms"] = cuda_ms(
+                        lambda: dot_chain.dot_chain_plain(x, w, independent),
+                        reps=2)
+                    rows.append({**case, "shape": [m, 128, dots],
+                                 **kernel_bounds.dot_chain(m, dots, peak)})
+    emit("dot_chain_vs_plain", t0, tolerance={
+        "int8": "bit-equal",
+        "f32": f"max error <= {DOT_F32_REL} x peak",
+        "bf16": f"relative L2 <= {DOT_BF16_RL2} (independent), "
+                f"{DOT_BF16_RL2_PER_DOT} x dots (chained)"}, cases=cases)
+    return rows
+
+
+def phase_mxu_rate_path(rows):
+    """bin/mxu_rate_probe.py's main at its defaults: each (dtype, mode)
+    runs the kernel and the torch chain once to warm up and ITERS times
+    timed.  Fills `ms`, `library_ms` and TFLOP/s into the rows."""
+    t0 = time.perf_counter()
+    reset_launches()
+    records = mxu_rate_probe.main([])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = len(rows) * (1 + mxu_rate_probe.ITERS)
+    if launches != {"autoencoder": 0, "vocoder": 0, "int8": 0, "resunit": 0,
+                    "rvq": 0, "dot_chain": want, "ablate": 0}:
+        raise AssertionError(f"kernel launches {launches}, expected {want} "
+                             f"dot_chain")
+    by_case = {(r["impl"], r["dtype"], r["mode"]): r for r in records}
+    for row in rows:
+        kern = by_case["kernel", row["dtype"], row["mode"]]
+        row.update(ms=kern["ms"], tflops=kern["tflops"],
+                   library_ms=by_case["torch", row["dtype"], row["mode"]]
+                   ["ms"])
+    emit("mxu_rate_path", t0, launches=launches, records=records)
+    return launches, rows
+
+
+def check_ablate(x, units, variant: str) -> dict:
+    """csrc/ablate_stack.cu against its plain version on the same inputs:
+    relative L2 <= ABLATE_RL2 and max error <= ABLATE_MAX_REL x peak (bf16
+    operand flips, see tests/test_torch_folded_ablate.py)."""
+    out = ablate_stack.ablate_stack(x, units, DILATIONS, variant)
+    ref = ablate_stack.ablate_stack_plain(x, units, DILATIONS, variant)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{variant}: output not finite")
+    if torch.equal(out, x):
+        raise AssertionError(f"{variant}: kernel returned its input")
+    err, peak = float((out - ref).abs().max()), float(ref.abs().max())
+    rl2 = float((out - ref).norm() / ref.norm())
+    if not (rl2 <= ABLATE_RL2 and err <= ABLATE_MAX_REL * peak):
+        raise AssertionError(f"{variant} at {tuple(x.shape)}: relative L2 "
+                             f"{rl2:.3g}, max {err / peak:.3g} of the peak")
+    return {"max_abs_err": err, "max_rel_err": err / peak, "rel_l2": rl2}
+
+
+def phase_ablate_kernel_vs_plain(device):
+    """csrc/ablate_stack.cu against its plain version: the five variants
+    at C = 32 and 16 (f = 4 and 8), B = 2 with T = 4000 (13 of the
+    kernel's 320-sample tiles, the last one ragged) and B = 1 with T = 64
+    (shorter than the halo), and at (16, 32, 480000) on
+    bin/folded_ablate.py's inputs."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    cases, rows = [], []
+    for c in (32, 16):
+        units = tuple((0.1 * torch.randn(c, c, 7, generator=gen,
+                                         device=device),
+                       0.1 * torch.randn(c, c, 1, generator=gen,
+                                         device=device)) for _ in DILATIONS)
+        for b, t in ((2, 4000), (1, 64)):
+            x = 0.3 * torch.randn(b, c, t, generator=gen, device=device)
+            for v in ablate_stack.VARIANTS:
+                cases.append({"variant": v, "shape": [b, c, t],
+                              **check_ablate(x, units, v)})
+    b, c, t = BATCH, 32, SECONDS * SR
+    units, x = folded_ablate.probe_inputs(b, t, c, device)
+    for v in ablate_stack.VARIANTS:
+        case = {"variant": v, "shape": [b, c, t], **check_ablate(x, units, v)}
+        cases.append(case)
+        case["plain_ms"] = cuda_ms(lambda: ablate_stack.ablate_stack_plain(
+            x, units, DILATIONS, v), reps=1)
+        rows.append({**case, **kernel_bounds.ablate_stack(b, t, c)})
+    emit("ablate_kernel_vs_plain", t0, tolerance=(
+        f"relative L2 <= {ABLATE_RL2}, max error <= {ABLATE_MAX_REL} x "
+        f"peak"), cases=cases)
+    return rows
+
+
+def phase_ablate_path(rows):
+    """bin/folded_ablate.py's main at (16, 32, 480000): the five variants,
+    one F.elu pass and the autoencoder-mode kernel with bf16 dots, each
+    once to warm up and ITERS times timed."""
+    t0 = time.perf_counter()
+    reset_launches()
+    records = folded_ablate.main([])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls = 1 + folded_ablate.ITERS
+    if launches != {"autoencoder": calls, "vocoder": 0, "int8": 0,
+                    "resunit": 0, "rvq": 0, "dot_chain": 0,
+                    "ablate": len(rows) * calls}:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{len(rows) * calls} ablate and {calls} "
+                             f"autoencoder")
+    by_name = {r["ablate"]: r for r in records}
+    for row in rows:
+        row["ms"] = by_name[row["variant"]]["ms"]
+    emit("ablate_path", t0, launches=launches, records=records)
+    return launches, rows
 
 
 def phase_profile(path: str, tc, x):
@@ -1121,10 +1353,16 @@ def kernel_entry(name, mode, counter, source, replaces, rows,
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": worst["bound_by"],
-        "library_ms": None,
-        "chain_ms": sum(r["chain_ms"] for r in rows),
+        "library_ms": summed(rows, "library_ms"),
+        "chain_ms": summed(rows, "chain_ms"),
         "per_launch": rows,
     }
+
+
+def summed(rows, key):
+    """The rows' `key` summed, or None where a row has none."""
+    vals = [r.get(key) for r in rows]
+    return None if None in vals else sum(vals)
 
 
 def main():
@@ -1149,6 +1387,8 @@ def main():
     phase_int8_kernel_vs_plain(trained, device)
     phase_resunit_kernel_vs_plain(trained, device)
     z_main = phase_rvq_kernel_vs_plain(trained, device)
+    dot_rows = phase_dot_chain_vs_plain(device)
+    ablate_rows = phase_ablate_kernel_vs_plain(device)
     phase_golden(device)
     phase_voc_golden(device)
     phase_fused_golden(device)
@@ -1166,9 +1406,12 @@ def main():
         device, params, x, z_main)
     phase_profile("fused_path", fused, x)
     del fused
+    mxu_launches, dot_rows = phase_mxu_rate_path(dot_rows)
+    ablate_launches, ablate_rows = phase_ablate_path(ablate_rows)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
-               "int8_path": int8_launches, "fused_path": fused_launches}
+               "int8_path": int8_launches, "fused_path": fused_launches,
+               "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches}
     folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
     print(json.dumps({"kernels": [
         kernel_entry("folded_residual_stack", "autoencoder", "autoencoder",
@@ -1188,6 +1431,15 @@ def main():
                      "audiodec_tpu_torch/csrc/rvq_encode.cu",
                      "audiodec_tpu/archive/vq_kernel.py:78", rvq_rows,
                      by_path, "fused_path"),
+        kernel_entry("make_pallas_chain", "bf16/int8/f32 x chained/"
+                     "independent", "dot_chain",
+                     "audiodec_tpu_torch/csrc/dot_chain.cu",
+                     "tools/mxu_rate_probe.py:64", dot_rows, by_path,
+                     "mxu_rate_path"),
+        kernel_entry("build", "default/tree/im2col/noelu/noshift", "ablate",
+                     "audiodec_tpu_torch/csrc/ablate_stack.cu",
+                     "tools/folded_ablate.py:138", ablate_rows, by_path,
+                     "ablate_path"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
