@@ -8,9 +8,11 @@ kernel's exp(min(v, 0)) - 1 whatever the config names (`:34-37`).  The TPU
 kernel works in f32 whatever it is given (`:94`); here the input must be
 f32 and the output is f32.
 
-On a CUDA tensor one wrapper call runs csrc/resunit_stack.cu: two CUDA
-launches per unit (the k-tap conv, then the 1x1 conv with the residual),
-counted once in `launches`; on a CPU tensor it runs
+On a CUDA tensor one wrapper call runs csrc/resunit_stack.cu through
+`ops/kernels/folded_stack.py resunit_stack` (which the folded stack's
+autoencoder mode also takes above C = 32): two CUDA launches per unit (the
+k-tap conv, then the 1x1 conv with the residual), counted once in
+`launches`; on a CPU tensor it runs
 `fused_residual_stack_plain`.  The TPU kernel's time tiles and their
 materialized windows (`_windowed`, `:40-52`) and the archived wrappers'
 tile choice (`fast_experiments.py:21-25`) are VMEM workarounds and are not
@@ -27,25 +29,21 @@ every width, 5.63 / 7.51 / 7.51 / 6.01 ms at the symAD stacks (16, T, C) =
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from audiodec_tpu_torch.ops.activations import elu_exp
-from audiodec_tpu_torch.ops.kernels import _build
 from audiodec_tpu_torch.ops.kernels.folded_stack import (  # noqa: F401
-    cached_pack,
+    MAX_CHANNELS,
+    packed_resunit,
     res_stack_params,
+    resunit_stack,
 )
 
 DEFAULT_TILE_T = 1024
 KERNEL_SIZES = (1, 7)   # the CUDA kernel's conv widths (k, and the 1x1)
-MAX_CHANNELS = 256
-BLOCK_CO = (32, 64)     # output channels per block: C <= 32, else 64
-KC = 8                  # input channels per shared-memory stage
 
 launches = 0            # wrapper calls that ran csrc/resunit_stack.cu
 
@@ -60,30 +58,6 @@ def fused_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
         acc = F.conv1d(a, w1.float(), dilation=d)
         v = v + F.conv1d(elu_exp(acc), w2.float())
     return v
-
-
-@functools.cache
-def _kernel():
-    fn = _build.load("resunit_stack").resunit_conv_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _pack(w: torch.Tensor, c: int) -> torch.Tensor:
-    """Torch (C, C, K) -> (K, CI, CO) [k][i][o] f32, input channels
-    zero-padded to a multiple of KC and output channels to one of the
-    block's BM."""
-    bm = BLOCK_CO[0] if c <= BLOCK_CO[0] else BLOCK_CO[1]
-    ci = -(-c // KC) * KC
-    co = -(-c // bm) * bm
-    return F.pad(w.float().permute(2, 1, 0), (0, co - c, 0, ci - c)) \
-        .contiguous()
-
-
-def _pack_units(unit_params, c: int, _cp: int, _rounded: bool):
-    return [(_pack(w1, c), _pack(w2, c)) for w1, w2 in unit_params]
 
 
 def fused_residual_stack_bct(x: torch.Tensor, unit_params: Sequence, *,
@@ -117,29 +91,8 @@ def fused_residual_stack_bct(x: torch.Tensor, unit_params: Sequence, *,
         raise ValueError(f"the kernel takes C in 1..{MAX_CHANNELS}, got {c}")
     if any(w.device != x.device for u in unit_params for w in u):
         raise ValueError("weights must be on the device of x")
-    x = x.contiguous()
-    packed = cached_pack(_pack_units, tuple(w for u in unit_params for w in u),
-                         c, 0, False, unit_params)
-    out = torch.empty_like(x)
-    acc = torch.empty_like(x)
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        v = x
-        for (w1, w2), d in zip(packed, dilations):
-            # acc = conv_k_d(ELU(v)); out = v + conv1x1(ELU(acc)), in place
-            # from the second unit on (each element is read and written by
-            # one thread)
-            err = fn(v.data_ptr(), None, acc.data_ptr(), w1.data_ptr(),
-                     b, c, t, kernel_size, int(d), w1.shape[1], w1.shape[2],
-                     0, stream)
-            if err == 0:
-                err = fn(acc.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         w2.data_ptr(), b, c, t, 1, 1, w2.shape[1],
-                         w2.shape[2], 1, stream)
-            if err != 0:
-                raise RuntimeError(f"resunit_stack kernel: CUDA error {err}")
-            v = out
+    v = resunit_stack(x.contiguous(), packed_resunit(unit_params, c, False),
+                      dilations, kernel_size)
     launches += 1
     return v
 

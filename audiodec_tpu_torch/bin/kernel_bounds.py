@@ -43,6 +43,23 @@ def residual_stack(b, t, c, *, k, k2, storage, weight, peak,
     return bound_ms(2 * act + weights + biases, ops, peak)
 
 
+def autoencoder_stack(b, t, c, storage=F32) -> dict:
+    """The folded stack's autoencoder mode with bf16 dots at (b, c, t):
+    three k=7 units, the activation and weights in the storage dtype, the
+    dots at the bf16 peak."""
+    return residual_stack(b, t, c, k=7, k2=1, storage=storage,
+                          weight=storage, peak="bf16")
+
+
+def int8_stack(b, t, c, storage=F32) -> dict:
+    """The folded stack's int8 modes ("row" or "tile" scales) at (b, c, t):
+    three k=7 units, the activation in the storage dtype, int8 weights,
+    the dots at the int8 peak.  The tile mode's windows are its design's
+    cost, not the work's."""
+    return residual_stack(b, t, c, k=7, k2=1, storage=storage,
+                          weight=INT8, peak="int8")
+
+
 def resunit_stack(b, t, c) -> dict:
     """The archived fused stack at (b, c, t): three k=7 units in true f32
     (f32 operands and weights, the FMA units' peak)."""
@@ -93,8 +110,15 @@ def rows():
     # int8 mode: every symAD decoder stack, f32 storage, int8 dots
     for c, t in reversed(SYMAD_STACKS):
         out.append((stack, f"int8, decoder stack at C={c}", [BATCH, t, c],
-                    residual_stack(BATCH, t, c, k=7, k2=1, storage=F32,
-                                   weight=INT8, peak="int8")))
+                    int8_stack(BATCH, t, c)))
+    # tools/folded_probe.py's shapes (the symAD stacks), f32 storage: the
+    # autoencoder mode with bf16 dots and the int8 mode with "tile" scales
+    for c, t in SYMAD_STACKS:
+        out.append((stack, f"autoencoder, bf16 dots, probe shape at C={c}",
+                    [BATCH, t, c], autoencoder_stack(BATCH, t, c)))
+    for c, t in SYMAD_STACKS:
+        out.append((stack, f"int8, tile scales, probe shape at C={c}",
+                    [BATCH, t, c], int8_stack(BATCH, t, c)))
     # rvq_encode_pallas: strict-f32 distances, argmin, gather, update
     out.append(("audiodec_tpu/archive/vq_kernel.py:62", "f32",
                 [BATCH, SAMPLES // HOP, CODE_DIM, CODEBOOKS, CODES],

@@ -4,20 +4,26 @@
 // Replaces the TPU kernel audiodec_tpu/ops/pallas/folded_stack.py
 // folded_residual_stack (pallas_call at :372) in its int8 mode with "row"
 // activation scales (int8_dots=True, int8_scale="row"), the mode that
-// `codec_test --dtype int8-decode` runs for every decoder stack.  A unit is
-// v += conv1x1(ELU(conv_k7_dil_d(ELU(v)))), no biases, f32 storage, zero
-// left context at t=0, and both convs multiply int8 by int8 into int32:
+// `codec_test --dtype int8-decode` runs for every decoder stack, at any
+// fold.  A unit is v += conv1x1(ELU(conv_k7_dil_d(ELU(v)))), no biases, f32
+// or bf16 storage, zero left context at t=0, and both convs multiply int8
+// by int8 into int32:
 //
 //   - weights: per output channel, s = max(absmax over taps and input
 //     channels, 1e-12) / 127 and q = round(w / s), done by the wrapper;
-//   - activations: per folded row, the TPU kernel's F = max(1, 128 / C)
-//     consecutive samples x C channels, rows aligned to t=0:
+//   - activations: per folded row, F consecutive samples x C channels (F
+//     the wrapper's fold, by default the TPU kernel's max(1, 128 / C)),
+//     rows aligned to t=0:
 //     s_x = max|y| over the row, q = round(y * (127 / max(s_x, 1e-12))),
 //     dequant scale s_x * (1/127);
 //   - dequantization: for each input row a conv reads (ascending), the
 //     int32 partial of its taps (exact in f32, below 2^24) times that row's
 //     scale is added with one rounding, acc = fmaf(part, s_row, acc); then
-//     acc * s_weight; the residual is v = fmaf(y2, s_weight2, v).
+//     acc * s_weight; the residual is v = fmaf(y2, s_weight2, v) in f32
+//     storage; in bf16 storage the buffers hold f32 values, the sum
+//     bf16(v) + bf16(y2 * s_weight2) that the next unit's ELU reads (XLA
+//     keeps that excess precision on the CPU), rounded to bf16 where the
+//     residual is read and by the wrapper at the end.
 // Every f32 operation is an explicit _rn intrinsic or fmaf, so nvcc's
 // contraction cannot move a rounding, and rounding to int8 is rintf (half
 // to even, as torch.round).  ELU is exp(min(v, 0)) - 1 with expf, the TPU
@@ -58,6 +64,7 @@
 // Plain C interface for ctypes: pointers and the stream as void*, ints as
 // int; returns the first CUDA error of the launches, or 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -72,11 +79,15 @@ constexpr int TILE_ELEMS = 8192;  // target TS x CP per block
 constexpr float QMAX = 127.f;
 
 struct Geometry {
-  int C, CP, Tp, F, TS, H, L, d;
+  int C, CP, Tp, F, TS, H, L, d, bf16;
 };
 
 __device__ __forceinline__ float elu(float v) {
   return v > 0.f ? v : __fsub_rn(expf(fminf(v, 0.f)), 1.f);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ int dot16(const int4 a, const int4 b, int acc) {
@@ -200,7 +211,9 @@ int8_unit_kernel(const float* __restrict__ x, float* __restrict__ out,
       if (t < g.Tp) {
         const size_t at = (size_t)co * g.Tp + t;
         const float y2 = __fmul_rn(__int2float_rn(part[n]), SD2[(s0 + n) / F]);
-        ob[at] = fmaf(y2, sc, xb[at]);
+        ob[at] = g.bf16 ? __fadd_rn(round_bf16(xb[at]),
+                                    round_bf16(__fmul_rn(y2, sc)))
+                        : fmaf(y2, sc, xb[at]);
       }
     }
   }
@@ -211,13 +224,14 @@ int smem_bytes(const Geometry& g) {
                (size_t)g.TS * g.CP + sizeof(float) * (g.L / g.F + g.TS / g.F));
 }
 
-Geometry geometry(int C, int CP, int Tp, int d) {
+Geometry geometry(int C, int CP, int Tp, int F, int d, int bf16) {
   Geometry g;
   g.C = C;
   g.CP = CP;
   g.Tp = Tp;
-  g.F = 128 / C > 1 ? 128 / C : 1;
+  g.F = F;
   g.d = d;
+  g.bf16 = bf16;
   // a whole number of rows and of NT-sample groups
   const int unit = NT * g.F;
   int ts = TILE_ELEMS / CP;
@@ -231,18 +245,19 @@ Geometry geometry(int C, int CP, int Tp, int d) {
 
 }  // namespace
 
-// x, out, tmp: (B, C, Tp) contiguous f32, Tp a multiple of F = max(1,
-// 128 / C); w1: (n_units, 7, cp/16, C, 16) int8, w2: (n_units, cp/16, C, 16)
-// int8, input channels zero-padded to cp (a multiple of 16); scales:
-// (n_units, 2, C) f32 weight scales of conv1 and the 1x1 conv.  x is read
-// only; with one unit tmp is not used.
+// x, out, tmp: (B, C, Tp) contiguous f32, Tp a multiple of the fold F;
+// w1: (n_units, 7, cp/16, C, 16) int8, w2: (n_units, cp/16, C, 16) int8,
+// input channels zero-padded to cp (a multiple of 16); scales:
+// (n_units, 2, C) f32 weight scales of conv1 and the 1x1 conv; bf16: the
+// storage is bf16 (x holds bf16 values).  x is read only; with one unit
+// tmp is not used.
 extern "C" int int8_stack_forward(const void* x, void* out, void* tmp,
                                   const void* w1, const void* w2,
                                   const void* scales, int B, int C, int Tp,
-                                  int cp, int n_units, int d0, int d1, int d2,
-                                  void* stream) {
+                                  int cp, int F, int bf16, int n_units,
+                                  int d0, int d1, int d2, void* stream) {
   if (n_units < 1 || n_units > MAX_UNITS || C < 4 || C > 256 || cp < C ||
-      cp % 16 != 0 || B < 1 || Tp < 1 || Tp % (128 / C > 1 ? 128 / C : 1))
+      cp % 16 != 0 || B < 1 || Tp < 1 || F < 1 || Tp % F)
     return (int)cudaErrorInvalidValue;
   const int dil[MAX_UNITS] = {d0, d1, d2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -255,7 +270,7 @@ extern "C" int int8_stack_forward(const void* x, void* out, void* tmp,
   const float* src = static_cast<const float*>(x);
   for (int u = 0; u < n_units; ++u) {
     if (dil[u] < 1) return (int)cudaErrorInvalidValue;
-    const Geometry g = geometry(C, cp, Tp, dil[u]);
+    const Geometry g = geometry(C, cp, Tp, F, dil[u], bf16);
     const int smem = smem_bytes(g);
     if (dev >= MAX_DEVICES || smem > granted[dev]) {
       err = cudaFuncSetAttribute(int8_unit_kernel,

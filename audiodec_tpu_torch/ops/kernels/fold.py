@@ -1,12 +1,14 @@
 """Time folded into lanes: the TPU folded stack's layout helpers in torch.
 
-Copies of `audiodec_tpu/ops/pallas/folded_stack.py:57-92`.  The TPU kernel
+Copies of `audiodec_tpu/ops/pallas/folded_stack.py:57-98` and of its time
+padding and halo (`:177-199`).  The TPU kernel
 folds f samples of C channels into one row of f*C lanes,
 x (B, T, C) -> (B, T/f, f*C); a causal conv(k, dilation d) then becomes a
 sum over a few non-positive row offsets o of full-width products
 X[u + o] @ Wf_o.  The port's kernels keep the unfolded layout, but the
-int8 mode's row scales and the ablation probe's `noshift` variant are
-defined on folded rows, so their plain versions need the fold.
+int8 mode's row and tile scales and the ablation probe's `noshift`
+variant are defined on folded rows and time tiles, so their plain versions
+need the fold and the TPU kernel's tiling.
 """
 
 from __future__ import annotations
@@ -51,3 +53,31 @@ def fold_1x1_weight(w: torch.Tensor, f: int) -> torch.Tensor:
     # torch.kron fails on some non-contiguous inputs
     return torch.kron(torch.eye(f, dtype=w.dtype, device=w.device),
                       w[0].contiguous())
+
+
+def pick_tile(n_rows: int, target: int) -> int:
+    """Largest divisor of n_rows that is <= target and a multiple of 16;
+    falls back to any divisor."""
+    for cand in range(min(target, n_rows), 15, -1):
+        if n_rows % cand == 0 and cand % 16 == 0:
+            return cand
+    for cand in range(min(target, n_rows), 0, -1):
+        if n_rows % cand == 0:
+            return cand
+    return n_rows
+
+
+def padded_rows(t: int, f: int) -> int:
+    """Folded rows after the TPU kernel's time padding: T is zero-padded to
+    a multiple of align * f, align = 256 rows when T has at least 256 rows,
+    else 16 (so the row count tiles into aligned blocks)."""
+    n_rows0 = -(-t // f)
+    align = 256 if n_rows0 >= 256 else 16
+    return -(-n_rows0 // align) * align
+
+
+def halo_rows(k: int, dilations, f: int, k2: int = 1) -> int:
+    """h_total: the rows of left context a tile's window carries, the sum
+    over the units of each conv's row span."""
+    span2 = -fold_offsets(k2, 1, f)[0] if k2 > 1 else 0
+    return sum(-fold_offsets(k, d, f)[0] + span2 for d in dilations)

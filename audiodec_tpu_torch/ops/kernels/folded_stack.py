@@ -1,36 +1,46 @@
 """Fused causal residual stack: CUDA kernel wrappers and their plain version.
 
 Replaces the TPU kernel `audiodec_tpu/ops/pallas/folded_stack.py:112
-folded_residual_stack` in three of its modes, each with its own CUDA kernel:
+folded_residual_stack` in all of its modes:
 
   - autoencoder mode (ELU, k=7, 1x1 second conv, no biases):
-    `csrc/folded_stack.cu`, counted in `launches`;
+    `csrc/folded_stack.cu` at C <= 32, counted in `launches`; at C from 33
+    to 256 `csrc/resunit_stack.cu` (the archived per-tap stack's kernel,
+    two CUDA launches per unit, with bf16 operand and storage rounding),
+    counted in `wide_launches`;
   - vocoder mode (the HiFiGAN resblock units: LeakyReLU with slope
     `act_param`, second conv with k2 = k taps, optional biases, k in
-    {3, 7, 11}): `csrc/resblock_stack.cu`, counted in `resblock_launches`;
-  - int8 mode (`int8_dots`, "row" activation scales; the autoencoder units
-    at any C from 4 to 256, f32 storage): `csrc/int8_stack.cu`, counted in
-    `int8_launches`.  Its arithmetic is set out at
-    `folded_residual_stack_int8_plain`.
+    {3, 7, 11}, C <= 32): `csrc/resblock_stack.cu`, counted in
+    `resblock_launches`;
+  - int8 mode (`int8_dots`) with "row" activation scales: the autoencoder
+    units at any C from 4 to 256 and any fold, f32 or bf16 storage:
+    `csrc/int8_stack.cu`, counted in `int8_launches`; arithmetic at
+    `folded_residual_stack_int8_plain`;
+  - int8 mode with "tile" scales (`int8_scale="tile"`), the same units:
+    `csrc/int8_tile_stack.cu`, counted in `int8_tile_launches`; arithmetic
+    at `folded_residual_stack_int8_tile_plain`.
 
-The TPU kernel's "tile" activation scales (`int8_scale="tile"`) are not
-ported.
+`fold` and `tile_rows` are the TPU kernel's (0 means f = max(1, 128 // C)).
+They define the int8 modes' functions: a "row" scale covers one folded row
+of f samples, and a "tile" scale one tile of `_pick_tile` rows with its
+halo.  In the autoencoder and vocoder modes they change only the order of
+the TPU kernel's f32 sums, so there they are accepted and do not reach the
+kernels, which tile time as suits the card.
 
-Bound on the H100 (one read and one write of the activation against the
-dots' FLOP on the bf16 tensor cores at 989 TFLOP/s):
+Bound on the H100 (bin/kernel_bounds.py: one read and one write of the
+activation and the weights against the dots' operations at their type's
+peak, 989 TFLOP/s bf16, 1979 TOP/s int8):
   - autoencoder mode at (16, 480000, 32): 1.97 GB in f32, 0.98 GB in bf16,
-    against 3 * (7 + 1) * 32 * 32 * 2 FLOP per sample (3.8e11);
+    against 3 * (7 + 1) * 32 * 32 * 2 FLOP per sample (3.8e11); at the
+    wider symAD stacks see bin/kernel_bounds.py;
   - vocoder mode at AD v1's (16, 480000, 32) bf16: 0.98 GB (0.29 ms)
     against 3 * (11 + 11) * 32 * 32 * 2 FLOP per sample (1.04e12, 1.05 ms),
     so it is bound by operations;
-  - int8 mode at the symAD decoder's stacks: see csrc/int8_stack.cu
+  - int8 modes at the symAD decoder's stacks: see csrc/int8_stack.cu
     (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s).
-The first two kernels multiply on the f32 FMA units (67 TFLOP/s), the int8
-kernel with __dp4a on the CUDA cores, so all three are bound by their
-products' rate.  The first two keep all units of a time tile and the tile's
-left halo in shared memory, so device memory sees the activation read once
-(plus the halo) and written once; the int8 kernel makes one pass per unit.
-See the notes in the CUDA sources.
+All these kernels multiply on the f32 FMA units or with __dp4a on the CUDA
+cores, so all are bound by their products' rate.  See the notes in the
+CUDA sources.
 
 Numerics follow the TPU kernel (`folded_stack.py:344-371`): the activation
 is computed in f32; with `bf16_dots` (or bf16 storage) the dot operands are
@@ -41,34 +51,56 @@ before t=0; the residual is rounded to the storage dtype after every unit.
 each conv's input, which gives the t < 0 semantics by construction.
 
 Layout (B, C, T).  A CPU tensor runs `folded_residual_stack_plain` (in the
-int8 mode `folded_residual_stack_int8_plain`); a CUDA tensor launches the
-mode's kernel or raises.
+int8 modes `folded_residual_stack_int8_plain` or
+`folded_residual_stack_int8_tile_plain`); a CUDA tensor launches the mode's
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from audiodec_tpu_torch.ops.activations import elu_exp
 from audiodec_tpu_torch.ops.kernels import _build
-from audiodec_tpu_torch.ops.kernels.fold import fold_factor, fold_offsets
+from audiodec_tpu_torch.ops.kernels.fold import (
+    fold_factor,
+    fold_offsets,
+    halo_rows,
+    padded_rows,
+    pick_tile,
+)
 
 KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
 MAX_UNITS = 3
+DEFAULT_TILE_ROWS = 1024
+# widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for; the
+# autoencoder mode takes C up to MAX_CHANNELS through csrc/resunit_stack.cu
 PADDED_CHANNELS = (4, 8, 16, 32)
+MAX_CHANNELS = 256
+# csrc/resunit_stack.cu's output channels per block (C <= 32, else 64) and
+# input channels per shared-memory stage
+RESUNIT_BLOCK_CO = (32, 64)
+RESUNIT_KC = 8
+# csrc/resunit_stack.cu's flags: the folded stack's autoencoder mode (ELU as
+# expm1, F.elu, as the plain version and csrc/folded_stack.cu take it, where
+# the archived stack takes exp(min(v, 0)) - 1), and in that mode rounding
+# the staged activations to bf16 and the residual to bf16
+RESUNIT_ROUND_OPERANDS, RESUNIT_BF16_RESIDUAL, RESUNIT_FOLDED = 1, 2, 4
 
 INT8_CHANNELS = (4, 256)
 INT8_QMAX = 127.0
 
-launches = 0            # autoencoder mode, csrc/folded_stack.cu
+launches = 0            # autoencoder mode at C <= 32, csrc/folded_stack.cu
+wide_launches = 0       # autoencoder mode at C > 32, csrc/resunit_stack.cu
 resblock_launches = 0   # vocoder mode, csrc/resblock_stack.cu
-int8_launches = 0       # int8 mode, csrc/int8_stack.cu
+int8_launches = 0       # int8 mode, "row" scales, csrc/int8_stack.cu
+int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_stack.cu
 
 
 def res_stack_params(block_params: dict) -> Tuple:
@@ -114,18 +146,12 @@ def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
 
 
 # ---------------------------------------------------------------------------
-# int8 mode, plain version
+# int8 modes, plain versions
 # ---------------------------------------------------------------------------
 
-# samples per folded row: the TPU kernel folds F = 128 // C samples into
-# its 128 lanes, and its activation scales are per folded row
+# default samples per folded row: the TPU kernel folds f = 128 // C samples
+# into its 128 lanes, and its activation scales are per folded row or tile
 int8_fold = fold_factor
-
-
-def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    # a true f32 division: with a Python divisor PyTorch may multiply by
-    # the divisor's reciprocal, which rounds differently from JAX's division
-    return a / torch.full_like(a, b)
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -139,10 +165,27 @@ def int8_weight_scales(w: torch.Tensor):
     """(C_out, C_in, k) weights -> (integer-valued f32 weights in
     [-127, 127], per-output-channel f32 scales).  The TPU kernel takes the
     absmax of an output lane over all folded offset planes; every lane
-    (p, c) sees all k taps of output channel c, so this is per channel."""
+    (p, c) sees all k taps of output channel c, so this is per channel, and
+    the same at every fold.  Its `max(absmax, 1e-12) / 127.` is a division
+    by a constant, which XLA compiles to a product with the f32 reciprocal
+    (it differs from a true division by an ulp on part of the channels)."""
     w = w.float()
-    s = _div(torch.clamp(w.abs().amax(dim=(1, 2)), min=1e-12), INT8_QMAX)
+    s = torch.clamp(w.abs().amax(dim=(1, 2)), min=1e-12) * (1.0 / INT8_QMAX)
     return torch.round(w / s[:, None, None]), s
+
+
+def _int8_residual(v: torch.Tensor, y2: torch.Tensor, s2: torch.Tensor,
+                   bf16: bool) -> torch.Tensor:
+    """The unit's residual `v + (y2 * s2).astype(v.dtype)` as XLA on the CPU
+    computes it.  f32 storage: one fma.  bf16 storage: y2 * s2 is rounded to
+    bf16 and added to the bf16 residual in f32; the next unit's activation
+    reads that f32 sum (XLA keeps the excess precision), while the residual
+    stream and the output hold it rounded to bf16.  So `v` here is the f32
+    sum, and the residual is `v` rounded."""
+    if not bf16:
+        return _fma(y2, s2, v)
+    return (v.to(torch.bfloat16).float()
+            + (y2 * s2).to(torch.bfloat16).float())
 
 
 def _quantize_rows(y: torch.Tensor, f: int):
@@ -156,51 +199,49 @@ def _quantize_rows(y: torch.Tensor, f: int):
     return q, s * (1.0 / INT8_QMAX)
 
 
-# the folded-row offsets of a causal conv(k, dilation d) under fold f,
-# ascending (the TPU kernel's `_fold_offsets`, `folded_stack.py:57-62`)
-_int8_offsets = fold_offsets
-
-
 def _int8_conv(q: torch.Tensor, sd: torch.Tensor, wq: torch.Tensor, d: int,
                f: int) -> torch.Tensor:
     """Causal conv of quantized rows, dequantized as the TPU kernel does:
     for each folded-row offset o, ascending, the integer partial of the
-    taps that read row u + o (below 2^24, so exact in f32) is scaled by
-    that row's scale and added to the f32 sum with one rounding,
-    acc = fma(part, scale, acc) from acc = 0."""
+    taps that read row u + o (summed exactly in f64, rounded once to f32
+    as XLA's s32 -> f32 convert) is scaled by that row's scale and added to
+    the f32 sum with one rounding, acc = fma(part, scale, acc) from acc = 0."""
     tp = q.shape[-1]
     k = wq.shape[-1]
     span = (k - 1) * d
     hrow = -(-span // f)               # rows of left context
-    qp = F.pad(q, (hrow * f, 0))
+    qp = F.pad(q, (hrow * f, 0)).double()
     sdp = F.pad(sd, (hrow, 0))         # zero rows before t=0 scale by 0
     t = torch.arange(tp, device=q.device)
     phase = t % f
     taps = [F.conv1d(qp[:, :, hrow * f - span + j * d:][:, :, :tp],
-                     wq[:, :, j:j + 1]) for j in range(k)]
-    acc = torch.zeros_like(taps[0])
-    for o in _int8_offsets(k, d, f):
+                     wq[:, :, j:j + 1].double()) for j in range(k)]
+    acc = torch.zeros_like(q)
+    for o in fold_offsets(k, d, f):
         part = sum(torch.where((phase + j * d - span) // f == o, taps[j], 0.0)
                    for j in range(k))
-        acc = _fma(part, sdp[:, t // f + hrow + o][:, None, :], acc)
+        acc = _fma(part.float(), sdp[:, t // f + hrow + o][:, None, :], acc)
     return acc
 
 
 def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
-                                     dilations: Sequence[int]
+                                     dilations: Sequence[int], fold: int = 0
                                      ) -> torch.Tensor:
-    """The int8 mode ("row" scales) in plain PyTorch, f32 storage.
+    """The int8 mode with "row" scales in plain PyTorch, f32 or bf16 storage.
 
-    Per unit: y = ELU(v); y is quantized per folded row of F = 128 // C
-    samples x C channels (rows aligned to t=0, zero before it); conv1's
-    row-grouped integer partials are dequantized and summed as in
+    Per unit: y = ELU(v); y is quantized per folded row of f = fold (0: 128
+    // C) samples x C channels (rows aligned to t=0, zero before it);
+    conv1's row-grouped integer partials are dequantized and summed as in
     `_int8_conv`, then multiplied by the weight scale; ELU; the same
-    quantization; the 1x1 conv likewise, giving y2, and v = fma(y2, s2, v)
-    with s2 the 1x1 conv's weight scale.  T is padded to a whole row with
-    zeros, which evolve like the TPU kernel's tail padding and enter the
-    last row's scale."""
+    quantization; the 1x1 conv likewise, giving y2, and the residual as
+    `_int8_residual`.  T is padded to a whole row with zeros, which evolve
+    like the TPU kernel's tail padding and enter the last row's scale; rows
+    wholly in the padding never reach a real sample (the units are causal),
+    and with per-row scales a tile's halo rows equal the rows they repeat,
+    so the TPU kernel's time tiling does not change this function."""
     b, c, t = x.shape
-    f = int8_fold(c)
+    f = fold or int8_fold(c)
+    bf16 = x.dtype == torch.bfloat16
     tp = -(-t // f) * f
     v = F.pad(x.float(), (0, tp - t))
     for (w1, w2), d in zip(unit_params, dilations):
@@ -211,9 +252,96 @@ def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
         q, sd = _quantize_rows(elu_exp(v), f)
         acc = _int8_conv(q, sd, q1w, d, f) * s1[:, None]
         q, sd = _quantize_rows(elu_exp(acc), f)
-        v = _fma(_int8_conv(q, sd, q2w, 1, f), s2[:, None], v)
-    return v[:, :, :t].contiguous()
+        v = _int8_residual(v, _int8_conv(q, sd, q2w, 1, f), s2[:, None], bf16)
+    return v[:, :, :t].to(x.dtype).contiguous()
 
+
+class TileGeometry(NamedTuple):
+    """The TPU kernel's tiling of the int8 "tile" mode
+    (`folded_stack.py:177-199`): f samples per folded row, T zero-padded to
+    n_rows rows, tiles of rows_tile rows, each tile's window its rows and
+    the `halo` rows before it (zeros before t=0)."""
+    f: int
+    n_rows: int
+    rows_tile: int
+    n_tiles: int
+    halo: int
+
+    @property
+    def window(self) -> int:
+        """Samples per window."""
+        return (self.rows_tile + self.halo) * self.f
+
+
+def tile_geometry(c: int, t: int, dilations: Sequence[int], fold: int = 0,
+                  tile_rows: int = DEFAULT_TILE_ROWS) -> TileGeometry:
+    """The tiling the TPU kernel gives (C, T) at this fold and tile_rows
+    (the autoencoder units: k = 7, k2 = 1)."""
+    f = fold or int8_fold(c)
+    n_rows = padded_rows(t, f)
+    rows_tile = pick_tile(n_rows, tile_rows)
+    return TileGeometry(f, n_rows, rows_tile, n_rows // rows_tile,
+                        halo_rows(KERNEL_SIZE, dilations, f))
+
+
+def _quantize_windows(y: torch.Tensor):
+    """(W, C, S) f32 -> (integer-valued q, dequant scale (W, 1, 1)): one
+    s = max|y| per window, q = round(y * (127 / s)), dequant s * (1/127)."""
+    s = y.abs().amax(dim=(1, 2), keepdim=True)
+    r = torch.full_like(s, INT8_QMAX) / torch.clamp(s, min=1e-12)
+    return torch.round(y * r), s * (1.0 / INT8_QMAX)
+
+
+def _exact_conv(q: torch.Tensor, wq: torch.Tensor, d: int) -> torch.Tensor:
+    """Valid conv of integer-valued q and weights as one exact sum over all
+    taps and channels, rounded once to f32 as XLA's s32 -> f32 convert:
+    |sum| <= 127^2 * 7 * C < 2^53, so f64 holds every partial, and
+    torch.round removes any error of the convolution's algorithm."""
+    return torch.round(F.conv1d(q.double(), wq.double(), dilation=d)).float()
+
+
+def folded_residual_stack_int8_tile_plain(
+        x: torch.Tensor, unit_params: Sequence, dilations: Sequence[int],
+        fold: int = 0, tile_rows: int = DEFAULT_TILE_ROWS) -> torch.Tensor:
+    """The int8 mode with "tile" scales in plain PyTorch, f32 or bf16
+    storage (`folded_stack.py:183-213`, `:275-370`).
+
+    T is padded and tiled as `tile_geometry`, and each tile's window is run
+    on its own, its halo rows recomputed with the window's own scales (so
+    the output depends on `tile_rows`).  Per unit, over the window's L
+    current rows: y = ELU(v); one scale s = max|y| over the whole window
+    (the tail padding included); q = round(y * (127 / s)); the k=7 conv
+    over the window as one exact integer sum over all taps, rounded to f32
+    once, times s * (1/127), times the weight scale; ELU and a second scale
+    over the L - span1 rows left; the 1x1 conv the same way, giving y2; the
+    residual as `_int8_residual`; the window loses its first span1 rows."""
+    b, c, t = x.shape
+    g = tile_geometry(c, t, dilations, fold, tile_rows)
+    bf16 = x.dtype == torch.bfloat16
+    step = g.rows_tile * g.f
+    # each tile's window: its samples and the halo's before them, zero
+    # before t=0 and in the tail padding
+    xp = F.pad(x.float(), (g.halo * g.f, g.n_rows * g.f - t))
+    v = xp.unfold(2, g.window, step).transpose(1, 2) \
+        .reshape(b * g.n_tiles, c, g.window)
+    for (w1, w2), d in zip(unit_params, dilations):
+        q1w, s1 = int8_weight_scales(w1)
+        q2w, s2 = int8_weight_scales(w2)
+        cut = -fold_offsets(KERNEL_SIZE, d, g.f)[0] * g.f
+        q, sd = _quantize_windows(elu_exp(v))
+        acc = _exact_conv(q, q1w, d)[..., cut - (KERNEL_SIZE - 1) * d:]
+        q, sd = _quantize_windows(elu_exp(acc * sd * s1[:, None]))
+        v = _int8_residual(v[..., cut:], _exact_conv(q, q2w, 1) * sd,
+                           s2[:, None], bf16)
+    # the windows are down to their tiles' own samples
+    out = v.reshape(b, g.n_tiles, c, step).transpose(1, 2) \
+        .reshape(b, c, g.n_tiles * step)[:, :, :t]
+    return out.to(x.dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
 
 @functools.cache
 def _kernel():
@@ -227,7 +355,16 @@ def _kernel():
 @functools.cache
 def _int8_kernel():
     fn = _build.load("int8_stack").int8_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _int8_tile_kernel():
+    fn = _build.load("int8_tile_stack").int8_tile_stack_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -239,6 +376,15 @@ def _resblock_kernel():
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _resunit_kernel():
+    fn = _build.load("resunit_stack").resunit_conv_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -275,7 +421,7 @@ def _pack_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
 
 
 def _pack_int8(unit_params, c: int, cp: int, _rounded: bool):
-    """int8 mode: conv1 (n, K, cp/16, C, 16) and the 1x1 conv
+    """int8 modes: conv1 (n, K, cp/16, C, 16) and the 1x1 conv
     (n, cp/16, C, 16) int8, input channels zero-padded from C to cp (a
     multiple of 16) and grouped by 16 for the kernel's 16-byte loads; the
     weight scales (n, 2, C) f32."""
@@ -290,6 +436,25 @@ def _pack_int8(unit_params, c: int, cp: int, _rounded: bool):
     w2, s2 = zip(*(pack(w) for _, w in unit_params))
     return (torch.stack(w1), torch.stack(w2)[:, 0].contiguous(),
             torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous())
+
+
+def pack_resunit(w: torch.Tensor, c: int, rounded: bool) -> torch.Tensor:
+    """Torch (C, C, K) -> csrc/resunit_stack.cu's (K, CI, CO) [k][i][o] f32,
+    input channels zero-padded to a multiple of RESUNIT_KC and output
+    channels to one of the block's BM; rounded to bf16 values if asked."""
+    bm = RESUNIT_BLOCK_CO[0] if c <= RESUNIT_BLOCK_CO[0] else \
+        RESUNIT_BLOCK_CO[1]
+    ci = -(-c // RESUNIT_KC) * RESUNIT_KC
+    co = -(-c // bm) * bm
+    w = F.pad(w.float().permute(2, 1, 0), (0, co - c, 0, ci - c))
+    if rounded:
+        w = w.to(torch.bfloat16).float()
+    return w.contiguous()
+
+
+def _pack_resunit_units(unit_params, c: int, _cp: int, rounded: bool):
+    return [(pack_resunit(w1, c, rounded), pack_resunit(w2, c, rounded))
+            for w1, w2 in unit_params]
 
 
 # packed weights by what the weight tensors hold (device, dtype, address,
@@ -332,6 +497,41 @@ def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
                         unit_params, biases)
 
 
+def packed_resunit(unit_params, c: int, rounded: bool):
+    weights = tuple(w for u in unit_params for w in u)
+    return cached_pack(_pack_resunit_units, weights, c, 0, rounded,
+                       unit_params)
+
+
+def resunit_stack(x: torch.Tensor, packed, dilations: Sequence[int],
+                  kernel_size: int, flags: int = 0) -> torch.Tensor:
+    """The units through csrc/resunit_stack.cu, two CUDA launches each:
+    acc = conv_k_d(ELU(v)), then v + conv1x1(ELU(acc)), in place from the
+    second unit on (each element is read and written by one thread).
+    x: contiguous (B, C, T) f32 on the card; packed: `packed_resunit`;
+    flags: 0 (the archived stack) or RESUNIT_FOLDED with
+    RESUNIT_ROUND_OPERANDS and RESUNIT_BF16_RESIDUAL as needed."""
+    b, c, t = x.shape
+    out = torch.empty_like(x)
+    acc = torch.empty_like(x)
+    fn = _resunit_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        v = x
+        for (w1, w2), d in zip(packed, dilations):
+            err = fn(v.data_ptr(), None, acc.data_ptr(), w1.data_ptr(),
+                     b, c, t, kernel_size, int(d), w1.shape[1], w1.shape[2],
+                     0, flags, stream)
+            if err == 0:
+                err = fn(acc.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         w2.data_ptr(), b, c, t, 1, 1, w2.shape[1],
+                         w2.shape[2], 1, flags, stream)
+            if err != 0:
+                raise RuntimeError(f"resunit_stack kernel: CUDA error {err}")
+            v = out
+    return v
+
+
 def _mode(kernel_size, kernel_size2, act, act_param, biases,
           int8_dots) -> str:
     """'autoencoder', 'vocoder' or 'int8', the ported modes; raises on the
@@ -362,17 +562,26 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
                           act: str = "elu",
                           act_param: float = 0.0,
                           biases=None,
+                          tile_rows: int = DEFAULT_TILE_ROWS,
                           bf16_dots: bool = True,
-                          int8_dots: bool = False) -> torch.Tensor:
-    """Chain of causal residual units, batch mode.  x: (B, C, T) f32 or bf16
-    (f32 only with int8_dots, which overrides bf16_dots); unit_params:
-    ((w1 (C, C, k), w2 (C, C, k2)), ...), one per dilation; biases: None
-    or ((b1 (C,), b2 (C,)), ...)."""
-    global launches, resblock_launches
+                          int8_dots: bool = False,
+                          int8_scale: str = "row",
+                          fold: int = 0) -> torch.Tensor:
+    """Chain of causal residual units, batch mode.  x: (B, C, T) f32 or bf16;
+    unit_params: ((w1 (C, C, k), w2 (C, C, k2)), ...), one per dilation;
+    biases: None or ((b1 (C,), b2 (C,)), ...).  int8_dots overrides
+    bf16_dots; int8_scale "tile" selects one activation scale per tile
+    window, any other value per-row scales, as the TPU kernel reads it.
+    fold (0: max(1, 128 // C)) and tile_rows define the int8 modes'
+    scales and are accepted, unused, by the others (module docstring)."""
+    global launches, wide_launches, resblock_launches
     mode = _mode(kernel_size, kernel_size2, act, act_param, biases, int8_dots)
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be (B, C, T) float32 or bfloat16, got "
                         f"{tuple(x.shape)} {x.dtype}")
+    if fold < 0 or tile_rows < 1:
+        raise ValueError(f"need fold >= 0 and tile_rows >= 1, got fold="
+                         f"{fold}, tile_rows={tile_rows}")
     b, c, t = x.shape
     n = len(dilations)
     if len(unit_params) != n or not 1 <= n <= MAX_UNITS:
@@ -387,18 +596,30 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
             or any(tuple(bb.shape) != (c,) for u in biases for bb in u)):
         raise ValueError(f"need one (b1 ({c},), b2 ({c},)) per unit")
     if mode == "int8":
-        return _int8_stack(x, unit_params, dilations)
+        if int8_scale == "tile":
+            return _int8_tile_stack(x, unit_params, dilations, fold,
+                                    tile_rows)
+        return _int8_stack(x, unit_params, dilations, fold)
     if x.device.type == "cpu":
         return folded_residual_stack_plain(
             x, unit_params, dilations, bf16_dots, act=act,
             act_param=act_param, biases=biases)
     _check_cuda(x, unit_params, biases)
-    if c > PADDED_CHANNELS[-1]:
-        raise ValueError(f"the kernels take C <= {PADDED_CHANNELS[-1]}, "
-                         f"got {c}")
-    cp = next(p for p in PADDED_CHANNELS if c <= p)
     rounded = bf16_dots or x.dtype == torch.bfloat16
     storage_bf16 = int(x.dtype == torch.bfloat16)
+    if mode == "autoencoder" and PADDED_CHANNELS[-1] < c <= MAX_CHANNELS:
+        flags = (RESUNIT_FOLDED
+                 | (RESUNIT_ROUND_OPERANDS if rounded else 0)
+                 | (RESUNIT_BF16_RESIDUAL if storage_bf16 else 0))
+        out = resunit_stack(x.float(), packed_resunit(unit_params, c, rounded),
+                            dilations, KERNEL_SIZE, flags)
+        wide_launches += 1
+        return out.to(x.dtype)
+    if c > PADDED_CHANNELS[-1]:
+        widest = MAX_CHANNELS if mode == "autoencoder" else \
+            PADDED_CHANNELS[-1]
+        raise ValueError(f"the {mode} mode takes C <= {widest}, got {c}")
+    cp = next(p for p in PADDED_CHANNELS if c <= p)
     dil = list(dilations) + [0] * (MAX_UNITS - n)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -437,37 +658,80 @@ def _check_cuda(x, unit_params, biases):
         raise ValueError("weights must be on the device of x")
 
 
-def _int8_stack(x, unit_params, dilations):
-    """The int8 mode: the plain version on the CPU, else one wrapper call of
-    csrc/int8_stack.cu (one CUDA launch per unit)."""
+def _check_int8_width(c: int):
+    if not INT8_CHANNELS[0] <= c <= INT8_CHANNELS[1]:
+        raise ValueError(f"the int8 modes take C in {INT8_CHANNELS}, "
+                         f"got {c}")
+
+
+def _int8_stack(x, unit_params, dilations, fold):
+    """The int8 mode with "row" scales: the plain version on the CPU, else
+    one wrapper call of csrc/int8_stack.cu (one CUDA launch per unit)."""
     global int8_launches
     b, c, t = x.shape
-    if x.dtype != torch.float32:
-        raise TypeError(f"the int8 mode stores f32, got {x.dtype}")
-    if not INT8_CHANNELS[0] <= c <= INT8_CHANNELS[1]:
-        raise ValueError(f"the int8 mode takes C in {INT8_CHANNELS}, "
-                         f"got {c}")
+    _check_int8_width(c)
     if x.device.type == "cpu":
-        return folded_residual_stack_int8_plain(x, unit_params, dilations)
+        return folded_residual_stack_int8_plain(x, unit_params, dilations,
+                                                fold)
     _check_cuda(x, unit_params, None)
-    f = int8_fold(c)
+    f = fold or int8_fold(c)
     tp = -(-t // f) * f
     cp = -(-c // 16) * 16
     n = len(dilations)
     dil = list(dilations) + [0] * (MAX_UNITS - n)
     w1, w2, scales = _packed_int8(unit_params, c, cp)
-    # the kernel works on whole folded rows: the tail pad's zeros evolve
-    # like the TPU kernel's and enter the last row's scale
-    xp = F.pad(x, (0, tp - t)) if tp != t else x
+    # the kernel works on whole folded rows of f32 values: the tail pad's
+    # zeros evolve like the TPU kernel's and enter the last row's scale
+    xp = F.pad(x.float(), (0, tp - t)) if tp != t else x.float()
     out = torch.empty_like(xp)
     tmp = torch.empty_like(xp) if n > 1 else out
     with torch.cuda.device(x.device):
         err = _int8_kernel()(
             xp.data_ptr(), out.data_ptr(), tmp.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), scales.data_ptr(), b, c, tp, cp, n, *dil,
+            w2.data_ptr(), scales.data_ptr(), b, c, tp, cp, f,
+            int(x.dtype == torch.bfloat16), n, *dil,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8-mode residual stack kernel: CUDA error "
                            f"{err}")
     int8_launches += 1
-    return out if tp == t else out[:, :, :t].contiguous()
+    return out[:, :, :t].to(x.dtype).contiguous()
+
+
+def _int8_tile_stack(x, unit_params, dilations, fold, tile_rows):
+    """The int8 mode with "tile" scales: the plain version on the CPU, else
+    one wrapper call of csrc/int8_tile_stack.cu (2 CUDA launches per unit
+    and 2 more) on the tiles' windows, which it builds in `win`."""
+    global int8_tile_launches
+    b, c, t = x.shape
+    _check_int8_width(c)
+    if x.device.type == "cpu":
+        return folded_residual_stack_int8_tile_plain(
+            x, unit_params, dilations, fold, tile_rows)
+    _check_cuda(x, unit_params, None)
+    g = tile_geometry(c, t, dilations, fold, tile_rows)
+    cp = -(-c // 16) * 16
+    n = len(dilations)
+    dil = list(dilations) + [0] * (MAX_UNITS - n)
+    cuts = [-fold_offsets(KERNEL_SIZE, d, g.f)[0] * g.f for d in dilations]
+    cuts += [0] * (MAX_UNITS - n)
+    w1, w2, scales = _packed_int8(unit_params, c, cp)
+    win = torch.empty(b * g.n_tiles, g.window, c, device=x.device,
+                      dtype=torch.float32)
+    acc = torch.empty_like(win)
+    absmax = torch.empty(2 * n, b * g.n_tiles, device=x.device,
+                         dtype=torch.float32)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _int8_tile_kernel()(
+            x.data_ptr(), out.data_ptr(), win.data_ptr(), acc.data_ptr(),
+            absmax.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            scales.data_ptr(), b, c, t, g.window, g.n_tiles,
+            g.rows_tile * g.f, g.halo * g.f, cp,
+            int(x.dtype == torch.bfloat16), n, *dil, *cuts,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 tile-mode residual stack kernel: CUDA "
+                           f"error {err}")
+    int8_tile_launches += 1
+    return out

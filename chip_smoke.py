@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's seven CUDA kernels (the folded residual-stack kernel's
-autoencoder, vocoder and int8 modes, the archived per-tap residual stack,
+Builds the port's eight CUDA kernels (the folded residual-stack kernel's
+autoencoder, vocoder, int8 "row" and int8 "tile" modes, the archived
+per-tap residual stack, which is also the autoencoder mode above C = 32,
 the fused RVQ encode, the rate probe's dot chain and the ablation probe's
 stack) from the sources in this checkout, one nvcc each, all started
 together; holds each against its plain PyTorch version;
@@ -35,7 +36,14 @@ profiles one more transcode of each:
   - ablate_path (slice 5): `bin/folded_ablate.py`'s main at
     (16, 32, 480000), the five ablation variants in csrc/ablate_stack.cu
     (tensor cores), one F.elu pass and the autoencoder-mode kernel with
-    bf16 dots.
+    bf16 dots;
+  - folded_probe_path (slice 6): `bin/folded_probe.py`'s main with --int8
+    in float32 and in bfloat16 at B = 16: at every symAD stack shape
+    (C, T) = (32, 480000), (64, 160000), (128, 40000), (256, 8000) and each
+    of the tool's folds, the plain chain, the autoencoder mode with bf16
+    dots (csrc/folded_stack.cu at C = 32, csrc/resunit_stack.cu above), and
+    the int8 mode with "row" (csrc/int8_stack.cu) and "tile" scales
+    (csrc/int8_tile_stack.cu).
 
 The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
 256 with ragged T, and the trained golden's eight stacks at B=2, f32
@@ -54,6 +62,16 @@ bf16 relative L2 within 1e-3 independent and 3e-4 per dot chained) and
 T = 4000 and B = 1, T = 64, and at (16, 32, 480000): relative L2 within
 5e-4, max error within 1e-2 of the peak).
 
+The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
+256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
+128, 256, ragged T under and over 256 folded rows, two folds and two
+tile_rows each, f32 and bf16, and the golden's decoder stacks: bit
+equality expected, bar INT8_REL of the peak); `wide_kernel_vs_plain`
+(the autoencoder mode at C = 48-256 with bf16 dots in both storages,
+relative L2 within 1e-3 and max error within 1e-2 of the peak, and in
+true f32 at the f32 tolerance); and at the probe's full size each tile
+call and wide call of the `kernels` line against its plain version.
+
 Each phase prints one JSON line with its own seconds; any failure raises,
 so the script exits non-zero and prints no result.  Without a CUDA device
 it exits non-zero at once.
@@ -62,20 +80,26 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-Every path sets the seven launch counts to 0 just before it and reads
-them just after (autoencoder, vocoder, int8: ops/kernels/folded_stack.py;
-resunit: archive/resunit_kernel.py; rvq: archive/vq_kernel.py; dot_chain:
-ops/kernels/dot_chain.py; ablate: ops/kernels/ablate_stack.py; one per
-wrapper call): main_path 2/0/0/0/0/0/0, ad_v1_path 1/3/0/0/0/0/0,
-int8_path 1/0/4/0/0/0/0, cli_path 0 or 4 int8 and no resunit or rvq,
-fused_path 0/0/0/8/1/0/0, mxu_rate_path 0/0/0/0/0/24/0 (6 cases, one
-warm-up and 3 timed calls each), ablate_path 7/0/0/0/0/0/35 (7 calls of
-each of the five variants and of the autoencoder-mode kernel).  In the
-`kernels` line, `launches` is the count from the run of the path that
-brought the kernel in (autoencoder mode: main_path; vocoder mode:
-ad_v1_path; int8 mode: int8_path; the archived stack and the RVQ encode:
-fused_path; the dot chain: mxu_rate_path; the ablation stack:
-ablate_path), `launches_by_path` the counts of every path,
+Every path sets the nine launch counts to 0 just before it and reads
+them just after (autoencoder, vocoder, int8, int8_tile, wide:
+ops/kernels/folded_stack.py; resunit: archive/resunit_kernel.py; rvq:
+archive/vq_kernel.py; dot_chain: ops/kernels/dot_chain.py; ablate:
+ops/kernels/ablate_stack.py; one per wrapper call), in the order
+autoencoder/vocoder/int8/resunit/rvq/dot_chain/ablate/int8_tile/wide:
+main_path 2/0/0/0/0/0/0/0/0, ad_v1_path 1/3/0/0/0/0/0/0/0, int8_path
+1/0/4/0/0/0/0/0/0, cli_path 0 or 4 int8 and no resunit or rvq,
+fused_path 0/0/0/8/1/0/0/0/0, mxu_rate_path 0/0/0/0/0/24/0/0/0 (6 cases,
+one warm-up and 3 timed calls each), ablate_path 7/0/0/0/0/0/35/0/0 (7
+calls of each of the five variants and of the autoencoder-mode kernel),
+folded_probe_path 60/0/220/0/0/0/0/220/160 per dtype (11 (C, fold) cases,
+3 of them at C = 32, each mode 20 calls: the error, a warm-up and 3 x 6
+timed).  In the `kernels` line, `launches` is the count from the run of
+the path that brought the kernel in (autoencoder mode: main_path; vocoder
+mode: ad_v1_path; int8 mode: int8_path; the archived stack and the RVQ
+encode: fused_path; the dot chain: mxu_rate_path; the ablation stack:
+ablate_path; the tile mode and the wide autoencoder route:
+folded_probe_path, both dtypes), `launches_by_path` the counts of every
+path,
 and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`, `chain_ms`
 and `bound_ms` add up that path's launches at their shapes (autoencoder:
 one f32 stack in the encoder and one bf16 stack in the decoder, both
@@ -85,16 +109,19 @@ C = 256/128/64/32 and T = 8000/40000/160000/480000; archived stack: the
 eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
 (16, 1600, 64) with 8 x 1024 codes; dot chain: one call of each of the
 6 cases at (122880, 128) x 64 dots; ablation stack: one call of each of
-the five variants at (16, 32, 480000)).  `bound_ms` is the larger of
+the five variants at (16, 32, 480000); tile mode: one call at each probe
+shape, (16, C, T) f32 at the default fold, its plain version timed once;
+wide route: one call at C = 64, 128, 256).  `bound_ms` is the larger of
 bytes over 3.35 TB/s and operations over the peak of the dots' type (989
 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32), per launch
 (bin/kernel_bounds.py).  `library_ms` is the dot chain's torch chain
 (one `torch.matmul` or `torch._int_mm` per dot, the probe's `torch`
 impl); it is null for the rest: no single PyTorch call computes a stack or
 the RVQ cascade.  `chain_ms` is the same units as F.elu / F.conv1d calls
-in the working dtype (f32 for the int8 mode and the archived stack), and
+in the working dtype (f32 for the int8 modes and the archived stack), and
 for the RVQ `ops/vq.py rvq_forward_index` on cuBLAS with TF32 off; the
-probes have none.  Peaks are the H100 SXM data sheet's, at 700 W.
+rate and ablation probes have none.  Peaks are the H100 SXM data sheet's,
+at 700 W.
 
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
@@ -111,13 +138,14 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
 from audiodec_tpu_torch.bin import (
     codec_test,
     folded_ablate,
+    folded_probe,
     fused_probe,
     kernel_bounds,
     mxu_rate_probe,
@@ -163,7 +191,7 @@ DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
 KERNELS = ("folded_stack", "resblock_stack", "int8_stack", "resunit_stack",
-           "rvq_encode", "dot_chain", "ablate_stack")
+           "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
 # true f32: only the order of the sums differs (tests/test_folded_stack.py
@@ -195,6 +223,12 @@ DOT_FULL = (1024, 64, 120)          # the probe's rows, dots, tiles
 # the ablation stack against its plain version: bf16 operand flips, see
 # tests/test_torch_folded_ablate.py
 ABLATE_RL2, ABLATE_MAX_REL = 5e-4, 1e-2
+# slice 6.  The autoencoder mode above C = 32 (csrc/resunit_stack.cu)
+# against its plain version: relative L2 and a loose max, for bf16 operand
+# flips (ROADMAP §C): the kernel sums in another order than cuDNN, so an
+# f32 ulp now and then moves an operand across a bf16 rounding boundary
+# (3.9e-3 relative) and the next product carries it on
+WIDE_RL2, WIDE_MAX_REL = 1e-3, 1e-2
 # RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T))
 RVQ_SHAPES = (((4, 32, 16), (2, 10)), ((8, 1024, 64), (1, 300)),
               ((2, 16, 8), (1, 3)))
@@ -544,12 +578,23 @@ def read_launches() -> dict:
             "resunit": resunit_kernel.launches,
             "rvq": vq_kernel.launches,
             "dot_chain": dot_chain.launches,
-            "ablate": ablate_stack.launches}
+            "ablate": ablate_stack.launches,
+            "int8_tile": folded_stack.int8_tile_launches,
+            "wide": folded_stack.wide_launches}
+
+
+def launch_counts(**nonzero) -> dict:
+    """The counts a path must leave: those named, and 0 for every other
+    kernel."""
+    counts = dict.fromkeys(read_launches(), 0)
+    counts.update(nonzero)
+    return counts
 
 
 def reset_launches():
     folded_stack.launches = folded_stack.resblock_launches = 0
-    folded_stack.int8_launches = 0
+    folded_stack.int8_launches = folded_stack.int8_tile_launches = 0
+    folded_stack.wide_launches = 0
     resunit_kernel.launches = vq_kernel.launches = 0
     dot_chain.launches = ablate_stack.launches = 0
 
@@ -590,8 +635,7 @@ def phase_main_path(device):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 2, "vocoder": 0, "int8": 0, "resunit": 0,
-                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
+    if launches != launch_counts(autoencoder=2):
         raise AssertionError(f"kernel launches {launches}, expected 2 "
                              f"autoencoder-mode and no other")
     check_transcode(idx, y, x, cfg)
@@ -622,8 +666,7 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 1, "vocoder": 3, "int8": 0, "resunit": 0,
-                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
+    if launches != launch_counts(autoencoder=1, vocoder=3):
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode, 3 vocoder-mode and no "
                              f"int8-mode")
@@ -651,18 +694,23 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     return launches, rows, tc
 
 
-def check_int8(x, units):
-    """int8-mode kernel vs its plain version on the same inputs; returns
-    (max abs error, the same relative to the peak, the kernel's error
-    relative to the f32 chain's peak)."""
+def check_int8(x, units, fold: int = 0):
+    """int8-mode kernel ("row" scales) vs its plain version on the same
+    inputs; returns (max abs error, the same relative to the peak, the
+    kernel's error relative to the f32 chain's peak)."""
     out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
-                                             int8_dots=True)
-    ref = folded_stack.folded_residual_stack_int8_plain(x, units, DILATIONS)
-    f32 = chain(x, units)  # f32, no quantization
+                                             int8_dots=True, fold=fold)
+    ref = folded_stack.folded_residual_stack_int8_plain(x, units, DILATIONS,
+                                                        fold)
+    f32 = chain(x.float(), units)  # f32, no quantization
     torch.cuda.synchronize()
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"int8 kernel gave {out.dtype} "
+                             f"{tuple(out.shape)}")
+    out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError("int8 kernel output is not finite")
-    if torch.equal(out, x):
+    if torch.equal(out, x.float()):
         raise AssertionError("int8 kernel returned its input unchanged")
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
@@ -670,6 +718,38 @@ def check_int8(x, units):
         raise AssertionError(f"int8 kernel off its plain version by "
                              f"{rel:.3g} of the peak (bound {INT8_REL})")
     return err, rel, float((out - f32).abs().max() / f32.abs().max())
+
+
+def check_int8_tile(x, units, fold: int = 0,
+                    tile_rows: int = folded_stack.DEFAULT_TILE_ROWS) -> dict:
+    """The tile-mode kernel vs its plain version on the same inputs: bit
+    equality is expected, the bar is INT8_REL of the peak (the plain
+    version's f64 fma can round twice where fmaf rounds once, in about
+    2^-29 of the residual updates); returns the errors and the count of
+    differing outputs."""
+    out = folded_stack.folded_residual_stack(
+        x, units, dilations=DILATIONS, int8_dots=True, int8_scale="tile",
+        fold=fold, tile_rows=tile_rows)
+    ref = folded_stack.folded_residual_stack_int8_tile_plain(
+        x, units, DILATIONS, fold, tile_rows)
+    torch.cuda.synchronize()
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"tile kernel gave {out.dtype} "
+                             f"{tuple(out.shape)}")
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("tile kernel output is not finite")
+    if torch.equal(out, x.float()):
+        raise AssertionError("tile kernel returned its input unchanged")
+    diff = (out - ref).abs()
+    err, peak = float(diff.max()), float(ref.abs().max())
+    if not err <= INT8_REL * peak:
+        raise AssertionError(f"tile kernel at {tuple(x.shape)} {x.dtype}, "
+                             f"fold {fold}, tile_rows {tile_rows}: off its "
+                             f"plain version by {err / peak:.3g} of the "
+                             f"peak (bound {INT8_REL})")
+    return {"max_abs_err": err, "max_rel_err": err / peak,
+            "differing": int((diff > 0).sum())}
 
 
 def decoder_units(params, block: int, device):
@@ -682,8 +762,9 @@ def decoder_units(params, block: int, device):
 def phase_int8_kernel_vs_plain(params, device):
     """The int8-mode kernel against its plain version: random weights at
     C = 4, 32, 64, 128 and 256 with ragged T (T not a multiple of the fold
-    F = 128 // C, one T shorter than the halo), and the trained golden's
-    four decoder stacks at their main-path lengths (B=2)."""
+    F = 128 // C, one T shorter than the halo), the same at larger folds
+    and in bf16 storage, and the trained golden's four decoder stacks at
+    their main-path lengths (B=2)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     cases = []
@@ -702,8 +783,117 @@ def phase_int8_kernel_vs_plain(params, device):
         cases.append({"C": c, "T": t, "weights": f"decoder block {block}",
                       "max_abs_err": err, "max_rel_err": rel,
                       "rel_err_vs_f32_chain": chain_rel})
+    # slice 6: folds with f * C = 256 and 512 and bf16 storage
+    for c, t, f in ((4, 1999, 64), (32, 4803, 8), (32, 4803, 16),
+                    (64, 1601, 4), (64, 1601, 8), (128, 803, 2),
+                    (128, 803, 4), (256, 8001, 2), (32, 4803, 0),
+                    (256, 161, 0)):
+        units = random_units(c, device, torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            if f == 0 and dtype == torch.float32:
+                continue
+            err, rel, chain_rel = check_int8(x.to(dtype), units, f)
+            cases.append({"C": c, "T": t,
+                          "fold": f or folded_stack.int8_fold(c),
+                          "storage": str(dtype)[6:], "weights": "random",
+                          "max_abs_err": err, "max_rel_err": rel,
+                          "rel_err_vs_f32_chain": chain_rel})
     emit("int8_kernel_vs_plain", t0,
          tolerance=f"max error < {INT8_REL} x peak", cases=cases)
+
+
+def phase_int8_tile_kernel_vs_plain(params, device):
+    """csrc/int8_tile_stack.cu against its plain version: random weights at
+    C = 32, 64, 128 and 256, two ragged T per C (under and over 256 folded
+    rows, so both paddings), two folds and two tile_rows (one giving 3 or
+    more tiles), f32 and bf16 storage; and the trained golden's four
+    decoder stacks at their main-path lengths (B=2) at the defaults."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    grid = {32: ((700, 4803), (4, 8), (64, 1024)),
+            64: ((700, 1601), (2, 4), (64, 1024)),
+            128: ((200, 803), (1, 2), (64, 1024)),
+            256: ((161, 8001), (1, 2), (64, 512))}
+    cases = []
+    for c, (ts, fs, trs) in grid.items():
+        units = random_units(c, device, torch.float32, gen)
+        for t in ts:
+            x = torch.randn(2, c, t, generator=gen, device=device)
+            for f in fs:
+                for tr in trs:
+                    g = folded_stack.tile_geometry(c, t, DILATIONS, f, tr)
+                    for dtype in (torch.float32, torch.bfloat16):
+                        cases.append({
+                            "C": c, "T": t, "fold": f, "tile_rows": tr,
+                            "tiles": g.n_tiles, "rows": g.n_rows,
+                            "storage": str(dtype)[6:], "weights": "random",
+                            **check_int8_tile(x.to(dtype), units, f, tr)})
+    for block, (c, t) in enumerate(INT8_SHAPES):
+        units = decoder_units(params, block, device)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        cases.append({"C": c, "T": t, "weights": f"decoder block {block}",
+                      "storage": "float32", **check_int8_tile(x, units)})
+    emit("int8_tile_kernel_vs_plain", t0,
+         tolerance=f"bit-equal expected; max error <= {INT8_REL} x peak",
+         bit_equal=sum(c["differing"] == 0 for c in cases),
+         cases=cases)
+
+
+def check_wide(x, units, bf16_dots: bool = True) -> dict:
+    """The autoencoder mode above C = 32 (csrc/resunit_stack.cu) vs its
+    plain version.  With bf16 operands or storage: relative L2 <= WIDE_RL2
+    and max error <= WIDE_MAX_REL x peak (bf16 flips, see WIDE_RL2); in
+    true f32 the f32 tolerance of check_close."""
+    before = folded_stack.wide_launches
+    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
+                                             bf16_dots=bf16_dots)
+    ref = folded_stack.folded_residual_stack_plain(x, units, DILATIONS,
+                                                   bf16_dots)
+    torch.cuda.synchronize()
+    if folded_stack.wide_launches != before + 1:
+        raise AssertionError("the wide autoencoder route was not taken")
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"wide kernel gave {out.dtype} "
+                             f"{tuple(out.shape)}")
+    if not (bf16_dots or x.dtype == torch.bfloat16):
+        err, rel = check_close(out, ref, x, False)
+        return {"max_abs_err": err, "max_rel_err": rel}
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        raise AssertionError("wide kernel output is not finite")
+    err, peak = float((o - r).abs().max()), float(r.abs().max())
+    rl2 = float((o - r).norm() / r.norm())
+    if not (rl2 <= WIDE_RL2 and err <= WIDE_MAX_REL * peak):
+        raise AssertionError(f"wide kernel at {tuple(x.shape)} {x.dtype}: "
+                             f"relative L2 {rl2:.3g}, max {err / peak:.3g} "
+                             f"of the peak")
+    return {"max_abs_err": err, "max_rel_err": err / peak, "rel_l2": rl2}
+
+
+def phase_wide_kernel_vs_plain(device):
+    """The autoencoder mode at C = 48, 64, 128 and 256 (csrc/resunit_stack.cu
+    with its bf16 flags) against its plain version: T = 1999 and 50
+    (shorter than a dilation-9 span), f32 and bf16 storage with bf16 dots,
+    and f32 without."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    cases = []
+    for c in (48, 64, 128, 256):
+        for t in (1999, 50):
+            for dtype, bf16_dots in ((torch.float32, True),
+                                     (torch.bfloat16, True),
+                                     (torch.float32, False)):
+                units = random_units(c, device, dtype, gen)
+                x = torch.randn(2, c, t, generator=gen,
+                                device=device).to(dtype)
+                cases.append({"C": c, "T": t, "storage": str(dtype)[6:],
+                              "bf16_dots": bf16_dots,
+                              **check_wide(x, units, bf16_dots)})
+    emit("wide_kernel_vs_plain", t0, tolerance={
+        "bf16": f"relative L2 <= {WIDE_RL2}, max error <= {WIDE_MAX_REL} x "
+                f"peak",
+        "f32": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak"}, cases=cases)
 
 
 def int8_kernel_timing(params, device, gen):
@@ -751,8 +941,7 @@ def phase_int8_path(device, params, x, idx_main):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 1, "vocoder": 0, "int8": 4, "resunit": 0,
-                    "rvq": 0, "dot_chain": 0, "ablate": 0}:
+    if launches != launch_counts(autoencoder=1, int8=4):
         raise AssertionError(f"kernel launches {launches}, expected 1 "
                              f"autoencoder-mode and 4 int8-mode")
     check_transcode(idx, y, x, cfg)
@@ -1069,8 +1258,7 @@ def phase_fused_path(device, params, x, z_main):
     idx, y = fused(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"autoencoder": 0, "vocoder": 0, "int8": 0, "resunit": 8,
-                    "rvq": 1, "dot_chain": 0, "ablate": 0}:
+    if launches != launch_counts(resunit=8, rvq=1):
         raise AssertionError(f"kernel launches {launches}, expected 8 "
                              f"resunit_stack and 1 rvq_encode")
     check_transcode(idx, y, x, cfg)
@@ -1204,8 +1392,7 @@ def phase_mxu_rate_path(rows):
     torch.cuda.synchronize()
     launches = read_launches()
     want = len(rows) * (1 + mxu_rate_probe.ITERS)
-    if launches != {"autoencoder": 0, "vocoder": 0, "int8": 0, "resunit": 0,
-                    "rvq": 0, "dot_chain": want, "ablate": 0}:
+    if launches != launch_counts(dot_chain=want):
         raise AssertionError(f"kernel launches {launches}, expected {want} "
                              f"dot_chain")
     by_case = {(r["impl"], r["dtype"], r["mode"]): r for r in records}
@@ -1280,9 +1467,8 @@ def phase_ablate_path(rows):
     torch.cuda.synchronize()
     launches = read_launches()
     calls = 1 + folded_ablate.ITERS
-    if launches != {"autoencoder": calls, "vocoder": 0, "int8": 0,
-                    "resunit": 0, "rvq": 0, "dot_chain": 0,
-                    "ablate": len(rows) * calls}:
+    if launches != launch_counts(autoencoder=calls,
+                                 ablate=len(rows) * calls):
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{len(rows) * calls} ablate and {calls} "
                              f"autoencoder")
@@ -1291,6 +1477,131 @@ def phase_ablate_path(rows):
         row["ms"] = by_name[row["variant"]]["ms"]
     emit("ablate_path", t0, launches=launches, records=records)
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the folded-stack probe (tile scales, every width and fold)
+# ---------------------------------------------------------------------------
+
+def probe_launches(shapes) -> dict:
+    """The wrapper calls bin/folded_probe.py's main makes with --int8: per
+    (C, T, fold) and mode one call for the error, one warm-up and LOOPS x
+    ITERS timed; the autoencoder mode at C <= 32 in csrc/folded_stack.cu,
+    above in csrc/resunit_stack.cu."""
+    calls = 2 + folded_probe.LOOPS * folded_probe.ITERS
+    cases = [(c, f) for c, t in shapes for f in folded_probe.folds(c, t)]
+    narrow = sum(c <= folded_stack.PADDED_CHANNELS[-1] for c, _ in cases)
+    return launch_counts(autoencoder=calls * narrow,
+                         wide=calls * (len(cases) - narrow),
+                         int8=calls * len(cases),
+                         int8_tile=calls * len(cases))
+
+
+def phase_folded_probe_path():
+    """bin/folded_probe.py's main with --int8, in float32 and in bfloat16,
+    at full size: every (C, T, fold) of the tool's grid, the chain and the
+    three modes timed.  Checks the launch counts of each run and that every
+    error is finite; returns the two runs' counts summed and the records."""
+    t0 = time.perf_counter()
+    want = probe_launches(folded_probe.SHAPES)
+    total = dict.fromkeys(want, 0)
+    records = []
+    for dtype in folded_probe.DTYPES:
+        reset_launches()
+        recs = folded_probe.main(["--int8", "--dtype", dtype])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"--dtype {dtype}: kernel launches "
+                                 f"{launches}, expected {want}")
+        errs = [r[k] for r in recs
+                for k in ("rel_max_err", "int8_rel_err", "int8t_rel_err")]
+        if not all(np.isfinite(errs)):
+            raise AssertionError(f"--dtype {dtype}: an error is not finite")
+        for k, n in launches.items():
+            total[k] += n
+        records += recs
+    emit("folded_probe_path", t0, launches=total, records=records)
+    return total, records
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """One call of fn under torch.profiler: device ms summed by kernel
+    name (copies included), largest first.  The call is traced after a
+    traced warm-up call: the tracer misses the first launches of a window
+    it has just started (a tile call's first four of nine, on the card)."""
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(
+                     e for e in p.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    traced.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {e.key[:80]: e.self_device_time_total / 1e3 for e in traced}
+
+
+def probe_kernel_rows(records, device):
+    """The tile mode's and the wide autoencoder route's rows of the
+    `kernels` line at the probe's shapes, default fold, f32: the kernel's
+    and the chain's ms from the probe's records, the plain version timed
+    once, its error against the kernel at full size, the bound, and for
+    the tile mode one call's device time by kernel.  Beside them, not in
+    the `kernels` line, the row mode at the probe's other folds the same
+    way."""
+    tile_rows, wide_rows, fold_rows = [], [], []
+    by_shape = {(r["C"], r["fold"]): r for r in records
+                if r["dtype"] == "float32"}
+    for c, t in folded_probe.SHAPES:
+        rec = by_shape[c, folded_stack.int8_fold(c)]
+        units, x = folded_probe.probe_inputs(c, t, BATCH, torch.float32,
+                                             device)
+        for f in folded_probe.folds(c, t):
+            if f == rec["fold"]:
+                continue
+            err, rel, _ = check_int8(x, units, f)
+            row = {"shape": [BATCH, c, t], "dtype": "float32", "fold": f,
+                   "max_abs_err": err, "max_rel_err": rel,
+                   "ms": by_shape[c, f]["int8_ms"],
+                   "chain_ms": rec["chain_ms"],
+                   "plain_ms": cuda_ms(
+                       lambda: folded_stack.folded_residual_stack_int8_plain(
+                           x, units, DILATIONS, f), reps=1)}
+            row.update(kernel_bounds.int8_stack(BATCH, t, c))
+            fold_rows.append(row)
+        row = {"shape": [BATCH, c, t], "dtype": "float32",
+               "fold": rec["fold"], "tile_rows": rec["tile_rows"],
+               **check_int8_tile(x, units, rec["fold"], rec["tile_rows"]),
+               "ms": rec["int8t_ms"], "chain_ms": rec["chain_ms"],
+               "plain_ms": cuda_ms(
+                   lambda: folded_stack.folded_residual_stack_int8_tile_plain(
+                       x, units, DILATIONS, rec["fold"], rec["tile_rows"]),
+                   reps=1),
+               "row_mode_ms": rec["int8_ms"],
+               "cuda_launches_per_call": 2 * len(units) + 2,
+               "device_ms_by_kernel": device_ms_by_kernel(
+                   lambda: folded_stack.folded_residual_stack(
+                       x, units, dilations=DILATIONS, int8_dots=True,
+                       int8_scale="tile", fold=rec["fold"],
+                       tile_rows=rec["tile_rows"]))}
+        row.update(kernel_bounds.int8_stack(BATCH, t, c))
+        tile_rows.append(row)
+        if c <= folded_stack.PADDED_CHANNELS[-1]:
+            continue
+        row = {"shape": [BATCH, c, t], "dtype": "float32", "bf16_dots": True,
+               **check_wide(x, units), "ms": rec["folded_ms"],
+               "chain_ms": rec["chain_ms"],
+               "plain_ms": cuda_ms(
+                   lambda: folded_stack.folded_residual_stack_plain(
+                       x, units, DILATIONS, True), reps=1),
+               "cuda_launches_per_call": 2 * len(units)}
+        row.update(kernel_bounds.autoencoder_stack(BATCH, t, c))
+        wide_rows.append(row)
+    return tile_rows, wide_rows, fold_rows
 
 
 def phase_profile(path: str, tc, x):
@@ -1385,6 +1696,8 @@ def main():
     phase_kernel_vs_plain(trained, device)
     phase_voc_kernel_vs_plain(device)
     phase_int8_kernel_vs_plain(trained, device)
+    phase_int8_tile_kernel_vs_plain(trained, device)
+    phase_wide_kernel_vs_plain(device)
     phase_resunit_kernel_vs_plain(trained, device)
     z_main = phase_rvq_kernel_vs_plain(trained, device)
     dot_rows = phase_dot_chain_vs_plain(device)
@@ -1408,10 +1721,17 @@ def main():
     del fused
     mxu_launches, dot_rows = phase_mxu_rate_path(dot_rows)
     ablate_launches, ablate_rows = phase_ablate_path(ablate_rows)
+    probe_counts, probe_records = phase_folded_probe_path()
+    t1 = time.perf_counter()
+    tile_rows, wide_rows, fold_rows = probe_kernel_rows(probe_records,
+                                                        device)
+    emit("probe_kernel_rows", t1, int8_tile_stack=tile_rows,
+         wide_autoencoder=wide_rows, int8_stack_at_folds=fold_rows)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
-               "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches}
+               "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches,
+               "folded_probe_path": probe_counts}
     folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
     print(json.dumps({"kernels": [
         kernel_entry("folded_residual_stack", "autoencoder", "autoencoder",
@@ -1440,6 +1760,13 @@ def main():
                      "audiodec_tpu_torch/csrc/ablate_stack.cu",
                      "tools/folded_ablate.py:138", ablate_rows, by_path,
                      "ablate_path"),
+        kernel_entry("folded_residual_stack", "int8, tile scales",
+                     "int8_tile", "audiodec_tpu_torch/csrc/int8_tile_stack.cu",
+                     folded, tile_rows, by_path, "folded_probe_path"),
+        kernel_entry("folded_residual_stack",
+                     "autoencoder, C > 32, bf16 dots", "wide",
+                     "audiodec_tpu_torch/csrc/resunit_stack.cu", folded,
+                     wide_rows, by_path, "folded_probe_path"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -296,3 +296,103 @@ def test_vocoder_mode_bound():
     assert abs(b["operations_ms"] - 1.0496) < 1e-4
     assert b["bound_by"] == "operations"
     assert len({r[0] for r in kernel_bounds.rows()}) == 5
+
+
+# ---------------------------------------------------------------------------
+# the autoencoder mode above C = 32 (csrc/resunit_stack.cu on the card), and
+# the JAX arguments fold and tile_rows
+# ---------------------------------------------------------------------------
+
+def _wide_case(c, t, seed):
+    """Weights scaled so the stack's output stays near the JAX test's size
+    at every width."""
+    rng = np.random.default_rng(seed)
+    s = 0.3 / np.sqrt(c / 8)
+    units = [(s * rng.standard_normal((7, c, c)).astype(np.float32),
+              s * rng.standard_normal((1, c, c)).astype(np.float32))
+             for _ in DILATIONS]
+    x = rng.standard_normal((2, t, c)).astype(np.float32)
+    return x, units
+
+
+@pytest.mark.parametrize("c,t,fold,storage", [
+    (64, 320, 2, "float32"), (64, 320, 4, "bfloat16"),
+    (128, 160, 1, "bfloat16"), (128, 160, 2, "float32")])
+def test_plain_wide_autoencoder_matches_jax(c, t, fold, storage):
+    """bf16 dots at C = 64 and 128, JAX at the probe's folds.  Both round
+    the dot operands to bf16, so one f32 ulp of difference (XLA's exp
+    against PyTorch's expm1, the order of the sums) moves an operand one
+    bf16 step now and then and the next product carries it on (ROADMAP §C,
+    the bf16 trap): held in relative L2, within 1e-3 in f32 storage and
+    1e-2 in bf16 storage (where a step of the residual itself is a bf16
+    ulp), and within 0.03 of the peak everywhere."""
+    x, units = _wide_case(c, t, seed=c + t)
+    ref = jax_stack(jnp.asarray(x).astype(storage),
+                    tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in units),
+                    dilations=DILATIONS, bf16_dots=True, fold=fold,
+                    interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    xt = torch.from_numpy(x).transpose(1, 2).to(getattr(torch, storage))
+    out = port.folded_residual_stack(xt, _port_units(units),
+                                     dilations=DILATIONS, bf16_dots=True,
+                                     fold=fold, tile_rows=64)
+    assert out.dtype == xt.dtype and out.shape == xt.shape
+    out = out.float().transpose(1, 2).numpy()
+    rl2 = np.linalg.norm(out - ref) / np.linalg.norm(ref)
+    assert rl2 <= (1e-3 if storage == "float32" else 1e-2), rl2
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 0.03
+
+
+def test_fold_and_tile_rows_leave_float_modes_unchanged():
+    """In the autoencoder and vocoder modes fold and tile_rows only order
+    the TPU kernel's sums: the port accepts them and computes the same."""
+    x, units = _wide_case(64, 200, seed=7)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    base = port.folded_residual_stack(xt, _port_units(units))
+    for kw in ({"fold": 8}, {"tile_rows": 16}, {"fold": 1, "tile_rows": 7}):
+        assert torch.equal(port.folded_residual_stack(
+            xt, _port_units(units), **kw), base)
+    xv, uv, bv = _voc_case(8, 64, 3, True, seed=8)
+    kw = dict(dilations=VOC_DILATIONS, kernel_size=3, kernel_size2=3,
+              act="leaky_relu", act_param=0.1, biases=_port_biases(bv))
+    xvt = torch.from_numpy(xv).transpose(1, 2)
+    assert torch.equal(
+        port.folded_residual_stack(xvt, _port_units(uv), fold=2,
+                                   tile_rows=32, **kw),
+        port.folded_residual_stack(xvt, _port_units(uv), **kw))
+
+
+def test_wide_autoencoder_cpu_and_device_checks():
+    """On the CPU every width runs the plain version and launches nothing;
+    a device with no kernel raises, and so do a negative fold or a
+    tile_rows below 1."""
+    x, units = _wide_case(256, 40, seed=9)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    out = port.folded_residual_stack(xt.to(torch.bfloat16),
+                                     _port_units(units))
+    assert out.dtype == torch.bfloat16 and out.shape == xt.shape
+    assert port.wide_launches == port.launches == 0
+    with pytest.raises(ValueError, match="no kernel"):
+        port.folded_residual_stack(
+            xt.to("meta"), [(a.to("meta"), b.to("meta"))
+                            for a, b in _port_units(units)])
+    for kw in ({"fold": -2}, {"tile_rows": 0}):
+        with pytest.raises(ValueError):
+            port.folded_residual_stack(xt, _port_units(units), **kw)
+
+
+@pytest.mark.parametrize("rounded", [True, False])
+def test_packed_resunit_layout(rounded):
+    """csrc/resunit_stack.cu's weights: (K, CI, CO) [k][i][o], input
+    channels zero-padded to a multiple of 8 and output channels to one of
+    64 above C = 32; bf16 values when the operands are rounded."""
+    c = 72
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (c, c, 7)).astype(np.float32))
+    p = port.pack_resunit(w, c, rounded)
+    assert p.shape == (7, 72, 128) and p.dtype == torch.float32
+    want = w.permute(2, 1, 0)
+    if rounded:
+        want = want.to(torch.bfloat16).float()
+    assert torch.equal(p[:, :, :c], want)
+    assert not p[:, :, c:].any()

@@ -87,6 +87,33 @@ def test_plain_matches_jax_int8_kernel(c, dilations):
         assert (err <= NEAR * peak).mean() >= SHARE
 
 
+@pytest.mark.parametrize("c,fold,storage,dilations", [
+    (32, 8, "float32", (9,)), (32, 16, "bfloat16", DILATIONS),
+    (64, 4, "bfloat16", (9,)), (64, 8, "float32", DILATIONS),
+    (128, 2, "bfloat16", DILATIONS)])
+def test_plain_matches_jax_int8_kernel_at_fold(c, fold, storage, dilations):
+    """The row scales at the probe's other folds (f * C = 256, 512), in f32
+    and bf16 storage (where the residual is rounded as XLA rounds it:
+    `_int8_residual`), to the bounds above."""
+    x, units = _case(c, T, dilations, seed=c + fold)
+    ref = np.asarray(jax_stack(
+        jnp.asarray(x).astype(storage),
+        tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in units),
+        dilations=dilations, int8_dots=True, fold=fold,
+        interpret=True).astype(jnp.float32))
+    xt = torch.from_numpy(x).transpose(1, 2).contiguous() \
+        .to(getattr(torch, storage))
+    out = port.folded_residual_stack(xt, _port_units(units),
+                                     dilations=dilations, int8_dots=True,
+                                     fold=fold, tile_rows=64)
+    assert out.dtype == xt.dtype and out.shape == xt.shape
+    err = np.abs(out.float().transpose(1, 2).numpy() - ref)
+    peak = float(np.abs(ref).max())
+    assert err.max() <= STEP * peak
+    if len(dilations) == 1:
+        assert (err <= NEAR * peak).mean() >= SHARE
+
+
 def test_plain_close_to_f32_chain():
     """The JAX test's bar (tests/test_folded_stack.py:240-266): with the
     JAX init's weights the int8 stack is within 2e-3 of the f32 chain at
@@ -125,6 +152,14 @@ def test_row_outlier_needs_row_scales(monkeypatch):
     assert np.abs(per_sample - ref)[:, 20:24].max() > 100 * NEAR * peak
 
 
+@jax.jit
+def _jax_weight_scale(wf):
+    # the TPU kernel's expression (folded_stack.py:231-233), compiled as it
+    # is inside the jitted folded_residual_stack: XLA turns the division by
+    # the constant 127 into a product with its f32 reciprocal
+    return jnp.maximum(jnp.max(jnp.abs(wf), axis=(0, 1)), 1e-12) / 127.
+
+
 @pytest.mark.parametrize("c", [32, 128])
 def test_weight_scales_match_jax(c):
     """Per output channel: the JAX kernel's per-lane absmax over all folded
@@ -135,8 +170,7 @@ def test_weight_scales_match_jax(c):
     w1 = units[0][0]
     f = port.int8_fold(c)
     wf = fold_conv_weight(jnp.asarray(w1), 3, f)
-    s_jax = np.asarray(jnp.maximum(jnp.max(jnp.abs(wf), axis=(0, 1)),
-                                   1e-12) / 127.)
+    s_jax = np.asarray(_jax_weight_scale(wf))
     q, s = port.int8_weight_scales(torch.from_numpy(w1).permute(2, 1, 0))
     np.testing.assert_array_equal(s_jax.reshape(f, c),
                                   np.tile(s.numpy(), (f, 1)))
@@ -170,14 +204,30 @@ def test_packed_int8_layout(c):
 
 
 def test_int8_wrapper_checks_and_cpu_count():
+    """CPU calls of both int8 modes launch nothing, in f32 and bf16
+    storage (bf16 comes back bf16); other dtypes, a negative fold, a
+    tile_rows below 1 and widths outside INT8_CHANNELS raise; a device
+    with no kernel raises."""
     x, units = _case(8, 64, DILATIONS, seed=3)
     xt = torch.from_numpy(x).transpose(1, 2).contiguous()
-    before = port.int8_launches
-    port.folded_residual_stack(xt, _port_units(units), int8_dots=True)
-    assert port.int8_launches == before == 0
+    for scale in ("row", "tile"):
+        for dtype in (torch.float32, torch.bfloat16):
+            out = port.folded_residual_stack(xt.to(dtype), _port_units(units),
+                                             int8_dots=True, int8_scale=scale)
+            assert out.dtype == dtype and out.shape == xt.shape
+    assert port.int8_launches == port.int8_tile_launches == 0
     with pytest.raises(TypeError):
-        port.folded_residual_stack(xt.to(torch.bfloat16),
+        port.folded_residual_stack(xt.to(torch.float16),
                                    _port_units(units), int8_dots=True)
+    for kw in ({"fold": -1}, {"tile_rows": 0}):
+        with pytest.raises(ValueError):
+            port.folded_residual_stack(xt, _port_units(units),
+                                       int8_dots=True, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        port.folded_residual_stack(xt.to("meta"),
+                                   [(a.to("meta"), b.to("meta"))
+                                    for a, b in _port_units(units)],
+                                   int8_dots=True, int8_scale="tile")
     x2, units2 = _case(2, 64, DILATIONS, seed=3)
     with pytest.raises(ValueError):
         port.folded_residual_stack(
