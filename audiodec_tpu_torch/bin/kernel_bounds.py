@@ -84,10 +84,10 @@ def dot_chain(m, dots, peak) -> dict:
                     2 * m * dots * 128 * 128, peak)
 
 
-def ablate_stack(b, t, c) -> dict:
-    """The ablation probe's stack at (b, c, t): three k=7 units, f32
-    storage, bf16 weights and dots."""
-    return residual_stack(b, t, c, k=7, k2=1, storage=F32, weight=BF16,
+def ablate_stack(b, t, c, storage=F32) -> dict:
+    """The ablation probe's stack at (b, c, t): three k=7 units, the
+    activation in the storage dtype, bf16 weights and dots."""
+    return residual_stack(b, t, c, k=7, k2=1, storage=storage, weight=BF16,
                           peak="bf16")
 
 
@@ -131,9 +131,13 @@ def rows():
                         f"f32 stack, {where} block "
                         f"{i if where == 'encoder' else 3 - i}",
                         [BATCH, t, c], resunit_stack(BATCH, t, c)))
-    out.append(("tools/folded_ablate.py:34",
-                "folded stack variants, f32 storage, bf16 dots",
-                [BATCH, SAMPLES, 32], ablate_stack(BATCH, SAMPLES, 32)))
+    # tools/folded_ablate.py's build: its C = 32 shape and the symAD
+    # stacks', in both storage dtypes
+    for c, t in SYMAD_STACKS:
+        for name, size in (("f32", F32), ("bf16", BF16)):
+            out.append(("tools/folded_ablate.py:34",
+                        f"folded stack variants, {name} storage, bf16 dots",
+                        [BATCH, t, c], ablate_stack(BATCH, t, c, size)))
     # mxu_rate_probe defaults: 120 tiles of (1024, 128) @ 64 x (128, 128)
     m, dots = 120 * 1024, 64
     for name in ("bf16", "int8", "f32"):

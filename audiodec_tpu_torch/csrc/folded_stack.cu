@@ -23,8 +23,14 @@
 // registers and applies the 1x1 conv to them in registers, so the
 // intermediate never touches shared memory.  Rounding points follow the TPU
 // kernel: the dot operands (activations and weights) are rounded to bf16
-// when `dots_bf16` is set, products are summed in f32, and the residual is
-// rounded to the storage dtype after every unit.
+// when `dots_bf16` is set, and products are summed in f32.  The residual
+// is the TPU statement `v = v + y2.astype(v.dtype)` (folded_stack.py:367)
+// as XLA computes it: in f32 storage v + y2; in bf16 storage the f32 sum
+// s = bf16(v) + bf16(y2), which the next unit's activation (:344) reads
+// and the output holds rounded to bf16 (ops/kernels/folded_stack.py
+// storage_residual).  V keeps s in shared memory, so carrying it costs
+// nothing.  ELU is expm1 in f32 storage, as the plain version's F.elu, and
+// the TPU kernel's exp(min(v, 0)) - 1 in bf16 storage.
 //
 // Channels C <= 32 are padded to CP in {4, 8, 16, 32}: the padded weights
 // are zero, so the padded channels stay zero.
@@ -49,7 +55,13 @@ struct Units {
   int dil[MAX_UNITS];
 };
 
-__device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
+// ELU: expm1 in f32 storage, exp(min(v, 0)) - 1 in bf16 storage (see above)
+__device__ __forceinline__ float elu(float v, const float*) {
+  return v > 0.f ? v : expm1f(v);
+}
+__device__ __forceinline__ float elu(float v, const __nv_bfloat16*) {
+  return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -64,10 +76,13 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// round to the storage dtype, keeping the value in f32
-__device__ __forceinline__ float to_storage(float v, const float*) { return v; }
-__device__ __forceinline__ float to_storage(float v, const __nv_bfloat16*) {
-  return round_bf16(v);
+// the unit's residual sum from the carried sum v and y2 (see above)
+__device__ __forceinline__ float residual(float v, float y, const float*) {
+  return v + y;
+}
+__device__ __forceinline__ float residual(float v, float y,
+                                          const __nv_bfloat16*) {
+  return round_bf16(v) + round_bf16(y);
 }
 
 template <int CP, typename S>
@@ -103,7 +118,7 @@ folded_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
       W2[e] = w2[(size_t)u * CP * CP + e];
     for (int e = threadIdx.x; e < CP * L; e += NTHREADS) {
       if (e % L >= s) {
-        const float a = elu(V[e]);
+        const float a = elu(V[e], x);
         A[e] = dots_bf16 ? round_bf16(a) : a;
       }
     }
@@ -161,7 +176,7 @@ folded_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
         float m[POS];
 #pragma unroll
         for (int j = 0; j < POS; ++j) {
-          const float v = elu(acc[j][i]);
+          const float v = elu(acc[j][i], x);
           m[j] = dots_bf16 ? round_bf16(v) : v;
         }
         const float4* wr = reinterpret_cast<const float4*>(W2 + i * CP);
@@ -178,14 +193,14 @@ folded_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
         }
       }
 
-      // residual, rounded to the storage dtype as the TPU kernel does
+      // residual; in bf16 storage V keeps the f32 sum for the next unit
 #pragma unroll
       for (int j = 0; j < POS; ++j) {
         if (!ok[j]) continue;
 #pragma unroll
         for (int o = 0; o < CP; ++o) {
           float* vp = V + o * L + p[j];
-          *vp = to_storage(*vp + to_storage(y[j][o], x), x);
+          *vp = residual(*vp, y[j][o], x);
         }
       }
     }

@@ -40,8 +40,14 @@
 // Rounding points follow the TPU kernel (folded_stack.py:344-371): act in
 // f32; dot operands rounded to bf16 when `dots_bf16` is set (the wrapper
 // passes weights already rounded); products summed in f32; biases added in
-// f32 to the f32 sum; the residual rounded to the storage dtype after every
-// unit.  Channels C <= 32 are padded to CP in {4, 8, 16, 32}: the padded
+// f32 to the f32 sum.  The residual is the TPU statement
+// `v = v + y2.astype(v.dtype)` (:367) as XLA computes it: in f32 storage
+// v + y2; in bf16 storage the f32 sum s = bf16(v) + bf16(y2), which the
+// next unit's activation (:344) reads and the stream holds rounded to bf16
+// (ops/kernels/folded_stack.py storage_residual).  So in bf16 storage the
+// second conv's epilogue, where s is in registers, writes both V = bf16(s)
+// and the next unit's operand A = bf16(act(s)) (A is free once the first
+// conv is done), and the next unit does not restage A from V.  Channels C <= 32 are padded to CP in {4, 8, 16, 32}: the padded
 // weights and biases are zero, so the padded channels stay zero.
 //
 // Templated on what the inner loops unroll (CP) and on the buffer types
@@ -83,10 +89,13 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// round to the storage dtype, keeping the value in f32
-__device__ __forceinline__ float to_storage(float v, const float*) { return v; }
-__device__ __forceinline__ float to_storage(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// the unit's residual sum from the residual v and y2 (see above)
+__device__ __forceinline__ float residual(float v, float y, const float*) {
+  return v + y;
+}
+__device__ __forceinline__ float residual(float v, float y,
+                                          const __nv_bfloat16*) {
+  return v + __bfloat162float(__float2bfloat16_rn(y));
 }
 
 // acc[j][o] = sum_{i,k} w[k][i][o] * in[i][p[j] - (K-1-k)*d]
@@ -130,6 +139,7 @@ resblock_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
                       const float* __restrict__ bias,  // (n, 2, CP) or null
                       int C, int T, int K, int tile, int halo, Units units,
                       float slope) {
+  constexpr bool BF16 = sizeof(S) == 2;  // the f32 sum goes straight to A
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L = tile + halo;
   const int wsize = K * CP * CP;
@@ -160,8 +170,9 @@ resblock_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
     }
     for (int e = threadIdx.x; e < 2 * CP; e += NTHREADS)
       Bs[e] = bias ? bias[u * 2 * CP + e] : 0.f;
-    for (int e = threadIdx.x; e < CP * L; e += NTHREADS)
-      if (e % L >= s) store_f(A + e, lrelu(load_f(V + e), slope));
+    if (!BF16 || u == 0)
+      for (int e = threadIdx.x; e < CP * L; e += NTHREADS)
+        if (e % L >= s) store_f(A + e, lrelu(load_f(V + e), slope));
     __syncthreads();
 
     // first conv (dilation d) + b1, act, into M over [s1, L)
@@ -208,8 +219,9 @@ resblock_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
 #pragma unroll
         for (int o = 0; o < CP; ++o) {
           S* vp = V + o * L + p[j];
-          const float y = to_storage(acc[j][o] + Bs[CP + o], x);
-          store_f(vp, to_storage(load_f(vp) + y, x));
+          const float sum = residual(load_f(vp), acc[j][o] + Bs[CP + o], x);
+          store_f(vp, sum);
+          if (BF16) store_f(A + o * L + p[j], lrelu(sum, slope));
         }
       }
     }

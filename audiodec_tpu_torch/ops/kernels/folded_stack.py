@@ -46,8 +46,11 @@ Numerics follow the TPU kernel (`folded_stack.py:344-371`): the activation
 is computed in f32; with `bf16_dots` (or bf16 storage) the dot operands are
 rounded to bf16; products are summed in f32; a bias is added in f32 to the
 f32 sum before the next activation, and each conv's output is exactly zero
-before t=0; the residual is rounded to the storage dtype after every unit.
-`bf16_dots=False` with f32 storage is true f32.  The plain version zero-pads
+before t=0.  In bf16 storage the residual is `storage_residual`'s: the next
+unit's activation reads the f32 sum of the bf16 residual and the bf16
+conv output, which the stream holds rounded to bf16, and ELU is
+exp(min(v, 0)) - 1, as in the TPU kernel and its int8 modes; in f32
+storage ELU is expm1 (F.elu), as it has been.  `bf16_dots=False` with f32 storage is true f32.  The plain version zero-pads
 each conv's input, which gives the t < 0 semantics by construction.
 
 Layout (B, C, T).  A CPU tensor runs `folded_residual_stack_plain` (in the
@@ -122,17 +125,20 @@ def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
                                 bf16_dots: bool = True, *, act: str = "elu",
                                 act_param: float = 0.0,
                                 biases=None) -> torch.Tensor:
-    """The stack as an F.conv1d chain with the kernels' rounding points."""
-    rounded = bf16_dots or x.dtype == torch.bfloat16
-    fn = _activation(act, act_param)
+    """The stack as an F.conv1d chain with the kernels' rounding points.
+    In bf16 storage the residual follows `storage_residual`, and ELU is
+    the TPU kernel's exp(min(v, 0)) - 1."""
+    bf16 = x.dtype == torch.bfloat16
+    rounded = bf16_dots or bf16
+    fn = elu_exp if bf16 and act == "elu" else _activation(act, act_param)
 
     def operand(t):
         t = t.float()
         return t.to(torch.bfloat16).float() if rounded else t
 
-    v = x
+    v = x.float()
     for j, ((w1, w2), d) in enumerate(zip(unit_params, dilations)):
-        a = operand(fn(v.float()))
+        a = operand(fn(v))
         acc = F.conv1d(F.pad(a, ((w1.shape[-1] - 1) * d, 0)), operand(w1),
                        dilation=d)
         if biases is not None:
@@ -141,8 +147,30 @@ def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
         y2 = F.conv1d(F.pad(m, (w2.shape[-1] - 1, 0)), operand(w2))
         if biases is not None:
             y2 = y2 + biases[j][1].float()[:, None]
-        v = v + y2.to(v.dtype)
-    return v
+        v = storage_residual(v, y2, bf16)
+    return v.to(x.dtype)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def storage_residual(v: torch.Tensor, y2: torch.Tensor, bf16: bool,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """A unit's residual `v + (y2 [* scale]).astype(v.dtype)` as XLA
+    computes the TPU kernels' statement (`folded_stack.py:367`,
+    `tools/folded_ablate.py:129`), in every mode of the stack.
+
+    f32 storage: `v + y2`, or with the int8 modes' weight scale one fma.
+    bf16 storage: y2 (times the scale) is rounded to bf16 and added to the
+    bf16 residual in f32; the next unit's activation (`folded_stack.py
+    :344`) reads that f32 sum, since XLA keeps the excess precision, while
+    the residual stream and the output hold it rounded to bf16.  So `v`
+    here is the f32 sum carried from the previous unit (or the input), the
+    residual is `v` rounded, and the caller rounds the last sum once."""
+    if not bf16:
+        return v + y2 if scale is None else _fma(y2, scale, v)
+    return _bf16(v) + _bf16(y2 if scale is None else y2 * scale)
 
 
 # ---------------------------------------------------------------------------
@@ -172,20 +200,6 @@ def int8_weight_scales(w: torch.Tensor):
     w = w.float()
     s = torch.clamp(w.abs().amax(dim=(1, 2)), min=1e-12) * (1.0 / INT8_QMAX)
     return torch.round(w / s[:, None, None]), s
-
-
-def _int8_residual(v: torch.Tensor, y2: torch.Tensor, s2: torch.Tensor,
-                   bf16: bool) -> torch.Tensor:
-    """The unit's residual `v + (y2 * s2).astype(v.dtype)` as XLA on the CPU
-    computes it.  f32 storage: one fma.  bf16 storage: y2 * s2 is rounded to
-    bf16 and added to the bf16 residual in f32; the next unit's activation
-    reads that f32 sum (XLA keeps the excess precision), while the residual
-    stream and the output hold it rounded to bf16.  So `v` here is the f32
-    sum, and the residual is `v` rounded."""
-    if not bf16:
-        return _fma(y2, s2, v)
-    return (v.to(torch.bfloat16).float()
-            + (y2 * s2).to(torch.bfloat16).float())
 
 
 def _quantize_rows(y: torch.Tensor, f: int):
@@ -234,10 +248,10 @@ def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
     conv1's row-grouped integer partials are dequantized and summed as in
     `_int8_conv`, then multiplied by the weight scale; ELU; the same
     quantization; the 1x1 conv likewise, giving y2, and the residual as
-    `_int8_residual`.  T is padded to a whole row with zeros, which evolve
-    like the TPU kernel's tail padding and enter the last row's scale; rows
-    wholly in the padding never reach a real sample (the units are causal),
-    and with per-row scales a tile's halo rows equal the rows they repeat,
+    `storage_residual`.  T is padded to a whole row with zeros, which
+    evolve like the TPU kernel's tail padding and enter the last row's
+    scale; rows wholly in the padding never reach a real sample (the units
+    are causal), and with per-row scales a tile's halo rows equal the rows they repeat,
     so the TPU kernel's time tiling does not change this function."""
     b, c, t = x.shape
     f = fold or int8_fold(c)
@@ -252,7 +266,8 @@ def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
         q, sd = _quantize_rows(elu_exp(v), f)
         acc = _int8_conv(q, sd, q1w, d, f) * s1[:, None]
         q, sd = _quantize_rows(elu_exp(acc), f)
-        v = _int8_residual(v, _int8_conv(q, sd, q2w, 1, f), s2[:, None], bf16)
+        v = storage_residual(v, _int8_conv(q, sd, q2w, 1, f), bf16,
+                             s2[:, None])
     return v[:, :, :t].to(x.dtype).contiguous()
 
 
@@ -314,7 +329,7 @@ def folded_residual_stack_int8_tile_plain(
     over the window as one exact integer sum over all taps, rounded to f32
     once, times s * (1/127), times the weight scale; ELU and a second scale
     over the L - span1 rows left; the 1x1 conv the same way, giving y2; the
-    residual as `_int8_residual`; the window loses its first span1 rows."""
+    residual as `storage_residual`; the window loses its first span1 rows."""
     b, c, t = x.shape
     g = tile_geometry(c, t, dilations, fold, tile_rows)
     bf16 = x.dtype == torch.bfloat16
@@ -331,8 +346,8 @@ def folded_residual_stack_int8_tile_plain(
         q, sd = _quantize_windows(elu_exp(v))
         acc = _exact_conv(q, q1w, d)[..., cut - (KERNEL_SIZE - 1) * d:]
         q, sd = _quantize_windows(elu_exp(acc * sd * s1[:, None]))
-        v = _int8_residual(v[..., cut:], _exact_conv(q, q2w, 1) * sd,
-                           s2[:, None], bf16)
+        v = storage_residual(v[..., cut:], _exact_conv(q, q2w, 1) * sd,
+                             bf16, s2[:, None])
     # the windows are down to their tiles' own samples
     out = v.reshape(b, g.n_tiles, c, step).transpose(1, 2) \
         .reshape(b, c, g.n_tiles * step)[:, :, :t]

@@ -128,6 +128,7 @@ def test_fold_helpers_match_jax(k, d, f):
 @pytest.mark.parametrize("shape,variant,exc", [
     ((1, 32, 258), "default", ValueError),     # T not a multiple of f = 4
     ((1, 16, 260), "noshift", ValueError),     # f = 8
+    ((1, 48, 257), "default", ValueError),     # f = 2 at a wide C
     ((1, 32, 256), "shift", ValueError),       # unknown variant
 ])
 def test_bad_calls_raise(shape, variant, exc):
@@ -137,11 +138,17 @@ def test_bad_calls_raise(shape, variant, exc):
         port.ablate_stack(torch.zeros(b, c, t), units, DILATIONS, variant)
 
 
-def test_bf16_storage_and_other_devices_raise():
+def test_bf16_storage_runs_and_returns_bf16():
+    x, units = _case(1, 256, 32)
+    xt = torch.from_numpy(x).transpose(1, 2).to(torch.bfloat16)
+    out = port.ablate_stack(xt, _port_units(units))
+    assert out.dtype == torch.bfloat16 and out.shape == xt.shape
+    assert not torch.equal(out, xt)
+    assert port.launches == 0
+
+
+def test_other_devices_raise():
     units = _port_units(_case(1, 8, 32)[1])
-    with pytest.raises(TypeError, match="float32"):
-        port.ablate_stack(torch.zeros(1, 32, 256, dtype=torch.bfloat16),
-                          units)
     meta = [(a.to("meta"), b.to("meta")) for a, b in units]
     with pytest.raises(ValueError, match="no kernel"):
         port.ablate_stack(torch.zeros(1, 32, 256, device="meta"), meta)

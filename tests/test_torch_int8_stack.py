@@ -94,7 +94,7 @@ def test_plain_matches_jax_int8_kernel(c, dilations):
 def test_plain_matches_jax_int8_kernel_at_fold(c, fold, storage, dilations):
     """The row scales at the probe's other folds (f * C = 256, 512), in f32
     and bf16 storage (where the residual is rounded as XLA rounds it:
-    `_int8_residual`), to the bounds above."""
+    `storage_residual`), to the bounds above."""
     x, units = _case(c, T, dilations, seed=c + fold)
     ref = np.asarray(jax_stack(
         jnp.asarray(x).astype(storage),
