@@ -8,8 +8,9 @@ Times the C = 32 autoencoder stack with bf16 dots in its five ablation
 variants (`ops/kernels/ablate_stack.py`, csrc/ablate_stack.cu on the
 tensor cores: default, tree, im2col, noelu, noshift), one `F.elu` pass over
 the same x (the tool's `xla_single_elu_pass`: one read and one write), and
-the folded stack's autoencoder-mode kernel with `bf16_dots=True`
-(csrc/folded_stack.cu, the production stack these variants take apart).
+the folded stack's autoencoder mode with `bf16_dots=True`
+(csrc/folded_stack_mma.cu, the production stack these variants take
+apart).
 The variants change the stack's numbers: measurement only.  Inputs are
 seeded numpy, as the tool's: weights 0.1 * N(0, 1), x 0.3 * N(0, 1),
 dilations (1, 3, 9).
@@ -101,10 +102,7 @@ def main(argv=None) -> list:
         ("folded_stack_bf16_dots",
          lambda: folded_residual_stack(x, units, dilations=DILATIONS,
                                        bf16_dots=True),
-         kernel_bounds.residual_stack(b, t, c, k=7, k2=1,
-                                      storage=kernel_bounds.F32,
-                                      weight=kernel_bounds.F32,
-                                      peak="bf16")["bound_ms"]),
+         kernel_bounds.mma_stack(b, t, c)["bound_ms"]),
     ]
     records = []
     for ablate, fn, bound in runs:

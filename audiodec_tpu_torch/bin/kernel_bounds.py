@@ -51,6 +51,16 @@ def autoencoder_stack(b, t, c, storage=F32) -> dict:
                           weight=storage, peak="bf16")
 
 
+def mma_stack(b, t, c, *, k=7, k2=1, storage=F32, bias=False,
+              units=3) -> dict:
+    """csrc/folded_stack_mma.cu at (b, c, t): `units` units of the given
+    shape, the activation in the storage dtype, bf16 weights and biases
+    (the biases are f32 on the card, a few hundred bytes), the dots at the
+    bf16 peak."""
+    return residual_stack(b, t, c, k=k, k2=k2, storage=storage, weight=BF16,
+                          peak="bf16", units=units, bias=bias)
+
+
 def int8_stack(b, t, c, storage=F32) -> dict:
     """The folded stack's int8 modes ("row" or "tile" scales) at (b, c, t):
     three k=7 units, the activation in the storage dtype, int8 weights,
@@ -107,6 +117,15 @@ def rows():
          residual_stack(BATCH, SAMPLES, 32, k=11, k2=11, storage=BF16,
                         weight=BF16, peak="bf16", bias=True)),
     ]
+    # the tensor-core kernel (csrc/folded_stack_mma.cu) at the same shapes
+    for name, size in (("f32", F32), ("bf16", BF16)):
+        out.append((stack, f"tensor cores, autoencoder units, {name} "
+                           f"storage", [BATCH, SAMPLES, 32],
+                    mma_stack(BATCH, SAMPLES, 32, storage=size)))
+    out.append((stack, "tensor cores, vocoder units, k=11, bf16 storage "
+                       "(AD v1, per group)", [BATCH, SAMPLES, 32],
+                mma_stack(BATCH, SAMPLES, 32, k=11, k2=11, storage=BF16,
+                          bias=True)))
     # int8 mode: every symAD decoder stack, f32 storage, int8 dots
     for c, t in reversed(SYMAD_STACKS):
         out.append((stack, f"int8, decoder stack at C={c}", [BATCH, t, c],

@@ -1,46 +1,54 @@
 """Fused causal residual stack: CUDA kernel wrappers and their plain version.
 
 Replaces the TPU kernel `audiodec_tpu/ops/pallas/folded_stack.py:112
-folded_residual_stack` in all of its modes:
+folded_residual_stack`, which takes any chain of units act -> conv(k, d) ->
+act -> conv(k2) -> + skip, act ELU or LeakyReLU, with or without biases.
+On the card (`route` picks):
 
-  - autoencoder mode (ELU, k=7, 1x1 second conv, no biases):
-    `csrc/folded_stack.cu` at C <= 32, counted in `launches`; at C from 33
-    to 256 `csrc/resunit_stack.cu` (the archived per-tap stack's kernel,
-    two CUDA launches per unit, with bf16 operand and storage rounding),
-    counted in `wide_launches`;
-  - vocoder mode (the HiFiGAN resblock units: LeakyReLU with slope
-    `act_param`, second conv with k2 = k taps, optional biases, k in
-    {3, 7, 11}, C <= 32): `csrc/resblock_stack.cu`, counted in
-    `resblock_launches`;
-  - int8 mode (`int8_dots`) with "row" activation scales: the autoencoder
-    units at any C from 4 to 256 and any fold, f32 or bf16 storage:
-    `csrc/int8_stack.cu`, counted in `int8_launches`; arithmetic at
-    `folded_residual_stack_int8_plain`;
+  - C <= 32 with the dot operands rounded to bf16 (`bf16_dots`, or bf16
+    storage): `csrc/folded_stack_mma.cu` (bf16 `mma.sync`) at every unit
+    shape, counted by shape: `mma_launches` (the autoencoder units: ELU,
+    k=7, 1x1 second conv, no biases), `mma_voc_launches` (the vocoder
+    units: LeakyReLU with slope `act_param`, k = k2 in {3, 7, 11},
+    optional biases) and `mma_other_launches` (any other shape);
+  - C <= 32 in true f32 (f32 storage, `bf16_dots=False`): the f32 FMA
+    kernels, `csrc/folded_stack.cu` for the autoencoder units (counted in
+    `launches`) and `csrc/resblock_stack.cu` for the vocoder units
+    (`resblock_launches`), 1..3 units; other shapes have no true-f32
+    kernel and raise;
+  - the autoencoder units at C from 33 to 256: `csrc/resunit_stack.cu`
+    (the archived per-tap stack's kernel, two CUDA launches per unit, with
+    bf16 operand and storage rounding), counted in `wide_launches`;
+  - int8 mode (`int8_dots`, ELU units with a 1x1 second conv and no
+    biases) with "row" activation scales, any C from 4 to 256 and any
+    fold, f32 or bf16 storage: `csrc/int8_stack.cu`, counted in
+    `int8_launches`; arithmetic at `folded_residual_stack_int8_plain`;
   - int8 mode with "tile" scales (`int8_scale="tile"`), the same units:
     `csrc/int8_tile_stack.cu`, counted in `int8_tile_launches`; arithmetic
     at `folded_residual_stack_int8_tile_plain`.
+The int8 kernels take k = 7 and 1..3 units; other shapes raise on the card.
+`_fma_stack` also runs the FMA kernels with bf16 operands, so that
+chip_smoke.py can time them beside the tensor-core kernel; no path calls it.
 
 `fold` and `tile_rows` are the TPU kernel's (0 means f = max(1, 128 // C)).
 They define the int8 modes' functions: a "row" scale covers one folded row
 of f samples, and a "tile" scale one tile of `_pick_tile` rows with its
-halo.  In the autoencoder and vocoder modes they change only the order of
-the TPU kernel's f32 sums, so there they are accepted and do not reach the
-kernels, which tile time as suits the card.
+halo.  In the other modes they change only the order of the TPU kernel's
+f32 sums, so there they are accepted and do not reach the kernels, which
+tile time as suits the card.
 
 Bound on the H100 (bin/kernel_bounds.py: one read and one write of the
 activation and the weights against the dots' operations at their type's
 peak, 989 TFLOP/s bf16, 1979 TOP/s int8):
-  - autoencoder mode at (16, 480000, 32): 1.97 GB in f32, 0.98 GB in bf16,
+  - autoencoder units at (16, 480000, 32): 1.97 GB in f32, 0.98 GB in bf16,
     against 3 * (7 + 1) * 32 * 32 * 2 FLOP per sample (3.8e11); at the
     wider symAD stacks see bin/kernel_bounds.py;
-  - vocoder mode at AD v1's (16, 480000, 32) bf16: 0.98 GB (0.29 ms)
+  - vocoder units at AD v1's (16, 480000, 32) bf16: 0.98 GB (0.29 ms)
     against 3 * (11 + 11) * 32 * 32 * 2 FLOP per sample (1.04e12, 1.05 ms),
     so it is bound by operations;
   - int8 modes at the symAD decoder's stacks: see csrc/int8_stack.cu
     (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s).
-All these kernels multiply on the f32 FMA units or with __dp4a on the CUDA
-cores, so all are bound by their products' rate.  See the notes in the
-CUDA sources.
+See the notes in the CUDA sources for each design.
 
 Numerics follow the TPU kernel (`folded_stack.py:344-371`): the activation
 is computed in f32; with `bf16_dots` (or bf16 storage) the dot operands are
@@ -50,13 +58,14 @@ before t=0.  In bf16 storage the residual is `storage_residual`'s: the next
 unit's activation reads the f32 sum of the bf16 residual and the bf16
 conv output, which the stream holds rounded to bf16, and ELU is
 exp(min(v, 0)) - 1, as in the TPU kernel and its int8 modes; in f32
-storage ELU is expm1 (F.elu), as it has been.  `bf16_dots=False` with f32 storage is true f32.  The plain version zero-pads
-each conv's input, which gives the t < 0 semantics by construction.
+storage ELU is expm1 (F.elu), as it has been.  `bf16_dots=False` with f32
+storage is true f32.  The plain version zero-pads each conv's input, which
+gives the t < 0 semantics by construction.
 
 Layout (B, C, T).  A CPU tensor runs `folded_residual_stack_plain` (in the
 int8 modes `folded_residual_stack_int8_plain` or
-`folded_residual_stack_int8_tile_plain`); a CUDA tensor launches the mode's
-kernel or raises.
+`folded_residual_stack_int8_tile_plain`); a CUDA tensor launches the
+kernel that `route` names or raises.
 """
 
 from __future__ import annotations
@@ -78,14 +87,27 @@ from audiodec_tpu_torch.ops.kernels.fold import (
     pick_tile,
 )
 
+ACTIVATIONS = ("elu", "leaky_relu")
+# the shipped unit shapes: the autoencoder units' first conv, and the
+# vocoder units' k = k2
 KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
+# units the FMA and int8 kernels take
 MAX_UNITS = 3
 DEFAULT_TILE_ROWS = 1024
 # widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for; the
 # autoencoder mode takes C up to MAX_CHANNELS through csrc/resunit_stack.cu
 PADDED_CHANNELS = (4, 8, 16, 32)
 MAX_CHANNELS = 256
+# csrc/folded_stack_mma.cu: its padded widths, units, the samples a warp
+# takes per step, the largest tile, and the shared memory one block may use
+# on an H100 (227 KB)
+MMA_CHANNELS = (16, 32)
+MMA_MAX_UNITS = 256
+MMA_STEP = 32
+MMA_MAX_TILE = 1024
+BLOCK_SMEM = 232448
+MMA_ACT = {"elu": 0, "leaky_relu": 1}
 # csrc/resunit_stack.cu's output channels per block (C <= 32, else 64) and
 # input channels per shared-memory stage
 RESUNIT_BLOCK_CO = (32, 64)
@@ -99,9 +121,12 @@ RESUNIT_ROUND_OPERANDS, RESUNIT_BF16_RESIDUAL, RESUNIT_FOLDED = 1, 2, 4
 INT8_CHANNELS = (4, 256)
 INT8_QMAX = 127.0
 
-launches = 0            # autoencoder mode at C <= 32, csrc/folded_stack.cu
+mma_launches = 0        # csrc/folded_stack_mma.cu, autoencoder units
+mma_voc_launches = 0    # csrc/folded_stack_mma.cu, vocoder units
+mma_other_launches = 0  # csrc/folded_stack_mma.cu, any other unit shape
+launches = 0            # autoencoder units, FMA, csrc/folded_stack.cu
 wide_launches = 0       # autoencoder mode at C > 32, csrc/resunit_stack.cu
-resblock_launches = 0   # vocoder mode, csrc/resblock_stack.cu
+resblock_launches = 0   # vocoder units, FMA, csrc/resblock_stack.cu
 int8_launches = 0       # int8 mode, "row" scales, csrc/int8_stack.cu
 int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_stack.cu
 
@@ -123,11 +148,20 @@ def _activation(act: str, act_param: float):
 def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
                                 dilations: Sequence[int],
                                 bf16_dots: bool = True, *, act: str = "elu",
-                                act_param: float = 0.0,
-                                biases=None) -> torch.Tensor:
-    """The stack as an F.conv1d chain with the kernels' rounding points.
-    In bf16 storage the residual follows `storage_residual`, and ELU is
-    the TPU kernel's exp(min(v, 0)) - 1."""
+                                act_param: float = 0.0, biases=None,
+                                exact_sums: bool = False) -> torch.Tensor:
+    """The stack as an F.conv1d chain with the kernels' rounding points, at
+    any unit shape: each unit's k and k2 are its weights' widths, the first
+    conv dilated by its unit's dilation.  In bf16 storage the residual
+    follows `storage_residual`, and ELU is the TPU kernel's
+    exp(min(v, 0)) - 1.  Each conv reads its zero-padded input, so with
+    biases its output before t=0 is zero, as the TPU kernel's mask makes
+    it.
+
+    exact_sums=True sums each conv's products exactly (in f64) and rounds
+    the sum to f32 once: the same function with every other rounding point
+    kept, a reference for kernels that sum in another order than the
+    convolution library (bf16 operand flips, ROADMAP §C)."""
     bf16 = x.dtype == torch.bfloat16
     rounded = bf16_dots or bf16
     fn = elu_exp if bf16 and act == "elu" else _activation(act, act_param)
@@ -136,15 +170,20 @@ def folded_residual_stack_plain(x: torch.Tensor, unit_params: Sequence,
         t = t.float()
         return t.to(torch.bfloat16).float() if rounded else t
 
+    def conv(a, w, pad, d=1):
+        a = F.pad(a, (pad, 0))
+        if exact_sums:
+            return F.conv1d(a.double(), w.double(), dilation=d).float()
+        return F.conv1d(a, w, dilation=d)
+
     v = x.float()
     for j, ((w1, w2), d) in enumerate(zip(unit_params, dilations)):
         a = operand(fn(v))
-        acc = F.conv1d(F.pad(a, ((w1.shape[-1] - 1) * d, 0)), operand(w1),
-                       dilation=d)
+        acc = conv(a, operand(w1), (w1.shape[-1] - 1) * d, d)
         if biases is not None:
             acc = acc + biases[j][0].float()[:, None]
         m = operand(fn(acc))
-        y2 = F.conv1d(F.pad(m, (w2.shape[-1] - 1, 0)), operand(w2))
+        y2 = conv(m, operand(w2), w2.shape[-1] - 1)
         if biases is not None:
             y2 = y2 + biases[j][1].float()[:, None]
         v = storage_residual(v, y2, bf16)
@@ -289,14 +328,15 @@ class TileGeometry(NamedTuple):
 
 
 def tile_geometry(c: int, t: int, dilations: Sequence[int], fold: int = 0,
-                  tile_rows: int = DEFAULT_TILE_ROWS) -> TileGeometry:
+                  tile_rows: int = DEFAULT_TILE_ROWS,
+                  kernel_size: int = KERNEL_SIZE) -> TileGeometry:
     """The tiling the TPU kernel gives (C, T) at this fold and tile_rows
-    (the autoencoder units: k = 7, k2 = 1)."""
+    (the int8 modes' units: k = kernel_size, k2 = 1)."""
     f = fold or int8_fold(c)
     n_rows = padded_rows(t, f)
     rows_tile = pick_tile(n_rows, tile_rows)
     return TileGeometry(f, n_rows, rows_tile, n_rows // rows_tile,
-                        halo_rows(KERNEL_SIZE, dilations, f))
+                        halo_rows(kernel_size, dilations, f))
 
 
 def _quantize_windows(y: torch.Tensor):
@@ -310,7 +350,7 @@ def _quantize_windows(y: torch.Tensor):
 def _exact_conv(q: torch.Tensor, wq: torch.Tensor, d: int) -> torch.Tensor:
     """Valid conv of integer-valued q and weights as one exact sum over all
     taps and channels, rounded once to f32 as XLA's s32 -> f32 convert:
-    |sum| <= 127^2 * 7 * C < 2^53, so f64 holds every partial, and
+    |sum| <= 127^2 * k * C < 2^53, so f64 holds every partial, and
     torch.round removes any error of the convolution's algorithm."""
     return torch.round(F.conv1d(q.double(), wq.double(), dilation=d)).float()
 
@@ -329,9 +369,11 @@ def folded_residual_stack_int8_tile_plain(
     over the window as one exact integer sum over all taps, rounded to f32
     once, times s * (1/127), times the weight scale; ELU and a second scale
     over the L - span1 rows left; the 1x1 conv the same way, giving y2; the
-    residual as `storage_residual`; the window loses its first span1 rows."""
+    residual as `storage_residual`; the window loses its first span1 rows.
+    k is the first conv's width, the same in every unit."""
     b, c, t = x.shape
-    g = tile_geometry(c, t, dilations, fold, tile_rows)
+    k = unit_params[0][0].shape[-1]
+    g = tile_geometry(c, t, dilations, fold, tile_rows, k)
     bf16 = x.dtype == torch.bfloat16
     step = g.rows_tile * g.f
     # each tile's window: its samples and the halo's before them, zero
@@ -342,9 +384,9 @@ def folded_residual_stack_int8_tile_plain(
     for (w1, w2), d in zip(unit_params, dilations):
         q1w, s1 = int8_weight_scales(w1)
         q2w, s2 = int8_weight_scales(w2)
-        cut = -fold_offsets(KERNEL_SIZE, d, g.f)[0] * g.f
+        cut = -fold_offsets(k, d, g.f)[0] * g.f
         q, sd = _quantize_windows(elu_exp(v))
-        acc = _exact_conv(q, q1w, d)[..., cut - (KERNEL_SIZE - 1) * d:]
+        acc = _exact_conv(q, q1w, d)[..., cut - (k - 1) * d:]
         q, sd = _quantize_windows(elu_exp(acc * sd * s1[:, None]))
         v = storage_residual(v[..., cut:], _exact_conv(q, q2w, 1) * sd,
                              bf16, s2[:, None])
@@ -363,6 +405,17 @@ def _kernel():
     fn = _build.load("folded_stack").folded_stack_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _mma_kernel():
+    fn = _build.load("folded_stack_mma").folded_stack_mma_forward
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -427,6 +480,26 @@ def _pack_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
     (never rounded: the TPU kernel adds them in f32), or None."""
     w1 = _pack_convs([w for w, _ in unit_params], c, cp, rounded)
     w2 = _pack_convs([w for _, w in unit_params], c, cp, rounded)
+    if biases is None:
+        return w1, w2, None
+    b = torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
+                                  F.pad(b2.float(), (0, cp - c))])
+                     for b1, b2 in biases])
+    return w1, w2, b.contiguous()
+
+
+def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/folded_stack_mma.cu's operands: each conv's taps as
+    (n, k, cp, cp) bf16 [u][tap][c_out][c_in], zero-padded from C to cp
+    channels, and the biases as (n, 2, cp) f32 (never rounded: the TPU
+    kernel adds them in f32), or None."""
+    def taps(ws):
+        return torch.stack([F.pad(w.float().permute(2, 0, 1),
+                                  (0, cp - c, 0, cp - c)) for w in ws]
+                           ).to(torch.bfloat16).contiguous()
+
+    w1 = taps([w for w, _ in unit_params])
+    w2 = taps([w for _, w in unit_params])
     if biases is None:
         return w1, w2, None
     b = torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
@@ -512,6 +585,13 @@ def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
                         unit_params, biases)
 
 
+def _packed_mma(unit_params, biases, c: int, cp: int):
+    tensors = tuple(w for u in unit_params for w in u)
+    if biases is not None:
+        tensors += tuple(b for u in biases for b in u)
+    return cached_pack(_pack_mma, tensors, c, cp, True, unit_params, biases)
+
+
 def packed_resunit(unit_params, c: int, rounded: bool):
     weights = tuple(w for u in unit_params for w in u)
     return cached_pack(_pack_resunit_units, weights, c, 0, rounded,
@@ -547,27 +627,109 @@ def resunit_stack(x: torch.Tensor, packed, dilations: Sequence[int],
     return v
 
 
-def _mode(kernel_size, kernel_size2, act, act_param, biases,
-          int8_dots) -> str:
-    """'autoencoder', 'vocoder' or 'int8', the ported modes; raises on the
-    rest."""
-    ae_units = (act == "elu" and not act_param and biases is None
-                and kernel_size == KERNEL_SIZE and kernel_size2 == 1)
-    if int8_dots and ae_units:
+def _mode(kernel_size, kernel_size2, act, biases, int8_dots) -> str:
+    """The units' shape: 'int8' (int8 dots; ELU, a 1x1 second conv, no
+    biases, any k), 'autoencoder' (ELU, k=7, k2=1, no biases), 'vocoder'
+    (LeakyReLU, k = k2 in RESBLOCK_KERNEL_SIZES, biases or none) or 'other'
+    (any other k, k2 and biases with either activation).  ELU ignores
+    act_param, as the TPU kernel's `_elu` does.  Raises on an activation the
+    TPU kernel rejects, and on int8 dots with other units, which no path
+    sends (`audiodec_tpu/models/fast.py:49-54`)."""
+    if act not in ACTIVATIONS:
+        raise NotImplementedError(f"folded stack activation {act!r}")
+    elu_1x1 = act == "elu" and kernel_size2 == 1 and biases is None
+    if int8_dots:
+        if elu_1x1:
+            return "int8"
+        raise NotImplementedError(
+            "the int8 modes are ported for ELU units with a 1x1 second conv "
+            f"and no biases; got act={act!r}, k2={kernel_size2}, "
+            f"biases={biases is not None}")
+    if elu_1x1 and kernel_size == KERNEL_SIZE:
+        return "autoencoder"
+    if (act == "leaky_relu" and kernel_size == kernel_size2
+            and kernel_size in RESBLOCK_KERNEL_SIZES):
+        return "vocoder"
+    return "other"
+
+
+def _shape(kernel_size, kernel_size2, act, biases, dilations) -> str:
+    return (f"act={act}, k={kernel_size}, k2={kernel_size2}, "
+            f"biases={biases is not None}, dilations={tuple(dilations)}")
+
+
+def route(mode: str, c: int, bf16_storage: bool, bf16_dots: bool,
+          shape: str = "") -> str:
+    """The kernel a CUDA tensor of C channels takes in `mode` (`_mode`):
+    'int8' (the int8 modes' kernels), 'wide' (the autoencoder units above
+    C = 32, csrc/resunit_stack.cu), 'mma' (C <= 32 with the dot operands
+    rounded to bf16, csrc/folded_stack_mma.cu) or 'fma' (C <= 32 in true
+    f32, the autoencoder and vocoder units: csrc/folded_stack.cu,
+    csrc/resblock_stack.cu).  Raises ValueError, naming `shape`, where no
+    kernel computes the units."""
+    if mode == "int8":
         return "int8"
-    if not int8_dots:
-        if ae_units:
-            return "autoencoder"
-        if (act == "leaky_relu" and kernel_size in RESBLOCK_KERNEL_SIZES
-                and kernel_size2 == kernel_size):
-            return "vocoder"
-    raise NotImplementedError(
-        "folded_residual_stack is ported for the autoencoder units (ELU, "
-        "k=7, k2=1, no biases), with or without int8 dots, and the vocoder "
-        f"units (LeakyReLU, k=k2 in {RESBLOCK_KERNEL_SIZES}, optional "
-        f"biases) without; got act={act!r}, k={kernel_size}, "
-        f"k2={kernel_size2}, biases={biases is not None}, "
-        f"int8_dots={int8_dots}")
+    if c > MMA_CHANNELS[-1]:
+        if mode == "autoencoder" and c <= MAX_CHANNELS:
+            return "wide"
+        widest = MAX_CHANNELS if mode == "autoencoder" else MMA_CHANNELS[-1]
+        raise ValueError(f"the {mode} units take C <= {widest} on the card, "
+                         f"got C={c} ({shape})")
+    if bf16_dots or bf16_storage:
+        return "mma"
+    if mode == "other":
+        raise ValueError(f"no true-f32 kernel for these units ({shape}): in "
+                         f"f32 storage with bf16_dots=False the card takes "
+                         f"only the autoencoder and vocoder units")
+    return "fma"
+
+
+class MmaGeometry(NamedTuple):
+    """A launch of csrc/folded_stack_mma.cu: channels padded to cp, tile
+    output samples per block behind a halo of look-back, and the block's
+    shared memory in bytes."""
+    cp: int
+    tile: int
+    halo: int
+    smem: int
+
+
+def mma_width(c: int) -> int:
+    """The padded width csrc/folded_stack_mma.cu runs C <= 32 channels at."""
+    return next(p for p in MMA_CHANNELS if c <= p)
+
+
+def mma_smem(cp: int, k: int, k2: int, rows: int) -> int:
+    """Shared memory of a block holding `rows` samples (csrc/
+    folded_stack_mma.cu `smem_bytes`): the staged taps (k + 1 with the
+    1x1 second conv, else the wider conv's, restaged between the convs) as
+    bf16 rows of cp + 8, act(v) in the same rows, with k2 > 1 the second
+    conv's operand too, the biases, and v as f32 rows of cp + 1."""
+    rs, vs = cp + 8, cp + 1
+    wtaps = k + 1 if k2 == 1 else max(k, k2)
+    return (2 * (wtaps * cp * rs + rows * rs * (1 if k2 == 1 else 2))
+            + 4 * (2 * cp + rows * vs))
+
+
+def mma_geometry(c: int, kernel_size: int, kernel_size2: int,
+                 dilations: Sequence[int]) -> MmaGeometry:
+    """How csrc/folded_stack_mma.cu runs these units: one block of 16 warps
+    per SM with the largest tile, a multiple of MMA_STEP up to
+    MMA_MAX_TILE, whose samples and halo fit the block's shared memory.
+    Raises ValueError where no tile fits beside the halo."""
+    cp = mma_width(c)
+    k, k2 = kernel_size, kernel_size2
+    halo = sum((k - 1) * d + k2 - 1 for d in dilations)
+    fixed = mma_smem(cp, k, k2, 0)
+    rows = (BLOCK_SMEM - fixed) // (mma_smem(cp, k, k2, 1) - fixed)
+    tile = min(MMA_MAX_TILE, (rows - halo) // MMA_STEP * MMA_STEP)
+    if tile < MMA_STEP:
+        raise ValueError(
+            f"csrc/folded_stack_mma.cu: a halo of {halo} samples (k={k}, "
+            f"k2={k2}, dilations={tuple(dilations)}) leaves no tile of "
+            f"{MMA_STEP} samples in a block's {BLOCK_SMEM} bytes of shared "
+            f"memory at C={c}")
+    return MmaGeometry(cp, tile, halo, mma_smem(cp, k, k2, tile + halo))
 
 
 def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
@@ -584,32 +746,18 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
                           fold: int = 0) -> torch.Tensor:
     """Chain of causal residual units, batch mode.  x: (B, C, T) f32 or bf16;
     unit_params: ((w1 (C, C, k), w2 (C, C, k2)), ...), one per dilation;
-    biases: None or ((b1 (C,), b2 (C,)), ...).  int8_dots overrides
-    bf16_dots; int8_scale "tile" selects one activation scale per tile
-    window, any other value per-row scales, as the TPU kernel reads it.
-    fold (0: max(1, 128 // C)) and tile_rows define the int8 modes'
-    scales and are accepted, unused, by the others (module docstring)."""
-    global launches, wide_launches, resblock_launches
-    mode = _mode(kernel_size, kernel_size2, act, act_param, biases, int8_dots)
-    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be (B, C, T) float32 or bfloat16, got "
-                        f"{tuple(x.shape)} {x.dtype}")
+    biases: None or ((b1 (C,), b2 (C,)), ...); act 'elu' or 'leaky_relu'
+    (slope act_param).  int8_dots overrides bf16_dots; int8_scale "tile"
+    selects one activation scale per tile window, any other value per-row
+    scales, as the TPU kernel reads it.  fold (0: max(1, 128 // C)) and
+    tile_rows define the int8 modes' scales and are accepted, unused, by
+    the others (module docstring)."""
+    global wide_launches
+    mode = _mode(kernel_size, kernel_size2, act, biases, int8_dots)
+    _check_args(x, unit_params, dilations, kernel_size, kernel_size2, biases)
     if fold < 0 or tile_rows < 1:
         raise ValueError(f"need fold >= 0 and tile_rows >= 1, got fold="
                          f"{fold}, tile_rows={tile_rows}")
-    b, c, t = x.shape
-    n = len(dilations)
-    if len(unit_params) != n or not 1 <= n <= MAX_UNITS:
-        raise ValueError(f"need 1..{MAX_UNITS} units, one per dilation")
-    for w1, w2 in unit_params:
-        if (tuple(w1.shape) != (c, c, kernel_size)
-                or tuple(w2.shape) != (c, c, kernel_size2)):
-            raise ValueError(f"unit weights {tuple(w1.shape)}, "
-                             f"{tuple(w2.shape)} do not fit C={c}")
-    if biases is not None and (
-            len(biases) != n
-            or any(tuple(bb.shape) != (c,) for u in biases for bb in u)):
-        raise ValueError(f"need one (b1 ({c},), b2 ({c},)) per unit")
     if mode == "int8":
         if int8_scale == "tile":
             return _int8_tile_stack(x, unit_params, dilations, fold,
@@ -620,20 +768,114 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
             x, unit_params, dilations, bf16_dots, act=act,
             act_param=act_param, biases=biases)
     _check_cuda(x, unit_params, biases)
+    c = x.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    shape = _shape(kernel_size, kernel_size2, act, biases, dilations)
+    kernel = route(mode, c, bf16, bf16_dots, shape)
+    if kernel == "mma":
+        return _mma_stack(x, unit_params, dilations, kernel_size,
+                          kernel_size2, act, act_param, biases, mode)
+    if kernel == "fma":
+        return _fma_stack(x, unit_params, dilations=dilations,
+                          kernel_size=kernel_size,
+                          kernel_size2=kernel_size2, act=act,
+                          act_param=act_param, biases=biases,
+                          bf16_dots=False)
+    rounded = bf16_dots or bf16
+    flags = (RESUNIT_FOLDED
+             | (RESUNIT_ROUND_OPERANDS if rounded else 0)
+             | (RESUNIT_BF16_RESIDUAL if bf16 else 0))
+    out = resunit_stack(x.float(), packed_resunit(unit_params, c, rounded),
+                        dilations, kernel_size, flags)
+    wide_launches += 1
+    return out.to(x.dtype)
+
+
+def _check_args(x, unit_params, dilations, kernel_size, kernel_size2,
+                biases):
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be (B, C, T) float32 or bfloat16, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    c = x.shape[1]
+    n = len(dilations)
+    if n < 1 or len(unit_params) != n:
+        raise ValueError(f"need one unit per dilation, at least one; got "
+                         f"{len(unit_params)} units, {n} dilations")
+    if kernel_size < 1 or kernel_size2 < 1 or min(dilations) < 1:
+        raise ValueError(f"need k, k2 and dilations >= 1, got k="
+                         f"{kernel_size}, k2={kernel_size2}, dilations="
+                         f"{tuple(dilations)}")
+    for w1, w2 in unit_params:
+        if (tuple(w1.shape) != (c, c, kernel_size)
+                or tuple(w2.shape) != (c, c, kernel_size2)):
+            raise ValueError(f"unit weights {tuple(w1.shape)}, "
+                             f"{tuple(w2.shape)} do not fit C={c}")
+    if biases is not None and (
+            len(biases) != n
+            or any(tuple(bb.shape) != (c,) for u in biases for bb in u)):
+        raise ValueError(f"need one (b1 ({c},), b2 ({c},)) per unit")
+
+
+def _mma_stack(x, unit_params, dilations, kernel_size, kernel_size2, act,
+               act_param, biases, mode):
+    """One launch of csrc/folded_stack_mma.cu: the whole stack at C <= 32
+    with bf16 operands, in x's storage dtype, counted by unit shape."""
+    global mma_launches, mma_voc_launches, mma_other_launches
+    b, c, t = x.shape
+    n = len(dilations)
+    shape = _shape(kernel_size, kernel_size2, act, biases, dilations)
+    if n > MMA_MAX_UNITS:
+        raise ValueError(f"csrc/folded_stack_mma.cu takes up to "
+                         f"{MMA_MAX_UNITS} units, got {n} ({shape})")
+    g = mma_geometry(c, kernel_size, kernel_size2, dilations)
+    w1, w2, bias = _packed_mma(unit_params, biases, c, g.cp)
+    dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _mma_kernel()(
+            x.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            None if bias is None else bias.data_ptr(), b, c, t, g.cp, n, dil,
+            kernel_size, kernel_size2, MMA_ACT[act], float(act_param),
+            g.tile, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tensor-core residual stack kernel ({shape}): "
+                           f"CUDA error {err}")
+    if mode == "autoencoder":
+        mma_launches += 1
+    elif mode == "vocoder":
+        mma_voc_launches += 1
+    else:
+        mma_other_launches += 1
+    return out
+
+
+def _fma_stack(x: torch.Tensor, unit_params: Sequence, *,
+               dilations: Sequence[int] = (1, 3, 9),
+               kernel_size: int = KERNEL_SIZE, kernel_size2: int = 1,
+               act: str = "elu", act_param: float = 0.0, biases=None,
+               bf16_dots: bool = True) -> torch.Tensor:
+    """One launch of the f32 FMA kernels: csrc/folded_stack.cu (the
+    autoencoder units, counted in `launches`) or csrc/resblock_stack.cu
+    (the vocoder units, `resblock_launches`), C <= 32, 1..3 units.  The
+    stack takes them in true f32; their bf16-operand modes (`bf16_dots`,
+    or bf16 storage) are reached only here, for chip_smoke.py to time and
+    check them beside csrc/folded_stack_mma.cu."""
+    global launches, resblock_launches
+    mode = _mode(kernel_size, kernel_size2, act, biases, False)
+    _check_args(x, unit_params, dilations, kernel_size, kernel_size2, biases)
+    _check_cuda(x, unit_params, biases)
+    b, c, t = x.shape
+    n = len(dilations)
+    if (mode not in ("autoencoder", "vocoder") or n > MAX_UNITS
+            or c > PADDED_CHANNELS[-1]):
+        raise ValueError(
+            f"the FMA kernels take the autoencoder and vocoder units at "
+            f"C <= {PADDED_CHANNELS[-1]} with 1..{MAX_UNITS} units; got "
+            f"C={c}, {n} units ("
+            f"{_shape(kernel_size, kernel_size2, act, biases, dilations)})")
     rounded = bf16_dots or x.dtype == torch.bfloat16
     storage_bf16 = int(x.dtype == torch.bfloat16)
-    if mode == "autoencoder" and PADDED_CHANNELS[-1] < c <= MAX_CHANNELS:
-        flags = (RESUNIT_FOLDED
-                 | (RESUNIT_ROUND_OPERANDS if rounded else 0)
-                 | (RESUNIT_BF16_RESIDUAL if storage_bf16 else 0))
-        out = resunit_stack(x.float(), packed_resunit(unit_params, c, rounded),
-                            dilations, KERNEL_SIZE, flags)
-        wide_launches += 1
-        return out.to(x.dtype)
-    if c > PADDED_CHANNELS[-1]:
-        widest = MAX_CHANNELS if mode == "autoencoder" else \
-            PADDED_CHANNELS[-1]
-        raise ValueError(f"the {mode} mode takes C <= {widest}, got {c}")
     cp = next(p for p in PADDED_CHANNELS if c <= p)
     dil = list(dilations) + [0] * (MAX_UNITS - n)
     out = torch.empty_like(x)
@@ -653,8 +895,8 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
                 b, c, t, cp, kernel_size, n, *dil, float(act_param),
                 int(rounded), storage_bf16, stream)
     if err != 0:
-        raise RuntimeError(f"{mode}-mode residual stack kernel: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{mode}-mode FMA residual stack kernel: CUDA "
+                           f"error {err}")
     if mode == "autoencoder":
         launches += 1
     else:
@@ -679,6 +921,16 @@ def _check_int8_width(c: int):
                          f"got {c}")
 
 
+def _check_int8_units(unit_params, dilations):
+    """The int8 kernels' unit shapes; the plain versions take any k and
+    unit count."""
+    k = unit_params[0][0].shape[-1]
+    if k != KERNEL_SIZE or len(dilations) > MAX_UNITS:
+        raise ValueError(f"the int8 kernels take k={KERNEL_SIZE} and "
+                         f"1..{MAX_UNITS} units on the card, got k={k} and "
+                         f"{len(dilations)} units")
+
+
 def _int8_stack(x, unit_params, dilations, fold):
     """The int8 mode with "row" scales: the plain version on the CPU, else
     one wrapper call of csrc/int8_stack.cu (one CUDA launch per unit)."""
@@ -689,6 +941,7 @@ def _int8_stack(x, unit_params, dilations, fold):
         return folded_residual_stack_int8_plain(x, unit_params, dilations,
                                                 fold)
     _check_cuda(x, unit_params, None)
+    _check_int8_units(unit_params, dilations)
     f = fold or int8_fold(c)
     tp = -(-t // f) * f
     cp = -(-c // 16) * 16
@@ -724,11 +977,13 @@ def _int8_tile_stack(x, unit_params, dilations, fold, tile_rows):
         return folded_residual_stack_int8_tile_plain(
             x, unit_params, dilations, fold, tile_rows)
     _check_cuda(x, unit_params, None)
-    g = tile_geometry(c, t, dilations, fold, tile_rows)
+    _check_int8_units(unit_params, dilations)
+    k = unit_params[0][0].shape[-1]
+    g = tile_geometry(c, t, dilations, fold, tile_rows, k)
     cp = -(-c // 16) * 16
     n = len(dilations)
     dil = list(dilations) + [0] * (MAX_UNITS - n)
-    cuts = [-fold_offsets(KERNEL_SIZE, d, g.f)[0] * g.f for d in dilations]
+    cuts = [-fold_offsets(k, d, g.f)[0] * g.f for d in dilations]
     cuts += [0] * (MAX_UNITS - n)
     w1, w2, scales = _packed_int8(unit_params, c, cp)
     win = torch.empty(b * g.n_tiles, g.window, c, device=x.device,

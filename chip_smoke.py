@@ -1,20 +1,24 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's eight CUDA kernels (the folded residual-stack kernel's
-autoencoder, vocoder, int8 "row" and int8 "tile" modes, the archived
-per-tap residual stack, which is also the autoencoder mode above C = 32,
-the fused RVQ encode, the rate probe's dot chain and the ablation probe's
-stack) from the sources in this checkout, one nvcc each, all started
-together; holds each against its plain PyTorch version;
+Builds the port's nine CUDA kernels (the folded residual stack on the
+tensor cores at C <= 32 with bf16 operands, at every unit shape; its FMA
+kernels for true f32, the autoencoder and the vocoder units; its int8
+"row" and int8 "tile" modes; the archived per-tap residual stack, which is
+also the autoencoder mode above C = 32; the fused RVQ encode, the rate
+probe's dot chain and the ablation probe's stack) from the sources in this
+checkout, one nvcc each, all started together; holds each against its
+plain PyTorch version;
 checks the batch transcode, the fused transcode and the vocoder against
 the reference goldens; then drives the paths once each, times them and
 profiles one more transcode of each:
 
   - main_path (slice 1): symAD, B=16 x 10 s at 48 kHz, mixed mode (f32
-    encoder and RVQ, bf16 decoder), residual stacks through the kernel;
+    encoder and RVQ, bf16 decoder), its two C = 32 residual stacks through
+    the tensor-core kernel (slice 8; the FMA kernel before);
   - ad_v1_path (slice 2): the AD v1 receiver, the same encoder and RVQ with
     the AudioDec_v1 48 kHz HiFiGAN vocoder (full width, random weights from
-    a seed) decoding in bf16, its C=32 resblocks through the kernel;
+    a seed) decoding in bf16, its C=32 resblocks through the tensor-core
+    kernel;
   - int8_path (slice 3): the same symAD transcode with the int8 decode
     (`BatchTranscoder(int8_decode=True)`), every decoder stack (C = 256,
     128, 64, 32) through the int8-mode kernel;
@@ -74,6 +78,21 @@ unit's activation reads the f32 sum, ops/kernels/folded_stack.py
 storage_residual) of csrc/folded_stack.cu, csrc/resblock_stack.cu and
 csrc/resunit_stack.cu to the plain version's.
 
+The checks of slice 8: `mma_kernel_vs_plain` (csrc/folded_stack_mma.cu
+with bf16 operands: the autoencoder and vocoder units at C = 4-32 and
+T = 1920, 50, 48001, the golden's autoencoder weights, the vocoder units
+at k = 3, 7, 11 with and without biases, the unit shapes no shipped config
+uses, and the full size (16, 32, 480000), each in f32 and bf16 storage;
+relative L2 within 5e-4 of the same function with exact sums, and of the
+plain version within the larger of 5e-4 and 1.5 x the plain version's own
+distance from exact sums; max error below BF16_REL of the peak); the
+bf16-operand cases of `kernel_vs_plain` and `voc_kernel_vs_plain` now
+reach the tensor-core kernel and are held to the same bar, and beside it
+the FMA kernels' bf16-operand modes (`folded_stack._fma_stack`) to
+BF16_REL; their true-f32 cases hold the FMA kernels to F32_RTOL.
+`golden_parity` prints, beside the bf16-operand flips on
+gen_symad_trained, those of the same encode through the plain version.
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -92,32 +111,41 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-Every path sets the nine launch counts to 0 just before it and reads
-them just after (autoencoder, vocoder, int8, int8_tile, wide:
-ops/kernels/folded_stack.py; resunit: archive/resunit_kernel.py; rvq:
-archive/vq_kernel.py; dot_chain: ops/kernels/dot_chain.py; ablate:
-ops/kernels/ablate_stack.py; one per wrapper call), in the order
-autoencoder/vocoder/int8/resunit/rvq/dot_chain/ablate/int8_tile/wide:
-main_path 2/0/0/0/0/0/0/0/0, ad_v1_path 1/3/0/0/0/0/0/0/0, int8_path
-1/0/4/0/0/0/0/0/0, cli_path 0 or 4 int8 and no resunit or rvq,
-fused_path 0/0/0/8/1/0/0/0/0, mxu_rate_path 0/0/0/0/0/24/0/0/0 (6 cases,
-one warm-up and 3 timed calls each), ablate_path 7/0/0/0/0/0/84/0/0 (7
-calls of each of the five variants and of the autoencoder-mode kernel,
-and 7 of the default variant at each of 7 timed shapes),
-folded_probe_path 60/0/220/0/0/0/0/220/160 per dtype (11 (C, fold) cases,
-3 of them at C = 32, each mode 20 calls: the error, a warm-up and 3 x 6
-timed).  In the `kernels` line, `launches` is the count from the run of
-the path that brought the kernel in (autoencoder mode: main_path; vocoder
-mode: ad_v1_path; int8 mode: int8_path; the archived stack and the RVQ
+Every path sets the twelve launch counts to 0 just before it and reads
+them just after (mma, mma_voc, mma_other: csrc/folded_stack_mma.cu by unit
+shape, autoencoder, vocoder or other; autoencoder and vocoder: the FMA
+kernels; int8, int8_tile, wide: all ops/kernels/folded_stack.py; resunit:
+archive/resunit_kernel.py; rvq: archive/vq_kernel.py; dot_chain:
+ops/kernels/dot_chain.py; ablate: ops/kernels/ablate_stack.py; one per
+wrapper call), and each path must leave the counts named here and 0 for
+the rest: main_path 2 mma; ad_v1_path 1 mma and 3 mma_voc; int8_path 1
+mma and 4 int8; cli_path 0 or 4 int8 and no resunit or rvq; fused_path 8
+resunit and 1 rvq; mxu_rate_path 24 dot_chain (6 cases, one warm-up and 3
+timed calls each); ablate_path 7 mma and 84 ablate (7 calls of each of the
+five variants and of the autoencoder units with bf16 dots, and 7 of the
+default variant at each of 7 timed shapes); folded_probe_path per dtype
+60 mma, 160 wide, 220 int8 and 220 int8_tile (11 (C, fold) cases, 3 of
+them at C = 32, each mode 20 calls: the error, a warm-up and 3 x 6 timed).
+The true-f32 golden phases count too: golden_parity 4 autoencoder (the
+FMA kernel) and 2 mma, voc_golden only vocoder (the FMA kernel).  In the
+`kernels` line, `launches` is the count from the run of the path that
+brought the kernel in (the tensor-core kernel's autoencoder units:
+main_path; its vocoder units: ad_v1_path; its other shapes, which no path
+runs: mma_kernel_vs_plain; the FMA kernels: golden_parity and voc_golden,
+the true-f32 runs; int8 mode: int8_path; the archived stack and the RVQ
 encode: fused_path; the dot chain: mxu_rate_path; the ablation stack:
 ablate_path; the tile mode and the wide autoencoder route:
 folded_probe_path, both dtypes), `launches_by_path` the counts of every
-path,
-and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`, `chain_ms`
-and `bound_ms` add up that path's launches at their shapes (autoencoder:
-one f32 stack in the encoder and one bf16 stack in the decoder, both
-(16, 32, 480000); vocoder: the three groups' resblocks of the last stage,
-(16, 32, 480000) bf16; int8: the four decoder stacks, (16, C, T) f32 at
+path, and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`,
+`chain_ms` and `bound_ms` add up that path's launches at their shapes
+(the tensor-core kernel's autoencoder units: one f32 stack in the encoder
+and one bf16 stack in the decoder, both (16, 32, 480000), each row with
+the FMA kernel's bf16-operand `fma_ms` beside it; its vocoder units: the
+three groups' resblocks of the last stage, (16, 32, 480000) bf16, with
+`fma_ms`; its other shapes: ELU k = 5 and LeakyReLU k = k2 = 5 with
+biases at (16, 32, 480000) bf16; the FMA kernels: the autoencoder units
+and the vocoder units at k = 11 in true f32 at (16, 32, 480000), bound at
+the f32 FMA peak; int8: the four decoder stacks, (16, C, T) f32 at
 C = 256/128/64/32 and T = 8000/40000/160000/480000; archived stack: the
 eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
 (16, 1600, 64) with 8 x 1024 codes; dot chain: one call of each of the
@@ -205,7 +233,8 @@ DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
 KERNELS = ("folded_stack", "resblock_stack", "int8_stack", "resunit_stack",
-           "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack")
+           "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack",
+           "folded_stack_mma")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
 # true f32: only the order of the sums differs (tests/test_folded_stack.py
@@ -263,6 +292,31 @@ ABLATE_TIMED = ((32, 480000, torch.bfloat16),
 # f32 ulp now and then moves an operand across a bf16 rounding boundary
 # (3.9e-3 relative) and the next product carries it on
 WIDE_RL2, WIDE_MAX_REL = 1e-3, 1e-2
+# slice 8.  csrc/folded_stack_mma.cu (bf16 operands) against the plain
+# version and against the same function with exact sums
+# (folded_residual_stack_plain(exact_sums=True)), both in relative L2 within
+# B4's bar: MMA_RL2, or ABLATE_FLOOR_FACTOR times the plain version's own
+# distance from exact sums where that is larger (the rule of B4's wide
+# cases).  At C <= 32 that raises the bar where the plain version (cuDNN's
+# f32 sums) is more than 3.3e-4 from exact sums: the LeakyReLU units at k >= 5 in bf16
+# storage, up to 7.1e-4 at k = 11, where the kernel is at most 5.0e-4 from
+# exact sums and 7.7e-4 from the plain version (PERF.md §6); max error below
+# BF16_REL of the peak.  A case shorter than the stack's halo holds a few
+# thousand outputs, where a handful of bf16 flips moves its relative L2 by
+# up to 1e-3 (0 in most short cases here, 1.07e-3 in one): its
+# relative L2 bar applies to the phase's short cases pooled (one relative
+# L2 over all their outputs), and each keeps its own max-error bar
+MMA_RL2 = 5e-4
+# the unit shapes no shipped config uses: (act, k, k2, biases, dilations)
+MMA_OTHER_SHAPES = {
+    "elu k=5": ("elu", 5, 1, False, (1, 3, 9)),
+    "elu, four units": ("elu", 7, 1, False, (1, 3, 9, 27)),
+    "elu k=k2=3, biases": ("elu", 3, 3, True, (1, 3, 5)),
+    "leaky_relu k=k2=5, biases": ("leaky_relu", 5, 5, True, (1, 3, 5)),
+}
+# the tensor-core kernel's launch counts, by unit shape
+MMA_COUNTERS = {"autoencoder": "mma", "vocoder": "mma_voc",
+                "other": "mma_other"}
 # RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T))
 RVQ_SHAPES = (((4, 32, 16), (2, 10)), ((8, 1024, 64), (1, 300)),
               ((2, 16, 8), (1, 3)))
@@ -338,13 +392,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def chain(x, units):
-    """The yardstick: the same units as plain ELU / F.conv1d calls in the
-    working dtype, with no rounding emulation."""
+def chain(x, units, dilations=DILATIONS, act="elu", slope=0.0, biases=None):
+    """The yardstick: the same units as plain activation / F.conv1d calls
+    in the working dtype, with no rounding emulation."""
+    fn = F.elu if act == "elu" else (lambda v: F.leaky_relu(v, slope))
     v = x
-    for (w1, w2), d in zip(units, DILATIONS):
-        y = F.conv1d(F.pad(F.elu(v), (6 * d, 0)), w1, dilation=d)
-        v = v + F.conv1d(F.elu(y), w2)
+    for j, ((w1, w2), d) in enumerate(zip(units, dilations)):
+        b1, b2 = biases[j] if biases is not None else (None, None)
+        y = F.conv1d(F.pad(fn(v), ((w1.shape[-1] - 1) * d, 0)), w1, b1,
+                     dilation=d)
+        v = v + F.conv1d(F.pad(fn(y), (w2.shape[-1] - 1, 0)), w2, b2)
     return v
 
 
@@ -367,60 +424,158 @@ def check_close(out, ref, x, bf16_dots: bool):
     return err, err / scale
 
 
-def check_kernel(x, units, bf16_dots: bool):
-    """Autoencoder-mode kernel vs plain version on the same inputs."""
-    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
-                                             bf16_dots=bf16_dots)
-    ref = folded_stack.folded_residual_stack_plain(x, units, DILATIONS,
-                                                   bf16_dots)
-    return check_close(out, ref, x, bf16_dots)
+def plain_of(x, units, kw, exact_sums=False):
+    """The plain version of a wrapper call's keyword arguments."""
+    return folded_stack.folded_residual_stack_plain(
+        x, units, kw.get("dilations", DILATIONS), kw.get("bf16_dots", True),
+        act=kw.get("act", "elu"), act_param=kw.get("act_param", 0.0),
+        biases=kw.get("biases"), exact_sums=exact_sums)
 
 
-def check_voc_kernel(x, units, biases, k: int, bf16_dots: bool):
-    """Vocoder-mode kernel vs plain version on the same inputs."""
-    out = folded_stack.folded_residual_stack(
-        x, units, dilations=VOC_DILATIONS, kernel_size=k, kernel_size2=k,
-        act="leaky_relu", act_param=VOC_SLOPE, biases=biases,
-        bf16_dots=bf16_dots)
-    ref = folded_stack.folded_residual_stack_plain(
-        x, units, VOC_DILATIONS, bf16_dots, act="leaky_relu",
-        act_param=VOC_SLOPE, biases=biases)
-    return check_close(out, ref, x, bf16_dots)
+def sq(a, b=None) -> float:
+    """The squared L2 norm of a (or of a - b), in f64."""
+    a = a.double() if b is None else a.double() - b.double()
+    return float((a * a).sum())
 
 
-def random_units(c: int, device, dtype, gen):
-    """Seeded unit weights at width C, scaled to keep the stack's outputs
-    near unit size."""
-    return tuple((torch.randn(c, c, 7, generator=gen, device=device)
-                  .div((7 * c) ** 0.5).to(dtype),
-                  torch.randn(c, c, 1, generator=gen, device=device)
-                  .div(c ** 0.5).to(dtype)) for _ in DILATIONS)
+def mma_bars(sums: dict) -> dict:
+    """The relative L2s of squared sums (check_mma) and their bar: within
+    the larger of MMA_RL2 and ABLATE_FLOOR_FACTOR times the plain version's
+    own distance from exact sums, of the plain version and of the exact
+    sums."""
+    rec = {"rel_l2": (sums["d_plain"] / sums["plain"]) ** 0.5,
+           "exact_rl2": (sums["d_exact"] / sums["exact"]) ** 0.5,
+           "plain_exact_rl2": (sums["d_plain_exact"] / sums["exact"]) ** 0.5}
+    rec["bar_rl2"] = max(MMA_RL2, ABLATE_FLOOR_FACTOR
+                         * rec["plain_exact_rl2"])
+    rec["passed"] = max(rec["exact_rl2"], rec["rel_l2"]) <= rec["bar_rl2"]
+    return rec
 
 
-def random_resblock(c: int, k: int, device, dtype, gen, bias=True):
-    """Seeded vocoder-mode units at width C and K taps, scaled to keep the
+def check_pool(pool: list) -> dict:
+    """The relative L2 bar on a phase's short cases pooled (MMA_RL2)."""
+    if not pool:
+        return {"cases": 0}
+    rec = mma_bars({k: sum(p[k] for p in pool) for k in pool[0]})
+    if not rec["passed"]:
+        raise AssertionError(f"tensor-core kernel, the {len(pool)} cases "
+                             f"shorter than the halo pooled: {rec}")
+    return {"cases": len(pool), **rec}
+
+
+def check_mma(x, units, pool: list | None = None, **kw) -> dict:
+    """csrc/folded_stack_mma.cu through the stack's wrapper (bf16 operands:
+    bf16_dots or bf16 storage) against its plain version and against the
+    same function with exact sums: the relative L2 bar of mma_bars and a
+    max error within BF16_REL of the peak.  A case shorter than the halo
+    adds its squared sums to `pool` for check_pool instead of meeting the
+    relative L2 bar alone (MMA_RL2).  The call must launch the kernel
+    once, counted by its unit shape."""
+    counter = MMA_COUNTERS[folded_stack._mode(
+        kw.get("kernel_size", 7), kw.get("kernel_size2", 1),
+        kw.get("act", "elu"), kw.get("biases"), False)]
+    before = read_launches()[counter]
+    out = folded_stack.folded_residual_stack(x, units, **kw)
+    torch.cuda.synchronize()
+    if read_launches()[counter] != before + 1:
+        raise AssertionError(f"{counter}: the tensor-core kernel was not "
+                             f"launched")
+    if out.dtype != x.dtype or out.shape != x.shape:
+        raise AssertionError(f"tensor-core kernel gave {out.dtype} "
+                             f"{tuple(out.shape)}")
+    ref = plain_of(x, units, kw)
+    exact = plain_of(x, units, kw, exact_sums=True)
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        raise AssertionError("tensor-core kernel output is not finite")
+    if torch.equal(o, x.float()):
+        raise AssertionError("tensor-core kernel returned its input")
+    err, peak = float((o - r).abs().max()), float(r.abs().max())
+    sums = {"d_plain": sq(out, ref), "plain": sq(ref),
+            "d_exact": sq(out, exact), "exact": sq(exact),
+            "d_plain_exact": sq(ref, exact)}
+    rec = {**mma_bars(sums), "max_abs_err": err, "max_rel_err": err / peak}
+    halo = sum((kw.get("kernel_size", 7) - 1) * d + kw.get("kernel_size2", 1)
+               - 1 for d in kw.get("dilations", DILATIONS))
+    if x.shape[-1] < halo:
+        if pool is None:
+            raise ValueError("a case shorter than the halo needs a pool")
+        pool.append(sums)
+        rec["pooled"] = True
+    elif not rec["passed"]:
+        raise AssertionError(f"tensor-core kernel at {tuple(x.shape)} "
+                             f"{x.dtype} {kw}: {rec}")
+    if not err < BF16_REL * peak:
+        raise AssertionError(f"tensor-core kernel at {tuple(x.shape)} "
+                             f"{x.dtype} {kw}: max error {err / peak:.3g} "
+                             f"of the peak")
+    return rec
+
+
+def check_fma(x, units, **kw) -> dict:
+    """The FMA kernels (`folded_stack._fma_stack`) against the plain
+    version: in true f32 the route the stack takes, to the f32 tolerance;
+    with bf16 operands reached only here, within BF16_REL of the peak."""
+    bf16_dots = kw.get("bf16_dots", True)
+    before = read_launches()
+    if bf16_dots or x.dtype == torch.bfloat16:
+        out = folded_stack._fma_stack(x, units, **kw)
+    else:
+        out = folded_stack.folded_residual_stack(x, units, **kw)
+    launched = {k: n - before[k] for k, n in read_launches().items()
+                if n != before[k]}
+    if launched not in ({"autoencoder": 1}, {"vocoder": 1}):
+        raise AssertionError(f"the FMA kernel was not launched: {launched}")
+    err, rel = check_close(out, plain_of(x, units, kw), x, bf16_dots)
+    return {"max_abs_err": err, "max_rel_err": rel}
+
+
+def check_stack(x, units, bf16_dots: bool, pool=None, **kw) -> dict:
+    """Units of any shape (kw: the wrapper's keyword arguments): with bf16
+    operands the tensor-core kernel (check_mma) and beside it the FMA
+    kernel's bf16-operand mode; in true f32 the FMA kernel."""
+    if bf16_dots or x.dtype == torch.bfloat16:
+        rec = check_mma(x, units, pool, bf16_dots=bf16_dots, **kw)
+        fma = check_fma(x, units, bf16_dots=bf16_dots, **kw)
+        return {"kernel": "mma", **rec,
+                **{f"fma_{key}": v for key, v in fma.items()}}
+    return {"kernel": "fma", **check_fma(x, units, bf16_dots=False, **kw)}
+
+
+def shape_units(c, act, k, k2, bias, dilations, device, dtype, gen):
+    """Seeded units of any shape at width C, scaled to keep the stack's
     outputs near unit size, with biases large enough that a fault in the
-    masking before t=0 shows."""
+    masking before t=0 shows; and the wrapper's keyword arguments for
+    them."""
     units = tuple((torch.randn(c, c, k, generator=gen, device=device)
                    .div((k * c) ** 0.5).to(dtype),
-                   torch.randn(c, c, k, generator=gen, device=device)
-                   .div((k * c) ** 0.5).to(dtype)) for _ in VOC_DILATIONS)
+                   torch.randn(c, c, k2, generator=gen, device=device)
+                   .div((k2 * c) ** 0.5).to(dtype)) for _ in dilations)
     biases = (tuple((0.5 * torch.randn(c, generator=gen, device=device)
                      .to(dtype),
                      0.5 * torch.randn(c, generator=gen, device=device)
-                     .to(dtype)) for _ in VOC_DILATIONS) if bias else None)
-    return units, biases
+                     .to(dtype)) for _ in dilations) if bias else None)
+    return units, dict(dilations=dilations, kernel_size=k, kernel_size2=k2,
+                       act=act, act_param=VOC_SLOPE, biases=biases)
+
+
+def random_units(c: int, device, dtype, gen):
+    """Seeded autoencoder units (ELU, k = 7, 1x1) at width C."""
+    return shape_units(c, "elu", 7, 1, False, DILATIONS, device, dtype,
+                       gen)[0]
 
 
 def phase_kernel_vs_plain(params, device):
-    """C=32 with the golden weights at the main path's length, one more and
-    one shorter than the halo; C = 4, 8, 16 and 12 (padded to 16) with
-    random weights, so every width the kernel is built for runs."""
+    """The autoencoder units: C=32 with the golden weights at the main
+    path's length, one more and one shorter than the halo; C = 4, 8, 16 and
+    12 (padded to 16) with random weights, so every width the kernels are
+    built for runs; with bf16 operands the tensor-core kernel and the FMA
+    kernel's bf16-operand mode, in true f32 the FMA kernel."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = ([(32, t) for t in (48000, 48001, 50)]
               + [(c, t) for c in (4, 8, 16, 12) for t in (1920, 50)])
-    cases = []
+    cases, pool = [], []
     for c, t in shapes:
         for storage in (torch.float32, torch.bfloat16):
             if c == 32:
@@ -431,51 +586,161 @@ def phase_kernel_vs_plain(params, device):
                 units = random_units(c, device, storage, gen)
             x = torch.randn(2, c, t, generator=gen, device=device)
             for bf16_dots in (True, False):
-                err, rel = check_kernel(x.to(storage), units, bf16_dots)
                 cases.append({"C": c, "T": t, "storage": str(storage)[6:],
-                              "bf16_dots": bf16_dots, "max_abs_err": err,
-                              "max_rel_err": rel})
-    emit("kernel_vs_plain", t0, cases=cases)
+                              "bf16_dots": bf16_dots,
+                              **check_stack(x.to(storage), units,
+                                            bf16_dots, pool)})
+    emit("kernel_vs_plain", t0, tolerance=mma_tolerance(),
+         short_cases_pooled=check_pool(pool), cases=cases)
+
+
+def mma_tolerance() -> dict:
+    return {"f32 (FMA kernels)": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x "
+                                 f"peak",
+            "bf16 operands (tensor-core kernel)":
+                f"rel_l2 and exact_rl2 <= bar_rl2 = max({MMA_RL2}, "
+                f"{ABLATE_FLOOR_FACTOR} x plain_exact_rl2), per case, or "
+                f"over the cases shorter than the halo pooled; max error < "
+                f"{BF16_REL} x peak per case",
+            "bf16 operands (FMA kernels, fma_*)":
+                f"max error < {BF16_REL} x peak"}
 
 
 def phase_voc_kernel_vs_plain(device):
-    """The vocoder-mode kernel against its plain version: K = 3, 7, 11 (the
-    v2, v1-style and v0 sizes, K2 = K), every built width (C = 4, 8, 16, 32
-    and 12 padded to 16), T = 1920 and 50 (shorter than the halo), both
-    storage dtypes and both bf16_dots, with biases; without biases at K=11,
-    C=32; and once at the AD v1 path's shape (16, 32, 480000) in bf16."""
+    """The vocoder units against their plain version, as
+    phase_kernel_vs_plain: K = 3, 7, 11 (the v2, v1-style and v0 sizes,
+    K2 = K), every built width (C = 4, 8, 16, 32 and 12 padded to 16),
+    T = 1920 and 50 (shorter than the halo), both storage dtypes and both
+    bf16_dots, with biases; without biases at K=11, C=32; and once at the
+    AD v1 path's shape (16, 32, 480000) in bf16."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     shapes = [(k, c, t, True) for k in (3, 7, 11) for c in (4, 8, 16, 32, 12)
               for t in (1920, 50)] + [(11, 32, 1920, False)]
-    cases = []
+    cases, pool = [], []
     for k, c, t, bias in shapes:
         for storage in (torch.float32, torch.bfloat16):
-            units, biases = random_resblock(c, k, device, storage, gen, bias)
+            units, kw = shape_units(c, "leaky_relu", k, k, bias,
+                                    VOC_DILATIONS, device, storage, gen)
             x = torch.randn(2, c, t, generator=gen, device=device)
             for bf16_dots in (True, False):
-                err, rel = check_voc_kernel(x.to(storage), units, biases, k,
-                                            bf16_dots)
                 cases.append({"K": k, "C": c, "T": t, "biases": bias,
                               "storage": str(storage)[6:],
-                              "bf16_dots": bf16_dots, "max_abs_err": err,
-                              "max_rel_err": rel})
-    units, biases = random_resblock(32, 11, device, torch.bfloat16, gen)
+                              "bf16_dots": bf16_dots,
+                              **check_stack(x.to(storage), units, bf16_dots,
+                                            pool, **kw)})
+    units, kw = shape_units(32, "leaky_relu", 11, 11, True, VOC_DILATIONS,
+                            device, torch.bfloat16, gen)
     x = torch.randn(BATCH, 32, SECONDS * SR, generator=gen,
                     device=device).to(torch.bfloat16)
-    err, rel = check_voc_kernel(x, units, biases, 11, True)
     cases.append({"K": 11, "C": 32, "T": SECONDS * SR, "B": BATCH,
                   "biases": True, "storage": "bfloat16", "bf16_dots": True,
-                  "max_abs_err": err, "max_rel_err": rel})
-    emit("voc_kernel_vs_plain", t0, tolerance={
-        "f32": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak",
-        "bf16": f"max error < {BF16_REL} x peak"}, cases=cases)
+                  **check_stack(x, units, True, **kw)})
+    emit("voc_kernel_vs_plain", t0, tolerance=mma_tolerance(),
+         short_cases_pooled=check_pool(pool), cases=cases)
+
+
+def phase_mma_kernel_vs_plain(params, device):
+    """csrc/folded_stack_mma.cu against its plain version (check_mma), bf16
+    operands: the autoencoder units and the vocoder units at k = 11 with
+    biases, C = 4, 8, 12, 16, 32 and T = 1920, 50 (shorter than the halo),
+    48001, B = 2; the autoencoder units with the golden's weights at C = 32
+    (encoder block 0 in f32, decoder block 3 in bf16 storage); the vocoder
+    units at k = 3, 7, 11 with and without biases; the unit shapes no
+    shipped config uses (MMA_OTHER_SHAPES) at C = 8 and 32; each of these
+    in f32 and bf16 storage; and at full size (16, 32, 480000) the
+    autoencoder units in f32 and bf16 and the vocoder units in bf16.
+    Returns the launch counts of the phase and the `kernels` line's rows of
+    the other shapes: two of them timed at full size in bf16."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    storages = (torch.float32, torch.bfloat16)
+    reset_launches()
+    cases, pool = [], []
+
+    def case(x, units, kw, **fields):
+        cases.append({**fields, "shape": list(x.shape),
+                      "storage": str(x.dtype)[6:],
+                      **check_mma(x, units, pool, **kw)})
+
+    for c in (4, 8, 12, 16, 32):
+        for t in (1920, 50, 48001):
+            for dtype in storages:
+                x = torch.randn(2, c, t, generator=gen,
+                                device=device).to(dtype)
+                case(x, random_units(c, device, dtype, gen), {},
+                     stack="autoencoder")
+                units, kw = shape_units(c, "leaky_relu", 11, 11, True,
+                                        VOC_DILATIONS, device, dtype, gen)
+                case(x, units, kw, stack="vocoder k=11")
+    for dtype, where in ((torch.float32, "encoder"),
+                         (torch.bfloat16, "decoder")):
+        x = torch.randn(2, 32, 48000, generator=gen, device=device).to(dtype)
+        case(x, stack_units(params, where, device, dtype), {},
+             stack=f"autoencoder, golden {where}")
+    for k in (3, 7, 11):
+        for bias in (True, False):
+            for dtype in storages:
+                units, kw = shape_units(32, "leaky_relu", k, k, bias,
+                                        VOC_DILATIONS, device, dtype, gen)
+                x = torch.randn(2, 32, 4801, generator=gen,
+                                device=device).to(dtype)
+                case(x, units, kw, stack=f"vocoder k={k}", biases=bias)
+    for name, (act, k, k2, bias, dil) in MMA_OTHER_SHAPES.items():
+        for c, t in ((8, 1920), (32, 4801)):
+            for dtype in storages:
+                units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                        dtype, gen)
+                x = torch.randn(2, c, t, generator=gen,
+                                device=device).to(dtype)
+                case(x, units, kw, stack=name)
+    b, c, t = BATCH, 32, SECONDS * SR
+    for dtype, where in ((torch.float32, "encoder"),
+                         (torch.bfloat16, "decoder")):
+        x = torch.randn(b, c, t, generator=gen, device=device).to(dtype)
+        case(x, stack_units(params, where, device, dtype), {},
+             stack=f"autoencoder, golden {where}")
+    x = torch.randn(b, c, t, generator=gen, device=device) \
+        .to(torch.bfloat16)
+    units, kw = shape_units(c, "leaky_relu", 11, 11, True, VOC_DILATIONS,
+                            device, torch.bfloat16, gen)
+    case(x, units, kw, stack="vocoder k=11")
+    rows = []
+    for name in ("elu k=5", "leaky_relu k=k2=5, biases"):
+        act, k, k2, bias, dil = MMA_OTHER_SHAPES[name]
+        units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                torch.bfloat16, gen)
+        row = {"units": name, "shape": [b, c, t], "dtype": "bfloat16",
+               **check_mma(x, units, **kw),
+               "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                   x, units, **kw), reps=5),
+               "plain_ms": cuda_ms(lambda: plain_of(x, units, kw), reps=2),
+               "chain_ms": cuda_ms(lambda: chain(
+                   x, units, dil, act, VOC_SLOPE, kw["biases"]), reps=3)}
+        row.update(kernel_bounds.mma_stack(b, t, c, k=k, k2=k2,
+                                           storage=2, bias=bias,
+                                           units=len(dil)))
+        rows.append(row)
+    del x
+    launches = read_launches()
+    emit("mma_kernel_vs_plain", t0, tolerance=mma_tolerance(),
+         short_cases_pooled=check_pool(pool), launches=launches, cases=cases,
+         other_shape_rows=rows)
+    return launches, rows
 
 
 def phase_golden(device):
+    """The symAD goldens through BatchTranscoder(stack="folded"): in true
+    f32 (the FMA kernels) the golden indices with 0 flips and y within
+    rtol 1e-3, atol 1e-4; with bf16 operands (the tensor-core kernel) the
+    encode's index flips, 0 on gen_symad, and on gen_symad_trained beside
+    the flips of the same encode through the plain version.  Returns the
+    launch counts of the phase: 2 FMA launches per true-f32 transcode and
+    1 tensor-core launch per bf16-operand encode."""
     t0 = time.perf_counter()
     cfg = GeneratorConfig()
     results = {}
+    reset_launches()
     for name in ("gen_symad", "gen_symad_trained"):
         data, params = load_golden(name)
         x = data["x"].transpose(0, 2, 1)
@@ -496,15 +761,37 @@ def phase_golden(device):
             raise AssertionError(f"{flips} index flips with bf16 operands")
         results[name] = {"f32_index_flips": 0, "bf16_dots_index_flips": flips,
                          "frames": int(data["idx_stream"].shape[1])}
-    emit("golden_parity", t0, goldens=results)
+        if name == "gen_symad_trained":
+            kernel_stack = fast.folded_residual_stack
+            fast.folded_residual_stack = (
+                lambda x, units, **kw: plain_of(x, units, kw))
+            try:
+                idx_p = BatchTranscoder(params, cfg, stack="folded",
+                                        device=device).encode(x)
+            finally:
+                fast.folded_residual_stack = kernel_stack
+            results[name]["plain_bf16_dots_index_flips"] = int(
+                (idx_p[0].cpu().numpy().T + flat
+                 != data["idx_stream"]).sum())
+            moved = (idx16 != idx_p).nonzero().tolist()
+            results[name]["kernel_vs_plain_moved"] = moved[:64]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != launch_counts(autoencoder=4, mma=2):
+        raise AssertionError(f"kernel launches {launches}, expected 4 "
+                             f"FMA (autoencoder units) and 2 tensor-core")
+    emit("golden_parity", t0, goldens=results, launches=launches)
+    return launches
 
 
 def phase_voc_golden(device):
     """vocoder_apply_folded on the card in true f32 against the reference's
     batch `y` (rtol 1e-3, atol 1e-5, tests/test_vocoder_parity.py:56,85);
-    the trained golden's biases exercise the masking before t=0."""
+    the trained golden's biases exercise the masking before t=0.  Returns
+    the launch counts of the phase, all of csrc/resblock_stack.cu."""
     t0 = time.perf_counter()
     results = {}
+    reset_launches()
     for name, kw in VOC_GOLDENS.items():
         data = np.load(GOLDEN / f"{name}.npz")
         sd = {k[len("sd__"):]: data[k] for k in data.files
@@ -514,10 +801,10 @@ def phase_voc_golden(device):
                      vocoder_params_from_reference_sd(sd, cfg))
         c = data["zq"] if "zq" in data.files else data["c"]
         c = torch.from_numpy(c.transpose(0, 2, 1)).to(device)
-        folded_stack.resblock_launches = 0
+        before = folded_stack.resblock_launches
         y = fast.vocoder_apply_folded(p, c, cfg, bf16_dots=False)
         torch.cuda.synchronize()
-        launches = folded_stack.resblock_launches
+        launches = folded_stack.resblock_launches - before
         if launches == 0:
             raise AssertionError(f"{name}: no vocoder-mode kernel launch")
         y = y.cpu().numpy().transpose(0, 2, 1)
@@ -525,53 +812,42 @@ def phase_voc_golden(device):
         results[name] = {"samples": int(data["y"].shape[-1]),
                          "max_abs_err": float(np.abs(y - data["y"]).max()),
                          "resblock_launches": launches}
-    emit("voc_golden", t0, goldens=results)
-
-
-def bound(x, tensors, flop: float) -> dict:
-    """Least time for one launch (bin/kernel_bounds.py): each input read
-    once, each output written once, against the dots' FLOP on the bf16
-    tensor cores."""
-    nbytes = (2 * x.numel() * x.element_size()
-              + sum(w.numel() * w.element_size() for w in tensors))
-    return bound_ms(nbytes, flop, "bf16")
+    launches = read_launches()
+    if launches != launch_counts(vocoder=launches["vocoder"]):
+        raise AssertionError(f"kernel launches {launches}: a true-f32 "
+                             f"vocoder took another kernel")
+    emit("voc_golden", t0, goldens=results, launches=launches)
+    return launches
 
 
 def kernel_timing(params, device, dtype, gen):
-    """Kernel, plain and chain ms and the bound at (16, 32, 480000)."""
+    """The autoencoder units at (16, 32, 480000) with the golden's weights
+    as the main path runs them (bf16 operands): the tensor-core kernel's
+    ms, beside it the FMA kernel's bf16-operand mode, the plain version and
+    the chain, and the bound."""
     b, c, t = BATCH, 32, SECONDS * SR
     units = stack_units(params, "encoder" if dtype == torch.float32
                         else "decoder", device, dtype)
     x = torch.randn(b, c, t, generator=gen, device=device).to(dtype)
-    err, _ = check_kernel(x, units, bf16_dots=True)
     row = {
-        "shape": [b, c, t], "dtype": str(dtype)[6:], "max_abs_err": err,
+        "shape": [b, c, t], "dtype": str(dtype)[6:],
+        **check_stack(x, units, bf16_dots=True),
         "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(x, units),
                       reps=5),
+        "fma_ms": cuda_ms(lambda: folded_stack._fma_stack(x, units),
+                          reps=3),
         "plain_ms": cuda_ms(lambda: folded_stack.folded_residual_stack_plain(
             x, units, DILATIONS), reps=3),
         "chain_ms": cuda_ms(lambda: chain(x, units), reps=3),
     }
-    flop = len(units) * (7 + 1) * c * c * 2 * b * t
-    row.update(bound(x, [w for u in units for w in u], flop))
+    row.update(kernel_bounds.mma_stack(b, t, c, storage=x.element_size()))
     return row
 
 
-def voc_chain(x, units, biases, slope):
-    """The yardstick: the same units as plain LeakyReLU / F.conv1d calls in
-    the working dtype, with no rounding emulation."""
-    v = x
-    for (w1, w2), (b1, b2), d in zip(units, biases, VOC_DILATIONS):
-        k = w1.shape[-1]
-        y = F.conv1d(F.pad(F.leaky_relu(v, slope), ((k - 1) * d, 0)), w1, b1,
-                     dilation=d)
-        v = v + F.conv1d(F.pad(F.leaky_relu(y, slope), (k - 1, 0)), w2, b2)
-    return v
-
-
 def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
-    """Per group of the AD v1 path's last stage: the vocoder-mode kernel's,
-    plain and chain ms and the bound at (16, 32, 480000) bf16."""
+    """Per group of the AD v1 path's last stage at (16, 32, 480000) bf16:
+    the tensor-core kernel's ms, beside it the FMA kernel's, the plain
+    version's and the chain's, and the bound."""
     c = cfg.stage_channels(len(cfg.upsample_scales) - 1)
     b, t = BATCH, SECONDS * SR
     k = cfg.resblock_kernel_sizes[0]
@@ -581,32 +857,61 @@ def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
     rows = []
     for g in range(cfg.groups):
         units, biases = fast._voc_resblock_params(group_params(p_block, g, c))
-
-        def kernel():
-            return folded_stack.folded_residual_stack(
-                x, units, dilations=dil, kernel_size=k, kernel_size2=k,
-                act="leaky_relu", act_param=slope, biases=biases)
-
-        def plain():
-            return folded_stack.folded_residual_stack_plain(
-                x, units, dil, True, act="leaky_relu", act_param=slope,
-                biases=biases)
-
-        err, _ = check_close(kernel(), plain(), x, True)
+        kw = dict(dilations=dil, kernel_size=k, kernel_size2=k,
+                  act="leaky_relu", act_param=slope, biases=biases)
         row = {"group": g, "shape": [b, c, t], "dtype": "bfloat16",
-               "max_abs_err": err, "ms": cuda_ms(kernel, reps=3),
-               "plain_ms": cuda_ms(plain, reps=2),
-               "chain_ms": cuda_ms(lambda: voc_chain(x, units, biases, slope),
-                                   reps=2)}
-        flop = len(units) * (k + k) * c * c * 2 * b * t
-        row.update(bound(x, [w for u in units for w in u]
-                         + [bb for u in biases for bb in u], flop))
+               **check_mma(x, units, **kw),
+               "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                   x, units, **kw), reps=5),
+               "fma_ms": cuda_ms(lambda: folded_stack._fma_stack(
+                   x, units, **kw), reps=2),
+               "plain_ms": cuda_ms(lambda: plain_of(x, units, kw), reps=2),
+               "chain_ms": cuda_ms(lambda: chain(x, units, dil, "leaky_relu",
+                                                 slope, biases), reps=2)}
+        row.update(kernel_bounds.mma_stack(b, t, c, k=k, k2=k, storage=2,
+                                           bias=biases is not None,
+                                           units=len(dil)))
         rows.append(row)
     return rows
 
 
+def fma_timing(params, device, gen):
+    """The FMA kernels in true f32, the route the stack takes there, at
+    (16, 32, 480000) f32: the autoencoder units with the golden's encoder
+    weights (csrc/folded_stack.cu) and the vocoder units at k = 11 with
+    seeded weights and biases (csrc/resblock_stack.cu), each with the
+    plain version's and the chain's ms and the bound at the f32 FMA peak;
+    rows by counter."""
+    b, c, t = BATCH, 32, SECONDS * SR
+    x = torch.randn(b, c, t, generator=gen, device=device)
+    ae = stack_units(params, "encoder", device, torch.float32)
+    voc, voc_kw = shape_units(c, "leaky_relu", 11, 11, True, VOC_DILATIONS,
+                              device, torch.float32, gen)
+    rows = {}
+    for counter, units, kw in (("autoencoder", ae, {}),
+                               ("vocoder", voc, voc_kw)):
+        kw = {"dilations": DILATIONS, **kw, "bf16_dots": False}
+        k, k2 = kw.get("kernel_size", 7), kw.get("kernel_size2", 1)
+        row = {"units": counter, "shape": [b, c, t], "dtype": "float32",
+               "bf16_dots": False, **check_fma(x, units, **kw),
+               "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                   x, units, **kw), reps=3),
+               "plain_ms": cuda_ms(lambda: plain_of(x, units, kw), reps=2),
+               "chain_ms": cuda_ms(lambda: chain(
+                   x, units, kw["dilations"], kw.get("act", "elu"),
+                   VOC_SLOPE, kw.get("biases")), reps=2)}
+        row.update(kernel_bounds.residual_stack(
+            b, t, c, k=k, k2=k2, storage=4, weight=4, peak="f32",
+            bias=kw.get("biases") is not None))
+        rows[counter] = [row]
+    return rows
+
+
 def read_launches() -> dict:
-    return {"autoencoder": folded_stack.launches,
+    return {"mma": folded_stack.mma_launches,
+            "mma_voc": folded_stack.mma_voc_launches,
+            "mma_other": folded_stack.mma_other_launches,
+            "autoencoder": folded_stack.launches,
             "vocoder": folded_stack.resblock_launches,
             "int8": folded_stack.int8_launches,
             "resunit": resunit_kernel.launches,
@@ -626,6 +931,8 @@ def launch_counts(**nonzero) -> dict:
 
 
 def reset_launches():
+    folded_stack.mma_launches = folded_stack.mma_voc_launches = 0
+    folded_stack.mma_other_launches = 0
     folded_stack.launches = folded_stack.resblock_launches = 0
     folded_stack.int8_launches = folded_stack.int8_tile_launches = 0
     folded_stack.wide_launches = 0
@@ -669,9 +976,10 @@ def phase_main_path(device):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(autoencoder=2):
-        raise AssertionError(f"kernel launches {launches}, expected 2 "
-                             f"autoencoder-mode and no other")
+    if launches != launch_counts(mma=2):
+        raise AssertionError(f"kernel launches {launches}, expected 2 of "
+                             f"the tensor-core kernel (autoencoder units) "
+                             f"and no other")
     check_transcode(idx, y, x, cfg)
 
     times = time_transcoder(tc, x, idx)
@@ -700,10 +1008,10 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(autoencoder=1, vocoder=3):
-        raise AssertionError(f"kernel launches {launches}, expected 1 "
-                             f"autoencoder-mode, 3 vocoder-mode and no "
-                             f"int8-mode")
+    if launches != launch_counts(mma=1, mma_voc=3):
+        raise AssertionError(f"kernel launches {launches}, expected 4 of "
+                             f"the tensor-core kernel (1 autoencoder and 3 "
+                             f"vocoder units) and no other")
     check_transcode(idx, y, x, cfg)
     if not torch.equal(idx, idx_symad):
         raise AssertionError("the AD v1 path's indices differ from the "
@@ -975,9 +1283,10 @@ def phase_int8_path(device, params, x, idx_main):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(autoencoder=1, int8=4):
-        raise AssertionError(f"kernel launches {launches}, expected 1 "
-                             f"autoencoder-mode and 4 int8-mode")
+    if launches != launch_counts(mma=1, int8=4):
+        raise AssertionError(f"kernel launches {launches}, expected 1 of "
+                             f"the tensor-core kernel (autoencoder units) "
+                             f"and 4 int8-mode")
     check_transcode(idx, y, x, cfg)
     if not torch.equal(idx, idx_main):
         raise AssertionError("the int8 path's indices differ from the main "
@@ -1588,7 +1897,7 @@ def phase_ablate_path(rows, device):
     torch.cuda.synchronize()
     launches = read_launches()
     calls = 1 + folded_ablate.ITERS
-    want = launch_counts(autoencoder=calls,
+    want = launch_counts(mma=calls,
                          ablate=(len(probe) + len(ABLATE_TIMED)) * calls)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
@@ -1608,12 +1917,12 @@ def phase_ablate_path(rows, device):
 def probe_launches(shapes) -> dict:
     """The wrapper calls bin/folded_probe.py's main makes with --int8: per
     (C, T, fold) and mode one call for the error, one warm-up and LOOPS x
-    ITERS timed; the autoencoder mode at C <= 32 in csrc/folded_stack.cu,
-    above in csrc/resunit_stack.cu."""
+    ITERS timed; the autoencoder mode at C <= 32 in
+    csrc/folded_stack_mma.cu, above in csrc/resunit_stack.cu."""
     calls = 2 + folded_probe.LOOPS * folded_probe.ITERS
     cases = [(c, f) for c, t in shapes for f in folded_probe.folds(c, t)]
     narrow = sum(c <= folded_stack.PADDED_CHANNELS[-1] for c, _ in cases)
-    return launch_counts(autoencoder=calls * narrow,
+    return launch_counts(mma=calls * narrow,
                          wide=calls * (len(cases) - narrow),
                          int8=calls * len(cases),
                          int8_tile=calls * len(cases))
@@ -1817,6 +2126,7 @@ def main():
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
     phase_voc_kernel_vs_plain(device)
+    mma_counts, other_rows = phase_mma_kernel_vs_plain(trained, device)
     phase_int8_kernel_vs_plain(trained, device)
     phase_int8_tile_kernel_vs_plain(trained, device)
     phase_wide_kernel_vs_plain(device)
@@ -1824,8 +2134,12 @@ def main():
     z_main = phase_rvq_kernel_vs_plain(trained, device)
     dot_rows = phase_dot_chain_vs_plain(device)
     ablate_rows = phase_ablate_kernel_vs_plain(device)
-    phase_golden(device)
-    phase_voc_golden(device)
+    golden_launches = phase_golden(device)
+    voc_golden_launches = phase_voc_golden(device)
+    t1 = time.perf_counter()
+    fma_rows = fma_timing(trained, device,
+                          torch.Generator(device=device).manual_seed(SEED + 12))
+    emit("fma_timing", t1, **fma_rows)
     phase_fused_golden(device)
     ae_launches, ae_rows, tc, x, idx, params = phase_main_path(device)
     phase_profile("main_path", tc, x)
@@ -1853,15 +2167,29 @@ def main():
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
                "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches,
-               "folded_probe_path": probe_counts}
+               "folded_probe_path": probe_counts,
+               "golden_parity": golden_launches,
+               "voc_golden": voc_golden_launches,
+               "mma_kernel_vs_plain": mma_counts}
     folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
+    mma = "audiodec_tpu_torch/csrc/folded_stack_mma.cu"
     print(json.dumps({"kernels": [
-        kernel_entry("folded_residual_stack", "autoencoder", "autoencoder",
-                     "audiodec_tpu_torch/csrc/folded_stack.cu", folded,
+        kernel_entry("folded_residual_stack",
+                     "tensor cores, autoencoder units", "mma", mma, folded,
                      ae_rows, by_path, "main_path"),
-        kernel_entry("folded_residual_stack", "vocoder", "vocoder",
-                     "audiodec_tpu_torch/csrc/resblock_stack.cu", folded,
-                     voc_rows, by_path, "ad_v1_path"),
+        kernel_entry("folded_residual_stack", "tensor cores, vocoder units",
+                     "mma_voc", mma, folded, voc_rows, by_path,
+                     "ad_v1_path"),
+        kernel_entry("folded_residual_stack",
+                     "tensor cores, other unit shapes", "mma_other", mma,
+                     folded, other_rows, by_path, "mma_kernel_vs_plain"),
+        kernel_entry("folded_residual_stack", "autoencoder units, true f32",
+                     "autoencoder", "audiodec_tpu_torch/csrc/folded_stack.cu",
+                     folded, fma_rows["autoencoder"], by_path,
+                     "golden_parity"),
+        kernel_entry("folded_residual_stack", "vocoder units, true f32",
+                     "vocoder", "audiodec_tpu_torch/csrc/resblock_stack.cu",
+                     folded, fma_rows["vocoder"], by_path, "voc_golden"),
         kernel_entry("folded_residual_stack", "int8", "int8",
                      "audiodec_tpu_torch/csrc/int8_stack.cu", folded,
                      int8_rows, by_path, "int8_path"),

@@ -76,13 +76,13 @@ def test_chain_is_the_tools_xla_stack():
 
 
 @pytest.mark.parametrize("shapes,want", [
-    (folded_probe.SHAPES, {"autoencoder": 60, "wide": 160, "int8": 220,
+    (folded_probe.SHAPES, {"mma": 60, "wide": 160, "int8": 220,
                            "int8_tile": 220}),
-    (((32, 960),), {"autoencoder": 60, "int8": 60, "int8_tile": 60})])
+    (((32, 960),), {"mma": 60, "int8": 60, "int8_tile": 60})])
 def test_chip_smoke_expects_the_probes_launches(shapes, want):
     """chip_smoke.py's count for one --int8 run of main: per (C, fold) and
-    mode 2 + 3 x 6 wrapper calls, C = 32 in csrc/folded_stack.cu and wider
-    in csrc/resunit_stack.cu."""
+    mode 2 + 3 x 6 wrapper calls, C = 32 in csrc/folded_stack_mma.cu
+    (bf16 dots) and wider in csrc/resunit_stack.cu."""
     import chip_smoke
 
     got = chip_smoke.probe_launches(shapes)
