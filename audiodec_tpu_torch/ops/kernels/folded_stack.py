@@ -19,14 +19,18 @@ On the card (`route` picks):
   - the autoencoder units at C from 33 to 256: `csrc/resunit_stack.cu`
     (the archived per-tap stack's kernel, two CUDA launches per unit, with
     bf16 operand and storage rounding), counted in `wide_launches`;
-  - int8 mode (`int8_dots`, ELU units with a 1x1 second conv and no
-    biases) with "row" activation scales, any C from 4 to 256 and any
-    fold, f32 or bf16 storage: `csrc/int8_stack.cu`, counted in
+  - int8 mode (`int8_dots`) with "row" activation scales, the int8
+    decode's units (ELU, a 1x1 second conv, no biases) at any k and number
+    of units, any C from 4 to 256 and any fold, f32 or bf16 storage:
+    `csrc/int8_mma_stack.cu` (int8 `mma.sync`), counted in
     `int8_launches`; arithmetic at `folded_residual_stack_int8_plain`;
-  - int8 mode with "tile" scales (`int8_scale="tile"`), the same units:
-    `csrc/int8_tile_stack.cu`, counted in `int8_tile_launches`; arithmetic
-    at `folded_residual_stack_int8_tile_plain`.
-The int8 kernels take k = 7 and 1..3 units; other shapes raise on the card.
+  - int8 mode with "tile" scales (`int8_scale="tile"`), the same units at
+    k = 7 and 1..3 units: `csrc/int8_tile_stack.cu`, counted in
+    `int8_tile_launches`; arithmetic at
+    `folded_residual_stack_int8_tile_plain`.
+The plain int8 versions take every unit shape the TPU kernel takes
+(LeakyReLU, k2 > 1, biases); no path sends those to the int8 kernels, which
+raise ValueError for them on the card.
 `_fma_stack` also runs the FMA kernels with bf16 operands, so that
 chip_smoke.py can time them beside the tensor-core kernel; no path calls it.
 
@@ -46,7 +50,7 @@ peak, 989 TFLOP/s bf16, 1979 TOP/s int8):
   - vocoder units at AD v1's (16, 480000, 32) bf16: 0.98 GB (0.29 ms)
     against 3 * (11 + 11) * 32 * 32 * 2 FLOP per sample (1.04e12, 1.05 ms),
     so it is bound by operations;
-  - int8 modes at the symAD decoder's stacks: see csrc/int8_stack.cu
+  - int8 modes at the symAD decoder's stacks: see csrc/int8_mma_stack.cu
     (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s).
 See the notes in the CUDA sources for each design.
 
@@ -92,7 +96,7 @@ ACTIVATIONS = ("elu", "leaky_relu")
 # vocoder units' k = k2
 KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
-# units the FMA and int8 kernels take
+# units the FMA kernels and the int8 "tile" kernel take
 MAX_UNITS = 3
 DEFAULT_TILE_ROWS = 1024
 # widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for; the
@@ -120,6 +124,18 @@ RESUNIT_ROUND_OPERANDS, RESUNIT_BF16_RESIDUAL, RESUNIT_FOLDED = 1, 2, 4
 
 INT8_CHANNELS = (4, 256)
 INT8_QMAX = 127.0
+# csrc/int8_mma_stack.cu: each warp owns INT8_MMA_MT M tiles of 16 folded
+# rows x INT8_MMA_NW output channels, in blocks of 8 warps at cp <= 64 (two
+# blocks per SM, each in half the SM's 228 KiB less the 1 KiB it reserves:
+# INT8_MMA_PAIR_SMEM) and 16 above (one block); channels are padded to the
+# next of INT8_MMA_CHANNELS (multiples of the mma's k = 32 int8); a weight
+# stage holds at most INT8_MMA_KC input channels; an int32 partial below
+# INT8_MMA_SMALL converts to f32 by an add
+INT8_MMA_MT, INT8_MMA_NW = 2, 32
+INT8_MMA_CHANNELS = (32, 64, 128, 256)
+INT8_MMA_PAIR_SMEM = 233472 // 2 - 1024
+INT8_MMA_KC = 128
+INT8_MMA_SMALL = 1 << 22
 
 mma_launches = 0        # csrc/folded_stack_mma.cu, autoencoder units
 mma_voc_launches = 0    # csrc/folded_stack_mma.cu, vocoder units
@@ -127,7 +143,7 @@ mma_other_launches = 0  # csrc/folded_stack_mma.cu, any other unit shape
 launches = 0            # autoencoder units, FMA, csrc/folded_stack.cu
 wide_launches = 0       # autoencoder mode at C > 32, csrc/resunit_stack.cu
 resblock_launches = 0   # vocoder units, FMA, csrc/resblock_stack.cu
-int8_launches = 0       # int8 mode, "row" scales, csrc/int8_stack.cu
+int8_launches = 0       # int8 mode, "row" scales, csrc/int8_mma_stack.cu
 int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_stack.cu
 
 
@@ -277,36 +293,69 @@ def _int8_conv(q: torch.Tensor, sd: torch.Tensor, wq: torch.Tensor, d: int,
     return acc
 
 
-def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
-                                     dilations: Sequence[int], fold: int = 0
-                                     ) -> torch.Tensor:
-    """The int8 mode with "row" scales in plain PyTorch, f32 or bf16 storage.
+def _int8_activation(act: str, act_param: float):
+    """The TPU kernel's activations in f32 (`folded_stack.py:49-54`,
+    `:258-265`): ELU as exp(min(v, 0)) - 1, not expm1 (near a rounding
+    boundary of the quantizer one ulp moves a code), and LeakyReLU as
+    v > 0 ? v : slope * v with the slope rounded to f32."""
+    if act == "elu":
+        return lambda v: elu_exp(v)
+    if act == "leaky_relu":
+        slope = torch.tensor(act_param, dtype=torch.float32)
+        return lambda v: torch.where(v > 0, v, v * slope.to(v.device))
+    raise NotImplementedError(f"folded stack activation {act!r}")
 
-    Per unit: y = ELU(v); y is quantized per folded row of f = fold (0: 128
+
+def _scaled_bias(y: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """A conv's output with the TPU kernel's weight scale and bias
+    (`folded_stack.py:346-364`): `y * scale + bias`, which XLA fuses into
+    one f32 fma."""
+    return _fma(y, scale[:, None], bias.float()[:, None])
+
+
+def folded_residual_stack_int8_plain(x: torch.Tensor, unit_params: Sequence,
+                                     dilations: Sequence[int], fold: int = 0,
+                                     *, act: str = "elu",
+                                     act_param: float = 0.0, biases=None
+                                     ) -> torch.Tensor:
+    """The int8 mode with "row" scales in plain PyTorch, f32 or bf16
+    storage, at every unit shape the TPU kernel takes (act ELU or LeakyReLU
+    with slope act_param; each conv's width its weights'; biases or none).
+
+    Per unit: y = act(v); y is quantized per folded row of f = fold (0: 128
     // C) samples x C channels (rows aligned to t=0, zero before it);
     conv1's row-grouped integer partials are dequantized and summed as in
-    `_int8_conv`, then multiplied by the weight scale; ELU; the same
-    quantization; the 1x1 conv likewise, giving y2, and the residual as
-    `storage_residual`.  T is padded to a whole row with zeros, which
-    evolve like the TPU kernel's tail padding and enter the last row's
-    scale; rows wholly in the padding never reach a real sample (the units
-    are causal), and with per-row scales a tile's halo rows equal the rows they repeat,
-    so the TPU kernel's time tiling does not change this function."""
+    `_int8_conv`, then multiplied by the weight scale (and the bias added);
+    act; the same quantization; the second conv likewise (its own rows'
+    scales over `fold_offsets(k2, 1, f)`), giving y2, and the residual as
+    `storage_residual`.  Each conv reads zeros before t=0, which is the TPU
+    kernel's mask of the biased outputs there.  T is padded to a whole row
+    with zeros, which evolve like the TPU kernel's tail padding and enter
+    the last row's scale; rows wholly in the padding never reach a real
+    sample (the units are causal), and with per-row scales a tile's halo
+    rows equal the rows they repeat, so the TPU kernel's time tiling does
+    not change this function."""
     b, c, t = x.shape
     f = fold or int8_fold(c)
     bf16 = x.dtype == torch.bfloat16
+    fn = _int8_activation(act, act_param)
     tp = -(-t // f) * f
     v = F.pad(x.float(), (0, tp - t))
-    for (w1, w2), d in zip(unit_params, dilations):
+    for j, ((w1, w2), d) in enumerate(zip(unit_params, dilations)):
         q1w, s1 = int8_weight_scales(w1)
         q2w, s2 = int8_weight_scales(w2)
-        # the TPU kernel's ELU (`folded_stack.py:49-54`), not expm1: near a
-        # rounding boundary one ulp moves a quantized value
-        q, sd = _quantize_rows(elu_exp(v), f)
-        acc = _int8_conv(q, sd, q1w, d, f) * s1[:, None]
-        q, sd = _quantize_rows(elu_exp(acc), f)
-        v = storage_residual(v, _int8_conv(q, sd, q2w, 1, f), bf16,
-                             s2[:, None])
+        q, sd = _quantize_rows(fn(v), f)
+        acc = _int8_conv(q, sd, q1w, d, f)
+        acc = (acc * s1[:, None] if biases is None
+               else _scaled_bias(acc, s1, biases[j][0]))
+        q, sd = _quantize_rows(fn(acc), f)
+        y2 = _int8_conv(q, sd, q2w, 1, f)
+        if biases is None:
+            v = storage_residual(v, y2, bf16, s2[:, None])
+        else:
+            v = storage_residual(v, _scaled_bias(y2, s2, biases[j][1]),
+                                 bf16)
     return v[:, :, :t].to(x.dtype).contiguous()
 
 
@@ -329,14 +378,15 @@ class TileGeometry(NamedTuple):
 
 def tile_geometry(c: int, t: int, dilations: Sequence[int], fold: int = 0,
                   tile_rows: int = DEFAULT_TILE_ROWS,
-                  kernel_size: int = KERNEL_SIZE) -> TileGeometry:
+                  kernel_size: int = KERNEL_SIZE,
+                  kernel_size2: int = 1) -> TileGeometry:
     """The tiling the TPU kernel gives (C, T) at this fold and tile_rows
-    (the int8 modes' units: k = kernel_size, k2 = 1)."""
+    for units of widths kernel_size and kernel_size2."""
     f = fold or int8_fold(c)
     n_rows = padded_rows(t, f)
     rows_tile = pick_tile(n_rows, tile_rows)
     return TileGeometry(f, n_rows, rows_tile, n_rows // rows_tile,
-                        halo_rows(kernel_size, dilations, f))
+                        halo_rows(kernel_size, dilations, f, kernel_size2))
 
 
 def _quantize_windows(y: torch.Tensor):
@@ -357,39 +407,64 @@ def _exact_conv(q: torch.Tensor, wq: torch.Tensor, d: int) -> torch.Tensor:
 
 def folded_residual_stack_int8_tile_plain(
         x: torch.Tensor, unit_params: Sequence, dilations: Sequence[int],
-        fold: int = 0, tile_rows: int = DEFAULT_TILE_ROWS) -> torch.Tensor:
+        fold: int = 0, tile_rows: int = DEFAULT_TILE_ROWS, *,
+        act: str = "elu", act_param: float = 0.0,
+        biases=None) -> torch.Tensor:
     """The int8 mode with "tile" scales in plain PyTorch, f32 or bf16
-    storage (`folded_stack.py:183-213`, `:275-370`).
+    storage (`folded_stack.py:183-213`, `:275-370`), at every unit shape
+    the TPU kernel takes (as `folded_residual_stack_int8_plain`).
 
     T is padded and tiled as `tile_geometry`, and each tile's window is run
     on its own, its halo rows recomputed with the window's own scales (so
     the output depends on `tile_rows`).  Per unit, over the window's L
-    current rows: y = ELU(v); one scale s = max|y| over the whole window
-    (the tail padding included); q = round(y * (127 / s)); the k=7 conv
+    current rows: y = act(v); one scale s = max|y| over the whole window
+    (the tail padding included); q = round(y * (127 / s)); the first conv
     over the window as one exact integer sum over all taps, rounded to f32
-    once, times s * (1/127), times the weight scale; ELU and a second scale
-    over the L - span1 rows left; the 1x1 conv the same way, giving y2; the
-    residual as `storage_residual`; the window loses its first span1 rows.
-    k is the first conv's width, the same in every unit."""
+    once, times s * (1/127), times the weight scale (plus the bias, masked
+    to zero before t=0); act and a second scale over the L - span1 rows
+    left; the second conv the same way over its own span2 rows, giving y2;
+    the residual as `storage_residual`; the window loses its first span1 +
+    span2 rows.  k and k2 are the convs' widths, the same in every unit."""
     b, c, t = x.shape
     k = unit_params[0][0].shape[-1]
-    g = tile_geometry(c, t, dilations, fold, tile_rows, k)
+    k2 = unit_params[0][1].shape[-1]
+    g = tile_geometry(c, t, dilations, fold, tile_rows, k, k2)
     bf16 = x.dtype == torch.bfloat16
+    fn = _int8_activation(act, act_param)
     step = g.rows_tile * g.f
     # each tile's window: its samples and the halo's before them, zero
     # before t=0 and in the tail padding
     xp = F.pad(x.float(), (g.halo * g.f, g.n_rows * g.f - t))
     v = xp.unfold(2, g.window, step).transpose(1, 2) \
         .reshape(b * g.n_tiles, c, g.window)
-    for (w1, w2), d in zip(unit_params, dilations):
+    # the absolute time of each window's first current sample
+    start = (torch.arange(g.n_tiles, device=x.device) * step
+             - g.halo * g.f).repeat(b)[:, None, None]
+    cut2 = -fold_offsets(k2, 1, g.f)[0] * g.f if k2 > 1 else 0
+
+    def masked(y, first):
+        # the TPU kernel's `masked`: zero before t=0
+        tpos = first + torch.arange(y.shape[-1], device=y.device)
+        return torch.where(tpos >= 0, y, 0.0)
+
+    for j, ((w1, w2), d) in enumerate(zip(unit_params, dilations)):
         q1w, s1 = int8_weight_scales(w1)
         q2w, s2 = int8_weight_scales(w2)
         cut = -fold_offsets(k, d, g.f)[0] * g.f
-        q, sd = _quantize_windows(elu_exp(v))
-        acc = _exact_conv(q, q1w, d)[..., cut - (k - 1) * d:]
-        q, sd = _quantize_windows(elu_exp(acc * sd * s1[:, None]))
-        v = storage_residual(v[..., cut:], _exact_conv(q, q2w, 1) * sd,
-                             bf16, s2[:, None])
+        q, sd = _quantize_windows(fn(v))
+        acc = _exact_conv(q, q1w, d)[..., cut - (k - 1) * d:] * sd
+        start = start + cut
+        acc = (acc * s1[:, None] if biases is None
+               else masked(_scaled_bias(acc, s1, biases[j][0]), start))
+        q, sd = _quantize_windows(fn(acc))
+        y2 = _exact_conv(q, q2w, 1)[..., cut2 - (k2 - 1):] * sd
+        start = start + cut2
+        if biases is None:
+            v = storage_residual(v[..., cut + cut2:], y2, bf16, s2[:, None])
+        else:
+            v = storage_residual(
+                v[..., cut + cut2:],
+                masked(_scaled_bias(y2, s2, biases[j][1]), start), bf16)
     # the windows are down to their tiles' own samples
     out = v.reshape(b, g.n_tiles, c, step).transpose(1, 2) \
         .reshape(b, c, g.n_tiles * step)[:, :, :t]
@@ -422,9 +497,10 @@ def _mma_kernel():
 
 @functools.cache
 def _int8_kernel():
-    fn = _build.load("int8_stack").int8_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
+    fn = _build.load("int8_mma_stack").int8_mma_stack_forward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int)] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -508,11 +584,26 @@ def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
     return w1, w2, b.contiguous()
 
 
+def _pack_int8_mma(unit_params, c: int, cp: int, _rounded: bool):
+    """csrc/int8_mma_stack.cu's operands: conv1 (n, k, cp, cp) and the 1x1
+    conv (n, cp, cp) int8 as [u][tap][c_out][c_in], channels zero-padded
+    from C to cp; the weight scales (n, 2, cp) f32, zero on the padding."""
+    def pack(w):
+        q, s = int8_weight_scales(w)
+        q = F.pad(q.permute(2, 0, 1), (0, cp - c, 0, cp - c))
+        return q.to(torch.int8).contiguous(), F.pad(s, (0, cp - c))
+
+    w1, s1 = zip(*(pack(w) for w, _ in unit_params))
+    w2, s2 = zip(*(pack(w) for _, w in unit_params))
+    return (torch.stack(w1), torch.stack(w2)[:, 0].contiguous(),
+            torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous())
+
+
 def _pack_int8(unit_params, c: int, cp: int, _rounded: bool):
-    """int8 modes: conv1 (n, K, cp/16, C, 16) and the 1x1 conv
-    (n, cp/16, C, 16) int8, input channels zero-padded from C to cp (a
-    multiple of 16) and grouped by 16 for the kernel's 16-byte loads; the
-    weight scales (n, 2, C) f32."""
+    """The "tile" mode (csrc/int8_tile_stack.cu): conv1 (n, K, cp/16, C,
+    16) and the 1x1 conv (n, cp/16, C, 16) int8, input channels zero-padded
+    from C to cp (a multiple of 16) and grouped by 16 for the kernel's
+    16-byte loads; the weight scales (n, 2, C) f32."""
     def pack(w):
         q, s = int8_weight_scales(w)
         k = q.shape[-1]
@@ -577,6 +668,11 @@ def _packed_int8(unit_params, c: int, cp: int):
     return cached_pack(_pack_int8, weights, c, cp, False, unit_params)
 
 
+def _packed_int8_mma(unit_params, c: int, cp: int):
+    weights = tuple(w for u in unit_params for w in u)
+    return cached_pack(_pack_int8_mma, weights, c, cp, False, unit_params)
+
+
 def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
     tensors = tuple(w for u in unit_params for w in u)
     if biases is not None:
@@ -628,23 +724,17 @@ def resunit_stack(x: torch.Tensor, packed, dilations: Sequence[int],
 
 
 def _mode(kernel_size, kernel_size2, act, biases, int8_dots) -> str:
-    """The units' shape: 'int8' (int8 dots; ELU, a 1x1 second conv, no
-    biases, any k), 'autoencoder' (ELU, k=7, k2=1, no biases), 'vocoder'
-    (LeakyReLU, k = k2 in RESBLOCK_KERNEL_SIZES, biases or none) or 'other'
-    (any other k, k2 and biases with either activation).  ELU ignores
-    act_param, as the TPU kernel's `_elu` does.  Raises on an activation the
-    TPU kernel rejects, and on int8 dots with other units, which no path
-    sends (`audiodec_tpu/models/fast.py:49-54`)."""
+    """The units' shape: 'int8' (int8 dots, any units), 'autoencoder' (ELU,
+    k=7, k2=1, no biases), 'vocoder' (LeakyReLU, k = k2 in
+    RESBLOCK_KERNEL_SIZES, biases or none) or 'other' (any other k, k2 and
+    biases with either activation).  ELU ignores act_param, as the TPU
+    kernel's `_elu` does.  Raises on an activation the TPU kernel
+    rejects."""
     if act not in ACTIVATIONS:
         raise NotImplementedError(f"folded stack activation {act!r}")
-    elu_1x1 = act == "elu" and kernel_size2 == 1 and biases is None
     if int8_dots:
-        if elu_1x1:
-            return "int8"
-        raise NotImplementedError(
-            "the int8 modes are ported for ELU units with a 1x1 second conv "
-            f"and no biases; got act={act!r}, k2={kernel_size2}, "
-            f"biases={biases is not None}")
+        return "int8"
+    elu_1x1 = act == "elu" and kernel_size2 == 1 and biases is None
     if elu_1x1 and kernel_size == KERNEL_SIZE:
         return "autoencoder"
     if (act == "leaky_relu" and kernel_size == kernel_size2
@@ -759,10 +849,12 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
         raise ValueError(f"need fold >= 0 and tile_rows >= 1, got fold="
                          f"{fold}, tile_rows={tile_rows}")
     if mode == "int8":
+        shape = _shape(kernel_size, kernel_size2, act, biases, dilations)
+        units = {"act": act, "act_param": act_param, "biases": biases}
         if int8_scale == "tile":
             return _int8_tile_stack(x, unit_params, dilations, fold,
-                                    tile_rows)
-        return _int8_stack(x, unit_params, dilations, fold)
+                                    tile_rows, units, shape)
+        return _int8_stack(x, unit_params, dilations, fold, units, shape)
     if x.device.type == "cpu":
         return folded_residual_stack_plain(
             x, unit_params, dilations, bf16_dots, act=act,
@@ -921,33 +1013,141 @@ def _check_int8_width(c: int):
                          f"got {c}")
 
 
-def _check_int8_units(unit_params, dilations):
-    """The int8 kernels' unit shapes; the plain versions take any k and
-    unit count."""
-    k = unit_params[0][0].shape[-1]
-    if k != KERNEL_SIZE or len(dilations) > MAX_UNITS:
-        raise ValueError(f"the int8 kernels take k={KERNEL_SIZE} and "
-                         f"1..{MAX_UNITS} units on the card, got k={k} and "
-                         f"{len(dilations)} units")
+def _check_int8_shape(units: dict, kernel_size2: int, shape: str):
+    """The int8 kernels take the units of the int8 decode (ELU, a 1x1
+    second conv, no biases); the plain versions take every shape."""
+    if (units["act"] != "elu" or kernel_size2 != 1
+            or units["biases"] is not None):
+        raise ValueError(f"the int8 kernels take ELU units with a 1x1 "
+                         f"second conv and no biases on the card, got "
+                         f"{shape}")
 
 
-def _int8_stack(x, unit_params, dilations, fold):
+def int8_offset_schedule(k: int, d: int, f: int) -> list:
+    """How a causal conv(k, dilation d) under fold f reads folded rows, per
+    phase p = t mod f: the taps j grouped by the row offset
+    o = (p + j d - span) // f they read, ascending (the order in which
+    `_int8_conv` and csrc/int8_mma_stack.cu dequantize them):
+    [[(o, (j, ...)), ...] for p in range(f)]."""
+    span = (k - 1) * d
+    phases = []
+    for p in range(f):
+        groups = {}
+        for j in range(k):
+            groups.setdefault((p + j * d - span) // f, []).append(j)
+        phases.append(sorted((o, tuple(js)) for o, js in groups.items()))
+    return phases
+
+
+def int8_exact_small(c: int, k: int, d: int, f: int) -> bool:
+    """Whether every int32 partial of a unit (the taps of one offset times
+    C channels of codes and weights within +-127, and the 1x1 conv's C)
+    stays below 2^22, where csrc/int8_mma_stack.cu converts it to f32 with
+    an add of 1.5 x 2^23 instead of cvt.rn.f32.s32 (the same value)."""
+    taps = max(len(js) for ph in int8_offset_schedule(k, d, f)
+               for _, js in ph)
+    return int(INT8_QMAX) ** 2 * c * taps < INT8_MMA_SMALL
+
+
+class Int8MmaGeometry(NamedTuple):
+    """A launch of csrc/int8_mma_stack.cu: channels padded to cp, f samples
+    per folded row, tile output samples per block in `rounds` rounds of the
+    warps' M tiles, the largest halo (samples), the weight pipeline's stage
+    (taps_per_stage taps of kc input channels) and its buffers, the
+    block's shared memory in bytes and the CUDA launches per wrapper call
+    (one per unit)."""
+    cp: int
+    f: int
+    tile: int
+    rounds: int
+    halo: int
+    taps_per_stage: int
+    kc: int
+    buffers: int
+    smem: int
+    launches: int
+
+
+def int8_mma_warps(cp: int) -> int:
+    """Warps per block of csrc/int8_mma_stack.cu (its `warps_for`)."""
+    return 8 if cp <= 64 else 16
+
+
+def int8_mma_smem(cp: int, buffers: int, taps_per_stage: int, kc: int,
+                  tile: int, f: int, rows: int) -> int:
+    """Shared memory of a block (csrc/int8_mma_stack.cu `layout`): the
+    weight stages' buffers (rows of kc + 16 bytes), the int8 activation
+    rows of `rows` folded rows per phase (cp + 16 bytes), the f32 staging
+    buffer [cp][tile + 1], the rows' scales and the tile rows' absmax."""
+    return (buffers * taps_per_stage * cp * (kc + 16) + f * rows * (cp + 16)
+            + 4 * cp * (tile + 1) + 4 * rows + 4 * (tile // f))
+
+
+def int8_mma_geometry(c: int, f: int, kernel_size: int,
+                      dilations: Sequence[int]) -> Int8MmaGeometry:
+    """How csrc/int8_mma_stack.cu runs these units: warps of 2 M tiles
+    (16 folded rows of one phase) x 32 channels each, 8 per block at
+    cp <= 64 and 16 above (`int8_mma_warps`), so a round covers 4096 (8
+    warps) or 16384 (16) / cp samples; the tile is that, rounded up to 16
+    rows of every phase, in as many rounds as it takes.  The weights: two
+    buffers of as many whole taps as fit beside the rest (kc = cp <= 128:
+    all k at cp = 32, 6 at 64, 3 at 128, k = 7, dilations (1, 3, 9)); at
+    cp = 256 one tap's 128 channels per stage, three buffers where they
+    fit.  An 8-warp block keeps to half an SM's shared memory where three
+    taps fit in it.  Raises ValueError where the halo leaves no room for
+    the tile in a block's shared memory.  (Chosen on the card, PERF.md §6:
+    fewer, larger stages and two blocks per SM ran fastest.)"""
+    cp = next(p for p in INT8_MMA_CHANNELS if c <= p)
+    mpr = int8_mma_warps(cp) // (cp // INT8_MMA_NW) * INT8_MMA_MT
+    tile = -(-16 * mpr // (16 * f)) * 16 * f
+    rounds = -(-(tile // 16) // mpr)
+    k = kernel_size
+    hrow = max(-(-(k - 1) * d // f) for d in dilations)
+    rows = tile // f + hrow
+    kc = min(cp, INT8_MMA_KC)
+    fixed = int8_mma_smem(cp, 0, 0, kc, tile, f, rows)
+    per_tap = int8_mma_smem(cp, 1, 1, kc, tile, f, rows) - fixed
+    budget = BLOCK_SMEM
+    if (int8_mma_warps(cp) == 8
+            and fixed + 3 * per_tap <= INT8_MMA_PAIR_SMEM):
+        budget = INT8_MMA_PAIR_SMEM
+    room = (budget - fixed) // per_tap   # tap buffers that fit
+    if kc == cp:
+        buffers, tps = 2, max(1, min(k, room // 2))
+    else:
+        buffers, tps = (3 if room >= 3 else 2), 1
+    smem = int8_mma_smem(cp, buffers, tps, kc, tile, f, rows)
+    if smem > BLOCK_SMEM:
+        raise ValueError(
+            f"csrc/int8_mma_stack.cu: a halo of {hrow * f} samples (k={k}, "
+            f"dilations={tuple(dilations)}, fold {f}) leaves no room for a "
+            f"tile of {tile} samples in a block's {BLOCK_SMEM} bytes of "
+            f"shared memory at C={c}")
+    return Int8MmaGeometry(cp, f, tile, rounds, hrow * f, tps, kc, buffers,
+                           smem, len(dilations))
+
+
+def _int8_stack(x, unit_params, dilations, fold, units, shape):
     """The int8 mode with "row" scales: the plain version on the CPU, else
-    one wrapper call of csrc/int8_stack.cu (one CUDA launch per unit)."""
+    one wrapper call of csrc/int8_mma_stack.cu (one CUDA launch per
+    unit)."""
     global int8_launches
     b, c, t = x.shape
     _check_int8_width(c)
     if x.device.type == "cpu":
         return folded_residual_stack_int8_plain(x, unit_params, dilations,
-                                                fold)
-    _check_cuda(x, unit_params, None)
-    _check_int8_units(unit_params, dilations)
-    f = fold or int8_fold(c)
-    tp = -(-t // f) * f
-    cp = -(-c // 16) * 16
+                                                fold, **units)
+    _check_cuda(x, unit_params, units["biases"])
+    _check_int8_shape(units, unit_params[0][1].shape[-1], shape)
     n = len(dilations)
-    dil = list(dilations) + [0] * (MAX_UNITS - n)
-    w1, w2, scales = _packed_int8(unit_params, c, cp)
+    k = unit_params[0][0].shape[-1]
+    f = fold or int8_fold(c)
+    g = int8_mma_geometry(c, f, k, dilations)
+    tp = -(-t // f) * f
+    w1, w2, scales = _packed_int8_mma(unit_params, c, g.cp)
+    dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    exact = (ctypes.c_int * n)(*(int8_exact_small(c, k, int(d), f)
+                                 for d in dilations))
     # the kernel works on whole folded rows of f32 values: the tail pad's
     # zeros evolve like the TPU kernel's and enter the last row's scale
     xp = F.pad(x.float(), (0, tp - t)) if tp != t else x.float()
@@ -956,29 +1156,35 @@ def _int8_stack(x, unit_params, dilations, fold):
     with torch.cuda.device(x.device):
         err = _int8_kernel()(
             xp.data_ptr(), out.data_ptr(), tmp.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), scales.data_ptr(), b, c, tp, cp, f,
-            int(x.dtype == torch.bfloat16), n, *dil,
+            w2.data_ptr(), scales.data_ptr(), b, c, tp, g.cp, f, k, n, dil,
+            exact, g.tile, g.taps_per_stage, g.kc, g.buffers,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"int8-mode residual stack kernel: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"int8-mode residual stack kernel ({shape}): "
+                           f"CUDA error {err}")
     int8_launches += 1
     return out[:, :, :t].to(x.dtype).contiguous()
 
 
-def _int8_tile_stack(x, unit_params, dilations, fold, tile_rows):
+def _int8_tile_stack(x, unit_params, dilations, fold, tile_rows, units,
+                     shape):
     """The int8 mode with "tile" scales: the plain version on the CPU, else
     one wrapper call of csrc/int8_tile_stack.cu (2 CUDA launches per unit
-    and 2 more) on the tiles' windows, which it builds in `win`."""
+    and 2 more) on the tiles' windows, which it builds in `win`; the kernel
+    takes k = 7 and 1..3 units."""
     global int8_tile_launches
     b, c, t = x.shape
     _check_int8_width(c)
     if x.device.type == "cpu":
         return folded_residual_stack_int8_tile_plain(
-            x, unit_params, dilations, fold, tile_rows)
-    _check_cuda(x, unit_params, None)
-    _check_int8_units(unit_params, dilations)
+            x, unit_params, dilations, fold, tile_rows, **units)
+    _check_cuda(x, unit_params, units["biases"])
+    _check_int8_shape(units, unit_params[0][1].shape[-1], shape)
     k = unit_params[0][0].shape[-1]
+    if k != KERNEL_SIZE or len(dilations) > MAX_UNITS:
+        raise ValueError(f"csrc/int8_tile_stack.cu takes k={KERNEL_SIZE} "
+                         f"and 1..{MAX_UNITS} units, got {shape}")
     g = tile_geometry(c, t, dilations, fold, tile_rows, k)
     cp = -(-c // 16) * 16
     n = len(dilations)

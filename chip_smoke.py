@@ -3,8 +3,9 @@
 Builds the port's nine CUDA kernels (the folded residual stack on the
 tensor cores at C <= 32 with bf16 operands, at every unit shape; its FMA
 kernels for true f32, the autoencoder and the vocoder units; its int8
-"row" and int8 "tile" modes; the archived per-tap residual stack, which is
-also the autoencoder mode above C = 32; the fused RVQ encode, the rate
+"row" mode on the int8 tensor cores and its int8 "tile" mode; the archived
+per-tap residual stack, which is also the autoencoder mode above C = 32;
+the fused RVQ encode, the rate
 probe's dot chain and the ablation probe's stack) from the sources in this
 checkout, one nvcc each, all started together; holds each against its
 plain PyTorch version;
@@ -21,7 +22,8 @@ profiles one more transcode of each:
     kernel;
   - int8_path (slice 3): the same symAD transcode with the int8 decode
     (`BatchTranscoder(int8_decode=True)`), every decoder stack (C = 256,
-    128, 64, 32) through the int8-mode kernel;
+    128, 64, 32) through the int8-mode kernel (slice 9: on the int8 tensor
+    cores, csrc/int8_mma_stack.cu; the dp4a kernel before);
   - cli_path (slice 3): the batch command line (`bin/codec_test.py main`)
     on the trained golden written as a JAX-format checkpoint beside the
     symAD config, over seeded PCM16 wavs of 2-10 s, with --dtype
@@ -49,7 +51,7 @@ profiles one more transcode of each:
     (C, T) = (32, 480000), (64, 160000), (128, 40000), (256, 8000) and each
     of the tool's folds, the plain chain, the autoencoder mode with bf16
     dots (csrc/folded_stack.cu at C = 32, csrc/resunit_stack.cu above), and
-    the int8 mode with "row" (csrc/int8_stack.cu) and "tile" scales
+    the int8 mode with "row" (csrc/int8_mma_stack.cu) and "tile" scales
     (csrc/int8_tile_stack.cu).
 
 The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
@@ -92,6 +94,13 @@ the FMA kernels' bf16-operand modes (`folded_stack._fma_stack`) to
 BF16_REL; their true-f32 cases hold the FMA kernels to F32_RTOL.
 `golden_parity` prints, beside the bf16-operand flips on
 gen_symad_trained, those of the same encode through the plain version.
+
+The checks of slice 9: `int8_kernel_vs_plain` gains the int8 decode's
+other unit shapes (k = 5 at C = 32 and 128, four units at C = 32 and 256)
+and two widths between the kernel's built ones (C = 96, 160), each in f32
+and bf16 storage, held to INT8_REL like its other cases (bit equality
+expected: the integer sums are exact in any order); the `profile` phase
+names the launches of its traced transcode.
 
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
@@ -232,7 +241,8 @@ BATCH, SECONDS = 16, 10
 DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
-KERNELS = ("folded_stack", "resblock_stack", "int8_stack", "resunit_stack",
+KERNELS = ("folded_stack", "resblock_stack", "int8_mma_stack",
+           "resunit_stack",
            "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack",
            "folded_stack_mma")
 VOC_DILATIONS = (1, 3, 5)
@@ -247,6 +257,14 @@ F32_RTOL, F32_ATOL_REL, BF16_REL = 1e-4, 5e-5, 1e-2
 INT8_REL = 1e-5
 # the symAD decoder's stacks at B=16 x 10 s: (C, T)
 INT8_SHAPES = ((256, 8000), (128, 40000), (64, 160000), (32, 480000))
+# slice 9: the int8 decode at the configs' other unit shapes, (C, T, k,
+# dilations): res_kernel_size 5 at a narrow and a wide stack, and four
+# dilations; and two widths between the kernel's built ones (C = 96 and
+# 160 run padded to 128 and 256)
+INT8_UNIT_SHAPES = ((32, 4803, 5, DILATIONS), (128, 803, 5, DILATIONS),
+                    (32, 4803, 7, (1, 3, 9, 27)),
+                    (256, 1601, 7, (1, 3, 9, 27)),
+                    (96, 1601, 7, DILATIONS), (160, 803, 7, DILATIONS))
 # the int8 decode against the true-f32 decode, relative to its peak
 INT8_DECODE_REL = 5e-2
 # the fused RVQ encode: a flipped index (at its first layer) must be a near
@@ -1036,15 +1054,17 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     return launches, rows, tc
 
 
-def check_int8(x, units, fold: int = 0):
+def check_int8(x, units, fold: int = 0, dilations=DILATIONS):
     """int8-mode kernel ("row" scales) vs its plain version on the same
-    inputs; returns (max abs error, the same relative to the peak, the
-    kernel's error relative to the f32 chain's peak)."""
-    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
-                                             int8_dots=True, fold=fold)
-    ref = folded_stack.folded_residual_stack_int8_plain(x, units, DILATIONS,
+    inputs (ELU units of the weights' k); returns (max abs error, the same
+    relative to the peak, the kernel's error relative to the f32 chain's
+    peak)."""
+    out = folded_stack.folded_residual_stack(
+        x, units, dilations=dilations, kernel_size=units[0][0].shape[-1],
+        int8_dots=True, fold=fold)
+    ref = folded_stack.folded_residual_stack_int8_plain(x, units, dilations,
                                                         fold)
-    f32 = chain(x.float(), units)  # f32, no quantization
+    f32 = chain(x.float(), units, dilations)  # f32, no quantization
     torch.cuda.synchronize()
     if out.dtype != x.dtype or out.shape != x.shape:
         raise AssertionError(f"int8 kernel gave {out.dtype} "
@@ -1138,6 +1158,19 @@ def phase_int8_kernel_vs_plain(params, device):
             err, rel, chain_rel = check_int8(x.to(dtype), units, f)
             cases.append({"C": c, "T": t,
                           "fold": f or folded_stack.int8_fold(c),
+                          "storage": str(dtype)[6:], "weights": "random",
+                          "max_abs_err": err, "max_rel_err": rel,
+                          "rel_err_vs_f32_chain": chain_rel})
+    # slice 9: the int8 decode's other unit shapes (cfg.res_kernel_size,
+    # cfg.res_dilations), which raised on the card before
+    for c, t, k, dil in INT8_UNIT_SHAPES:
+        units, _ = shape_units(c, "elu", k, 1, False, dil, device,
+                               torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            err, rel, chain_rel = check_int8(x.to(dtype), units,
+                                             dilations=dil)
+            cases.append({"C": c, "T": t, "k": k, "dilations": list(dil),
                           "storage": str(dtype)[6:], "weights": "random",
                           "max_abs_err": err, "max_rel_err": rel,
                           "rel_err_vs_f32_chain": chain_rel})
@@ -1239,22 +1272,29 @@ def phase_wide_kernel_vs_plain(device):
 
 
 def int8_kernel_timing(params, device, gen):
-    """Per decoder stack of the int8 path: the int8-mode kernel's, plain
-    and f32-chain ms and the bound at (16, C, T) f32."""
+    """Per decoder stack of the int8 path: the int8-mode kernel's ms in
+    f32 and in bf16 storage, its launch geometry, the plain and f32-chain
+    ms and the bound at (16, C, T) f32."""
     rows = []
     for block, (c, t) in enumerate(INT8_SHAPES):
         units = decoder_units(params, block, device)
         x = torch.randn(BATCH, c, t, generator=gen, device=device)
+        xb = x.to(torch.bfloat16)
         err, _, _ = check_int8(x, units)
         row = {
             "shape": [BATCH, c, t], "dtype": "float32", "max_abs_err": err,
             "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
                 x, units, dilations=DILATIONS, int8_dots=True), reps=5),
+            "bf16_storage_ms": cuda_ms(
+                lambda: folded_stack.folded_residual_stack(
+                    xb, units, dilations=DILATIONS, int8_dots=True), reps=5),
             "plain_ms": cuda_ms(
                 lambda: folded_stack.folded_residual_stack_int8_plain(
                     x, units, DILATIONS), reps=2),
             "chain_ms": cuda_ms(lambda: chain(x, units), reps=3),
             "cuda_launches_per_call": len(units),
+            "geometry": folded_stack.int8_mma_geometry(
+                c, folded_stack.int8_fold(c), 7, DILATIONS)._asdict(),
         }
         # each input read once (x f32, int8 weights), the output written
         # once; the dots' operations at the int8 tensor-core peak
@@ -2038,15 +2078,18 @@ def probe_kernel_rows(records, device):
 def phase_profile(path: str, tc, x):
     """One more transcode of a path under torch.profiler: its wall time,
     the device time summed over all kernels, the device's idle share (one
-    stream, so kernels do not overlap) and the kernels with the most device
-    time."""
+    stream, so kernels do not overlap), the kernels with the most device
+    time and the launch counts of the traced transcode (its wrapper calls
+    by kernel, which name the CUDA kernels of `top`)."""
     t0 = time.perf_counter()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         tc(x)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1)
+    launches = {k: n for k, n in read_launches().items() if n}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -2054,7 +2097,7 @@ def phase_profile(path: str, tc, x):
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     emit("profile", t0, path=path, wall_ms=wall_ms, device_ms=device_ms,
-         idle_share=1.0 - device_ms / wall_ms,
+         idle_share=1.0 - device_ms / wall_ms, launches=launches,
          top=[{"name": e.key[:120], "calls": e.count,
                "device_ms": e.self_device_time_total / 1e3}
               for e in kernels[:PROFILE_TOP]])
@@ -2191,7 +2234,7 @@ def main():
                      "vocoder", "audiodec_tpu_torch/csrc/resblock_stack.cu",
                      folded, fma_rows["vocoder"], by_path, "voc_golden"),
         kernel_entry("folded_residual_stack", "int8", "int8",
-                     "audiodec_tpu_torch/csrc/int8_stack.cu", folded,
+                     "audiodec_tpu_torch/csrc/int8_mma_stack.cu", folded,
                      int8_rows, by_path, "int8_path"),
         kernel_entry("fused_residual_stack", "f32", "resunit",
                      "audiodec_tpu_torch/csrc/resunit_stack.cu",

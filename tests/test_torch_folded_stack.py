@@ -69,14 +69,13 @@ VOC = {"act": "leaky_relu", "act_param": 0.1}
 
 @pytest.mark.parametrize("kwargs", [
     {"act": "gelu"},
-    {**VOC, "kernel_size2": 7, "int8_dots": True},
-    {"int8_dots": True, "kernel_size2": 7},
 ])
 def test_off_path_modes_raise(kwargs):
-    """An activation the TPU kernel rejects, and the int8 modes with units
-    that no path sends them.  (LeakyReLU at k = k2 = 5 raised here too, but
-    the TPU kernel computes it: it is a parity case of the vocoder-mode
-    test below, VOC_CASES.)"""
+    """An activation the TPU kernel rejects.  (LeakyReLU at k = k2 = 5
+    raised here too, but the TPU kernel computes it: it is a parity case of
+    the vocoder-mode test below, VOC_CASES; and so do the int8 modes at
+    LeakyReLU or k2 = 7 units: parity cases of
+    tests/test_torch_int8_stack.py::test_int8_unit_shapes_match_jax.)"""
     x, units = _case(8, 64, seed=0)
     with pytest.raises(NotImplementedError):
         port.folded_residual_stack(torch.from_numpy(x).transpose(1, 2),

@@ -313,6 +313,10 @@ def test_route_raises_where_no_kernel_computes(mode, c, bf16_dots):
     ({"act": "leaky_relu", "kernel_size": 5, "kernel_size2": 5}, "other"),
     ({"act": "leaky_relu", "kernel_size2": 1}, "other"),
     ({"int8_dots": True, "kernel_size": 5}, "int8"),
+    ({"int8_dots": True, "act": "leaky_relu", "kernel_size": 3,
+      "kernel_size2": 3, "biases": ()}, "int8"),
+    ({"int8_dots": True, "kernel_size2": 3}, "int8"),
+    ({"int8_dots": True, "biases": ()}, "int8"),
 ])
 def test_mode(kwargs, mode):
     kw = dict(kernel_size=7, kernel_size2=1, act="elu", biases=None,
