@@ -3,20 +3,19 @@ audiodec_tpu/archive/resunit_kernel.py, the TPU kernel
 `fused_residual_stack`, pallas_call at :118).
 
 A stack is the units v += conv1x1(ELU(conv_k_dil_d(ELU(v)))), one per
-dilation, with zero left context at t=0 and no biases; ELU is the TPU
-kernel's exp(min(v, 0)) - 1 whatever the config names (`:34-37`).  The TPU
-kernel works in f32 whatever it is given (`:94`); here the input must be
-f32 and the output is f32.
+dilation, any k and any number of units, with zero left context at t=0 and
+no biases; ELU is the TPU kernel's exp(min(v, 0)) - 1 whatever the config
+names (`:34-37`).  The TPU kernel works in f32 whatever it is given
+(`:94`); here the input must be f32 and the output is f32.
 
 On a CUDA tensor one wrapper call runs csrc/resunit_stack.cu through
 `ops/kernels/folded_stack.py resunit_stack` (which the folded stack's
-autoencoder mode also takes above C = 32): two CUDA launches per unit (the
-k-tap conv, then the 1x1 conv with the residual), counted once in
-`launches`; on a CPU tensor it runs
-`fused_residual_stack_plain`.  The TPU kernel's time tiles and their
-materialized windows (`_windowed`, `:40-52`) and the archived wrappers'
-tile choice (`fast_experiments.py:21-25`) are VMEM workarounds and are not
-ported.
+true-f32 route also takes), one CUDA launch per unit (both convs of the
+unit in one block, a2 in shared memory), counted once in `launches`; on a
+CPU tensor it runs `fused_residual_stack_plain`.  The TPU kernel's time
+tiles and their materialized windows (`_windowed`, `:40-52`) and the
+archived wrappers' tile choice (`fast_experiments.py:21-25`) are VMEM
+workarounds and are not ported.
 
 Bound on the H100: per stack 2 * (k + 1) * C^2 FLOP per sample and unit
 (48 C^2 for k = 7 and three units) on the f32 FMA units (67 TFLOP/s;
@@ -37,13 +36,11 @@ import torch.nn.functional as F
 from audiodec_tpu_torch.ops.activations import elu_exp
 from audiodec_tpu_torch.ops.kernels.folded_stack import (  # noqa: F401
     MAX_CHANNELS,
-    packed_resunit,
     res_stack_params,
     resunit_stack,
 )
 
 DEFAULT_TILE_T = 1024
-KERNEL_SIZES = (1, 7)   # the CUDA kernel's conv widths (k, and the 1x1)
 
 launches = 0            # wrapper calls that ran csrc/resunit_stack.cu
 
@@ -84,15 +81,15 @@ def fused_residual_stack_bct(x: torch.Tensor, unit_params: Sequence, *,
         return fused_residual_stack_plain(x, unit_params, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if kernel_size not in KERNEL_SIZES:
-        raise NotImplementedError(f"the kernel takes k in {KERNEL_SIZES}, "
-                                  f"got {kernel_size}")
     if not 1 <= c <= MAX_CHANNELS:
         raise ValueError(f"the kernel takes C in 1..{MAX_CHANNELS}, got {c}")
     if any(w.device != x.device for u in unit_params for w in u):
         raise ValueError("weights must be on the device of x")
-    v = resunit_stack(x.contiguous(), packed_resunit(unit_params, c, False),
-                      dilations, kernel_size)
+    if kernel_size < 1 or not dilations or min(dilations) < 1:
+        raise ValueError(f"need k >= 1 and dilations >= 1, got k="
+                         f"{kernel_size}, dilations={tuple(dilations)}")
+    v = resunit_stack(x.contiguous(), unit_params, dilations, act="elu_exp",
+                      shape=f"k={kernel_size}, dilations={tuple(dilations)}")
     launches += 1
     return v
 

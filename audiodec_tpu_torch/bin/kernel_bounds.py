@@ -70,11 +70,12 @@ def int8_stack(b, t, c, storage=F32) -> dict:
                           weight=INT8, peak="int8")
 
 
-def resunit_stack(b, t, c) -> dict:
-    """The archived fused stack at (b, c, t): three k=7 units in true f32
-    (f32 operands and weights, the FMA units' peak)."""
-    return residual_stack(b, t, c, k=7, k2=1, storage=F32, weight=F32,
-                          peak="f32")
+def resunit_stack(b, t, c, *, k=7, k2=1, units=3, bias=False) -> dict:
+    """csrc/resunit_stack.cu at (b, c, t): `units` units of any shape in
+    true f32 (f32 activation, weights and biases, the FMA units' peak); by
+    default the archived fused stack's three k=7 units."""
+    return residual_stack(b, t, c, k=k, k2=k2, storage=F32, weight=F32,
+                          peak="f32", units=units, bias=bias)
 
 
 def rvq_encode(n, d=CODE_DIM, q=CODEBOOKS, codes=CODES) -> dict:

@@ -11,14 +11,16 @@ On the card (`route` picks):
     k=7, 1x1 second conv, no biases), `mma_voc_launches` (the vocoder
     units: LeakyReLU with slope `act_param`, k = k2 in {3, 7, 11},
     optional biases) and `mma_other_launches` (any other shape);
-  - C <= 32 in true f32 (f32 storage, `bf16_dots=False`): the f32 FMA
-    kernels, `csrc/folded_stack.cu` for the autoencoder units (counted in
-    `launches`) and `csrc/resblock_stack.cu` for the vocoder units
-    (`resblock_launches`), 1..3 units; other shapes have no true-f32
-    kernel and raise;
-  - the autoencoder units at C from 33 to 256: `csrc/resunit_stack.cu`
-    (the archived per-tap stack's kernel, two CUDA launches per unit, with
-    bf16 operand and storage rounding), counted in `wide_launches`;
+  - C <= 32 in true f32 (f32 storage, `bf16_dots=False`), the shipped
+    shapes with 1..3 units: the f32 FMA kernels, `csrc/folded_stack.cu`
+    for the autoencoder units (counted in `launches`) and
+    `csrc/resblock_stack.cu` for the vocoder units (`resblock_launches`);
+  - C from 33 to 256 with bf16 operands (`bf16_dots`, or bf16 storage):
+    `csrc/wide_stack_mma.cu` (bf16 `mma.sync`, one CUDA launch per unit)
+    at every unit shape, counted in `wide_launches`;
+  - every other true-f32 stack, any C up to 256 and any unit shape and
+    count: `csrc/resunit_stack.cu` (f32 FMA, one CUDA launch per unit, the
+    archived stack's kernel), counted in `resunit_launches`;
   - int8 mode (`int8_dots`) with "row" activation scales, the int8
     decode's units (ELU, a 1x1 second conv, no biases) at any k and number
     of units, any C from 4 to 256 and any fold, f32 or bf16 storage:
@@ -30,7 +32,7 @@ On the card (`route` picks):
     `folded_residual_stack_int8_tile_plain`.
 The plain int8 versions take every unit shape the TPU kernel takes
 (LeakyReLU, k2 > 1, biases); no path sends those to the int8 kernels, which
-raise ValueError for them on the card.
+raise ValueError for them on the card, as every kernel does above C = 256.
 `_fma_stack` also runs the FMA kernels with bf16 operands, so that
 chip_smoke.py can time them beside the tensor-core kernel; no path calls it.
 
@@ -51,7 +53,8 @@ peak, 989 TFLOP/s bf16, 1979 TOP/s int8):
     against 3 * (11 + 11) * 32 * 32 * 2 FLOP per sample (1.04e12, 1.05 ms),
     so it is bound by operations;
   - int8 modes at the symAD decoder's stacks: see csrc/int8_mma_stack.cu
-    (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s).
+    (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s);
+  - true f32 on the FMA units (67 TFLOP/s): see csrc/resunit_stack.cu.
 See the notes in the CUDA sources for each design.
 
 Numerics follow the TPU kernel (`folded_stack.py:344-371`): the activation
@@ -99,8 +102,8 @@ RESBLOCK_KERNEL_SIZES = (3, 7, 11)
 # units the FMA kernels and the int8 "tile" kernel take
 MAX_UNITS = 3
 DEFAULT_TILE_ROWS = 1024
-# widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for; the
-# autoencoder mode takes C up to MAX_CHANNELS through csrc/resunit_stack.cu
+# widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for, and
+# the widest C any kernel takes
 PADDED_CHANNELS = (4, 8, 16, 32)
 MAX_CHANNELS = 256
 # csrc/folded_stack_mma.cu: its padded widths, units, the samples a warp
@@ -112,15 +115,24 @@ MMA_STEP = 32
 MMA_MAX_TILE = 1024
 BLOCK_SMEM = 232448
 MMA_ACT = {"elu": 0, "leaky_relu": 1}
-# csrc/resunit_stack.cu's output channels per block (C <= 32, else 64) and
-# input channels per shared-memory stage
-RESUNIT_BLOCK_CO = (32, 64)
-RESUNIT_KC = 8
-# csrc/resunit_stack.cu's flags: the folded stack's autoencoder mode (ELU as
-# expm1, F.elu, as the plain version and csrc/folded_stack.cu take it, where
-# the archived stack takes exp(min(v, 0)) - 1), and in that mode rounding
-# the staged activations to bf16 and the residual to bf16
-RESUNIT_ROUND_OPERANDS, RESUNIT_BF16_RESIDUAL, RESUNIT_FOLDED = 1, 2, 4
+# csrc/resunit_stack.cu: a thread's output channels and samples, the most
+# threads a block has, the input channels a stage may hold (powers of two,
+# largest first), and its activations: the archived stack's
+# exp(min(v, 0)) - 1, F.elu's expm1 and LeakyReLU
+UNIT_TM, UNIT_TN = 16, 8
+UNIT_THREADS = 256
+UNIT_KC = (16, 8, 4, 2, 1)
+UNIT_ACT = {"elu_exp": 0, "elu": 1, "leaky_relu": 2}
+# csrc/wide_stack_mma.cu: the samples a warp row takes (4 m16 tiles), a
+# warp's output channels, the most warps and samples a block has, and the
+# stage widths (input channels), largest first.  (Chosen on the card,
+# PERF.md §6: at C = 64, 8 warps over 256 samples, two blocks per SM, ran
+# faster than 16 warps over 512.)
+WIDE_WARP_ROWS = 64
+WIDE_WARP_N = 32
+WIDE_MAX_WARPS = 16
+WIDE_MAX_ROWS = 256
+WIDE_KC = (128, 64, 32)
 
 INT8_CHANNELS = (4, 256)
 INT8_QMAX = 127.0
@@ -141,7 +153,8 @@ mma_launches = 0        # csrc/folded_stack_mma.cu, autoencoder units
 mma_voc_launches = 0    # csrc/folded_stack_mma.cu, vocoder units
 mma_other_launches = 0  # csrc/folded_stack_mma.cu, any other unit shape
 launches = 0            # autoencoder units, FMA, csrc/folded_stack.cu
-wide_launches = 0       # autoencoder mode at C > 32, csrc/resunit_stack.cu
+wide_launches = 0       # C > 32, bf16 operands, csrc/wide_stack_mma.cu
+resunit_launches = 0    # other true-f32 stacks, FMA, csrc/resunit_stack.cu
 resblock_launches = 0   # vocoder units, FMA, csrc/resblock_stack.cu
 int8_launches = 0       # int8 mode, "row" scales, csrc/int8_mma_stack.cu
 int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_stack.cu
@@ -526,11 +539,38 @@ def _resblock_kernel():
 
 @functools.cache
 def _resunit_kernel():
-    fn = _build.load("resunit_stack").resunit_conv_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+    fn = _build.load("resunit_stack").resunit_stack_forward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _wide_kernel():
+    fn = _build.load("wide_stack_mma").wide_stack_forward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_CUDA_LAUNCHES = {"resunit_stack": "resunit_stack_cuda_launches",
+                  "wide_stack_mma": "wide_stack_cuda_launches"}
+
+
+def cuda_launches(source: str) -> int:
+    """The CUDA launches that csrc/resunit_stack.cu or
+    csrc/wide_stack_mma.cu (`source`, the file's name) has made in this
+    process, counted by the library itself: one per unit of each wrapper
+    call."""
+    fn = getattr(_build.load(source), _CUDA_LAUNCHES[source])
+    fn.restype = ctypes.c_longlong
+    return fn()
 
 
 def _pack_convs(ws, c: int, cp: int, rounded: bool) -> torch.Tensor:
@@ -551,37 +591,48 @@ def _pack_weights(unit_params, c: int, cp: int, rounded: bool):
     return w1, w2[:, 0].contiguous()
 
 
+def _pack_biases(biases, c: int, cp: int):
+    """The biases as (n, 2, cp) f32 (never rounded: the TPU kernel adds them
+    in f32), zero-padded from C to cp channels, or None."""
+    if biases is None:
+        return None
+    return torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
+                                     F.pad(b2.float(), (0, cp - c))])
+                        for b1, b2 in biases]).contiguous()
+
+
 def _pack_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
-    """Vocoder mode: (n, K, cp, cp) twice and the biases as (n, 2, cp) f32
-    (never rounded: the TPU kernel adds them in f32), or None."""
+    """Vocoder mode: (n, K, cp, cp) twice and the biases (`_pack_biases`)."""
     w1 = _pack_convs([w for w, _ in unit_params], c, cp, rounded)
     w2 = _pack_convs([w for _, w in unit_params], c, cp, rounded)
-    if biases is None:
-        return w1, w2, None
-    b = torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
-                                  F.pad(b2.float(), (0, cp - c))])
-                     for b1, b2 in biases])
-    return w1, w2, b.contiguous()
+    return w1, w2, _pack_biases(biases, c, cp)
 
 
 def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
-    """csrc/folded_stack_mma.cu's operands: each conv's taps as
-    (n, k, cp, cp) bf16 [u][tap][c_out][c_in], zero-padded from C to cp
-    channels, and the biases as (n, 2, cp) f32 (never rounded: the TPU
-    kernel adds them in f32), or None."""
+    """csrc/folded_stack_mma.cu's and csrc/wide_stack_mma.cu's operands:
+    each conv's taps as (n, k, cp, cp) bf16 [u][tap][c_out][c_in],
+    zero-padded from C to cp channels, and the biases (`_pack_biases`)."""
     def taps(ws):
         return torch.stack([F.pad(w.float().permute(2, 0, 1),
                                   (0, cp - c, 0, cp - c)) for w in ws]
                            ).to(torch.bfloat16).contiguous()
 
-    w1 = taps([w for w, _ in unit_params])
-    w2 = taps([w for _, w in unit_params])
-    if biases is None:
-        return w1, w2, None
-    b = torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
-                                  F.pad(b2.float(), (0, cp - c))])
-                     for b1, b2 in biases])
-    return w1, w2, b.contiguous()
+    return (taps([w for w, _ in unit_params]),
+            taps([w for _, w in unit_params]), _pack_biases(biases, c, cp))
+
+
+def _pack_unit(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/resunit_stack.cu's operands: each conv as (n, cp, k, cp) f32
+    [u][c_in][tap][c_out], so that a stage of input channels is one run
+    and a thread's 16 output channels four float4s, zero-padded from C to
+    cp channels, and the biases (`_pack_biases`)."""
+    def convs(ws):
+        return torch.stack([F.pad(w.float().permute(1, 2, 0),
+                                  (0, cp - c, 0, 0, 0, cp - c)) for w in ws]
+                           ).contiguous()
+
+    return (convs([w for w, _ in unit_params]),
+            convs([w for _, w in unit_params]), _pack_biases(biases, c, cp))
 
 
 def _pack_int8_mma(unit_params, c: int, cp: int, _rounded: bool):
@@ -615,25 +666,6 @@ def _pack_int8(unit_params, c: int, cp: int, _rounded: bool):
     w2, s2 = zip(*(pack(w) for _, w in unit_params))
     return (torch.stack(w1), torch.stack(w2)[:, 0].contiguous(),
             torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous())
-
-
-def pack_resunit(w: torch.Tensor, c: int, rounded: bool) -> torch.Tensor:
-    """Torch (C, C, K) -> csrc/resunit_stack.cu's (K, CI, CO) [k][i][o] f32,
-    input channels zero-padded to a multiple of RESUNIT_KC and output
-    channels to one of the block's BM; rounded to bf16 values if asked."""
-    bm = RESUNIT_BLOCK_CO[0] if c <= RESUNIT_BLOCK_CO[0] else \
-        RESUNIT_BLOCK_CO[1]
-    ci = -(-c // RESUNIT_KC) * RESUNIT_KC
-    co = -(-c // bm) * bm
-    w = F.pad(w.float().permute(2, 1, 0), (0, co - c, 0, ci - c))
-    if rounded:
-        w = w.to(torch.bfloat16).float()
-    return w.contiguous()
-
-
-def _pack_resunit_units(unit_params, c: int, _cp: int, rounded: bool):
-    return [(pack_resunit(w1, c, rounded), pack_resunit(w2, c, rounded))
-            for w1, w2 in unit_params]
 
 
 # packed weights by what the weight tensors hold (device, dtype, address,
@@ -673,54 +705,26 @@ def _packed_int8_mma(unit_params, c: int, cp: int):
     return cached_pack(_pack_int8_mma, weights, c, cp, False, unit_params)
 
 
-def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
+def _unit_tensors(unit_params, biases):
     tensors = tuple(w for u in unit_params for w in u)
     if biases is not None:
         tensors += tuple(b for u in biases for b in u)
-    return cached_pack(_pack_resblock, tensors, c, cp, rounded,
-                        unit_params, biases)
+    return tensors
+
+
+def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
+    return cached_pack(_pack_resblock, _unit_tensors(unit_params, biases), c,
+                       cp, rounded, unit_params, biases)
 
 
 def _packed_mma(unit_params, biases, c: int, cp: int):
-    tensors = tuple(w for u in unit_params for w in u)
-    if biases is not None:
-        tensors += tuple(b for u in biases for b in u)
-    return cached_pack(_pack_mma, tensors, c, cp, True, unit_params, biases)
+    return cached_pack(_pack_mma, _unit_tensors(unit_params, biases), c, cp,
+                       True, unit_params, biases)
 
 
-def packed_resunit(unit_params, c: int, rounded: bool):
-    weights = tuple(w for u in unit_params for w in u)
-    return cached_pack(_pack_resunit_units, weights, c, 0, rounded,
-                       unit_params)
-
-
-def resunit_stack(x: torch.Tensor, packed, dilations: Sequence[int],
-                  kernel_size: int, flags: int = 0) -> torch.Tensor:
-    """The units through csrc/resunit_stack.cu, two CUDA launches each:
-    acc = conv_k_d(ELU(v)), then v + conv1x1(ELU(acc)), in place from the
-    second unit on (each element is read and written by one thread).
-    x: contiguous (B, C, T) f32 on the card; packed: `packed_resunit`;
-    flags: 0 (the archived stack) or RESUNIT_FOLDED with
-    RESUNIT_ROUND_OPERANDS and RESUNIT_BF16_RESIDUAL as needed."""
-    b, c, t = x.shape
-    out = torch.empty_like(x)
-    acc = torch.empty_like(x)
-    fn = _resunit_kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        v = x
-        for (w1, w2), d in zip(packed, dilations):
-            err = fn(v.data_ptr(), None, acc.data_ptr(), w1.data_ptr(),
-                     b, c, t, kernel_size, int(d), w1.shape[1], w1.shape[2],
-                     0, flags, stream)
-            if err == 0:
-                err = fn(acc.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         w2.data_ptr(), b, c, t, 1, 1, w2.shape[1],
-                         w2.shape[2], 1, flags, stream)
-            if err != 0:
-                raise RuntimeError(f"resunit_stack kernel: CUDA error {err}")
-            v = out
-    return v
+def _packed_unit(unit_params, biases, c: int, cp: int):
+    return cached_pack(_pack_unit, _unit_tensors(unit_params, biases), c, cp,
+                       False, unit_params, biases)
 
 
 def _mode(kernel_size, kernel_size2, act, biases, int8_dots) -> str:
@@ -749,29 +753,26 @@ def _shape(kernel_size, kernel_size2, act, biases, dilations) -> str:
 
 
 def route(mode: str, c: int, bf16_storage: bool, bf16_dots: bool,
-          shape: str = "") -> str:
-    """The kernel a CUDA tensor of C channels takes in `mode` (`_mode`):
-    'int8' (the int8 modes' kernels), 'wide' (the autoencoder units above
-    C = 32, csrc/resunit_stack.cu), 'mma' (C <= 32 with the dot operands
-    rounded to bf16, csrc/folded_stack_mma.cu) or 'fma' (C <= 32 in true
-    f32, the autoencoder and vocoder units: csrc/folded_stack.cu,
-    csrc/resblock_stack.cu).  Raises ValueError, naming `shape`, where no
-    kernel computes the units."""
+          units: int = MAX_UNITS, shape: str = "") -> str:
+    """The kernel a CUDA tensor of C channels and `units` units takes in
+    `mode` (`_mode`): 'int8' (the int8 modes' kernels); with the dot
+    operands rounded to bf16, 'mma' at C <= 32 (csrc/folded_stack_mma.cu)
+    and 'wide' above (csrc/wide_stack_mma.cu); in true f32, 'fma' for the
+    autoencoder and vocoder units at C <= 32 with 1..3 units
+    (csrc/folded_stack.cu, csrc/resblock_stack.cu) and 'resunit' for every
+    other stack (csrc/resunit_stack.cu).  Raises ValueError, naming
+    `shape`, above C = 256, where no kernel computes the units."""
     if mode == "int8":
         return "int8"
-    if c > MMA_CHANNELS[-1]:
-        if mode == "autoencoder" and c <= MAX_CHANNELS:
-            return "wide"
-        widest = MAX_CHANNELS if mode == "autoencoder" else MMA_CHANNELS[-1]
-        raise ValueError(f"the {mode} units take C <= {widest} on the card, "
-                         f"got C={c} ({shape})")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the card takes C <= {MAX_CHANNELS}, got C={c} "
+                         f"({shape})")
     if bf16_dots or bf16_storage:
-        return "mma"
-    if mode == "other":
-        raise ValueError(f"no true-f32 kernel for these units ({shape}): in "
-                         f"f32 storage with bf16_dots=False the card takes "
-                         f"only the autoencoder and vocoder units")
-    return "fma"
+        return "mma" if c <= MMA_CHANNELS[-1] else "wide"
+    if (c <= PADDED_CHANNELS[-1] and mode in ("autoencoder", "vocoder")
+            and units <= MAX_UNITS):
+        return "fma"
+    return "resunit"
 
 
 class MmaGeometry(NamedTuple):
@@ -822,6 +823,125 @@ def mma_geometry(c: int, kernel_size: int, kernel_size2: int,
     return MmaGeometry(cp, tile, halo, mma_smem(cp, k, k2, tile + halo))
 
 
+class UnitGeometry(NamedTuple):
+    """A launch of csrc/resunit_stack.cu: channels padded to cp, blocks of
+    `threads` threads that run the first conv over `rows` samples and
+    write `tile` output samples behind a halo of look-back, kc1 and kc2
+    input channels per stage of the two convs, the block's shared memory
+    in bytes, and the CUDA launches per wrapper call (one per unit)."""
+    cp: int
+    threads: int
+    rows: int
+    tile: int
+    halo: int
+    kc1: int
+    kc2: int
+    smem: int
+    launches: int
+
+    @property
+    def warps(self) -> int:
+        return -(-self.threads // 32)
+
+
+def unit_smem(cp: int, k: int, k2: int, rows: int, width: int, kc1: int,
+              kc2: int) -> int:
+    """Shared memory of a block (csrc/resunit_stack.cu `layout`): two ring
+    buffers, each the larger conv stage's weights ([i][tap][cp] f32) and
+    kc1 rows of `width` staged input samples, 16-byte aligned; and a2, cp
+    rows of rows + k2 - 1 samples, the stride made odd."""
+    stage = -(-(max(kc1 * k, kc2 * k2) * cp + kc1 * width) // 4) * 4
+    return 4 * (2 * stage + cp * ((rows + k2 - 1) | 1))
+
+
+def unit_geometry(c: int, kernel_size: int, kernel_size2: int,
+                  dilations: Sequence[int]) -> UnitGeometry:
+    """How csrc/resunit_stack.cu runs these units: channels padded to a
+    multiple of 16, cp / 16 threads along them and as many along time as
+    make up to UNIT_THREADS, each thread 16 channels x 8 samples, so
+    8 * threads / (cp / 16) conv1 samples per block; the stages as wide as
+    fit (kc1 input channels of the first conv, kc2 of the second within
+    the same weight buffer), halving the threads along time where none
+    fits.  Raises ValueError where nothing fits a block's shared memory."""
+    k, k2, d = kernel_size, kernel_size2, max(dilations)
+    cp = -(-c // UNIT_TM) * UNIT_TM
+    ny = cp // UNIT_TM
+    halo = (k - 1) * d + k2 - 1
+    nx = UNIT_THREADS // ny
+    while nx >= 1 and UNIT_TN * nx > k2 - 1:
+        rows = UNIT_TN * nx
+        for kc1 in UNIT_KC:
+            kc2 = next(v for v in UNIT_KC if v * k2 <= max(kc1 * k, k2))
+            smem = unit_smem(cp, k, k2, rows, rows + (k - 1) * d, kc1, kc2)
+            if smem <= BLOCK_SMEM:
+                return UnitGeometry(cp, nx * ny, rows, rows - (k2 - 1),
+                                    halo, kc1, kc2, smem, len(dilations))
+        nx //= 2
+    raise ValueError(
+        f"csrc/resunit_stack.cu: a halo of {halo} samples (k={k}, k2={k2}, "
+        f"dilations={tuple(dilations)}) leaves no tile in a block's "
+        f"{BLOCK_SMEM} bytes of shared memory at C={c}")
+
+
+class WideGeometry(NamedTuple):
+    """A launch of csrc/wide_stack_mma.cu: channels padded to cp, blocks
+    of `warps` warps (warps_m along time x cp / 32 along the channels) that
+    run the first conv over `rows` samples and write `tile` output samples
+    behind a halo of look-back, weight stages of kc input channels in
+    `buffers` ring buffers, the block's shared memory in bytes, and the
+    CUDA launches per wrapper call (one per unit)."""
+    cp: int
+    warps_m: int
+    warps: int
+    rows: int
+    tile: int
+    halo: int
+    kc: int
+    buffers: int
+    smem: int
+    launches: int
+
+
+def wide_smem(cp: int, yrows: int, kc: int, buffers: int) -> int:
+    """Shared memory of a block (csrc/wide_stack_mma.cu `smem_bytes`): the
+    staged act(v), later a2, as `yrows` bf16 rows of cp + 8, and the ring
+    of weight stages, cp bf16 rows of kc + 8 each."""
+    return 2 * (yrows * (cp + 8) + buffers * cp * (kc + 8))
+
+
+def wide_geometry(c: int, kernel_size: int, kernel_size2: int,
+                  dilations: Sequence[int]) -> WideGeometry:
+    """How csrc/wide_stack_mma.cu runs these units: channels padded to a
+    multiple of 32, one warp per 32 output channels along them and as many
+    rows of warps (64 samples each) as make up to WIDE_MAX_WARPS warps and
+    WIDE_MAX_ROWS samples;
+    the widest weight stage (WIDE_KC, dividing cp) and the most buffers
+    (3, then 2) that fit beside the staged rows, halving the warp rows
+    where none fits.  Raises ValueError where nothing fits a block's
+    shared memory."""
+    k, k2, d = kernel_size, kernel_size2, max(dilations)
+    cp = -(-c // WIDE_WARP_N) * WIDE_WARP_N
+    wn = cp // WIDE_WARP_N
+    halo = (k - 1) * d + k2 - 1
+    for wm in range(min(WIDE_MAX_WARPS // wn,
+                        WIDE_MAX_ROWS // WIDE_WARP_ROWS), 0, -1):
+        rows = WIDE_WARP_ROWS * wm
+        if rows <= k2 - 1:
+            break
+        yrows = max(rows + (k - 1) * d, rows + k2 - 1)
+        for kc in (v for v in WIDE_KC if cp % v == 0):
+            for buffers in (3, 2):
+                smem = wide_smem(cp, yrows, kc, buffers)
+                if smem <= BLOCK_SMEM:
+                    return WideGeometry(cp, wm, wm * wn, rows,
+                                        rows - (k2 - 1), halo, kc, buffers,
+                                        smem, len(dilations))
+    raise ValueError(
+        f"csrc/wide_stack_mma.cu: a halo of {halo} samples (k={k}, k2={k2}, "
+        f"dilations={tuple(dilations)}) leaves no tile in a block's "
+        f"{BLOCK_SMEM} bytes of shared memory at C={c}")
+
+
 def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
                           dilations: Sequence[int] = (1, 3, 9),
                           kernel_size: int = KERNEL_SIZE,
@@ -842,7 +962,7 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
     scales, as the TPU kernel reads it.  fold (0: max(1, 128 // C)) and
     tile_rows define the int8 modes' scales and are accepted, unused, by
     the others (module docstring)."""
-    global wide_launches
+    global wide_launches, resunit_launches
     mode = _mode(kernel_size, kernel_size2, act, biases, int8_dots)
     _check_args(x, unit_params, dilations, kernel_size, kernel_size2, biases)
     if fold < 0 or tile_rows < 1:
@@ -863,7 +983,7 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
     c = x.shape[1]
     bf16 = x.dtype == torch.bfloat16
     shape = _shape(kernel_size, kernel_size2, act, biases, dilations)
-    kernel = route(mode, c, bf16, bf16_dots, shape)
+    kernel = route(mode, c, bf16, bf16_dots, len(dilations), shape)
     if kernel == "mma":
         return _mma_stack(x, unit_params, dilations, kernel_size,
                           kernel_size2, act, act_param, biases, mode)
@@ -873,14 +993,75 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
                           kernel_size2=kernel_size2, act=act,
                           act_param=act_param, biases=biases,
                           bf16_dots=False)
-    rounded = bf16_dots or bf16
-    flags = (RESUNIT_FOLDED
-             | (RESUNIT_ROUND_OPERANDS if rounded else 0)
-             | (RESUNIT_BF16_RESIDUAL if bf16 else 0))
-    out = resunit_stack(x.float(), packed_resunit(unit_params, c, rounded),
-                        dilations, kernel_size, flags)
-    wide_launches += 1
-    return out.to(x.dtype)
+    if kernel == "wide":
+        out = _wide_stack(x, unit_params, dilations, act, act_param, biases,
+                          shape)
+        wide_launches += 1
+        return out
+    out = resunit_stack(x, unit_params, dilations, act=act,
+                        act_param=act_param, biases=biases, shape=shape)
+    resunit_launches += 1
+    return out
+
+
+def resunit_stack(x: torch.Tensor, unit_params: Sequence,
+                  dilations: Sequence[int], *, act: str = "elu_exp",
+                  act_param: float = 0.0, biases=None,
+                  shape: str = "") -> torch.Tensor:
+    """One wrapper call of csrc/resunit_stack.cu, true f32 on the FMA units,
+    one CUDA launch per unit: x contiguous (B, C, T) f32 on the card, C up
+    to 256; act 'elu_exp' (the archived stack's exp(min(v, 0)) - 1),
+    'elu' (expm1) or 'leaky_relu' (slope act_param); each conv's width its
+    weights'.  The caller counts the call."""
+    b, c, t = x.shape
+    n = len(dilations)
+    k, k2 = unit_params[0][0].shape[-1], unit_params[0][1].shape[-1]
+    g = unit_geometry(c, k, k2, dilations)
+    w1, w2, bias = _packed_unit(unit_params, biases, c, g.cp)
+    dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    out = torch.empty_like(x)
+    scratch = (torch.empty((min(n - 1, 2),) + tuple(x.shape),
+                           device=x.device, dtype=torch.float32)
+               if n > 1 else None)
+    with torch.cuda.device(x.device):
+        err = _resunit_kernel()(
+            x.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), None if bias is None else bias.data_ptr(), b, c,
+            t, g.cp, n, dil, k, k2, UNIT_ACT[act], float(act_param),
+            g.threads, g.kc1, g.kc2, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"true-f32 residual stack kernel ({shape}): CUDA "
+                           f"error {err}")
+    return out
+
+
+def _wide_stack(x, unit_params, dilations, act, act_param, biases, shape):
+    """One wrapper call of csrc/wide_stack_mma.cu: the stack above C = 32
+    with bf16 operands, in x's storage dtype, one CUDA launch per unit."""
+    b, c, t = x.shape
+    n = len(dilations)
+    k, k2 = unit_params[0][0].shape[-1], unit_params[0][1].shape[-1]
+    g = wide_geometry(c, k, k2, dilations)
+    w1, w2, bias = _packed_mma(unit_params, biases, c, g.cp)
+    dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    out = torch.empty_like(x)
+    # the f32 sum s crosses the launches (storage_residual)
+    scratch = (torch.empty((min(n - 1, 2),) + tuple(x.shape),
+                           device=x.device, dtype=torch.float32)
+               if n > 1 else None)
+    with torch.cuda.device(x.device):
+        err = _wide_kernel()(
+            x.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), None if bias is None else bias.data_ptr(), b, c,
+            t, g.cp, n, dil, k, k2, MMA_ACT[act], float(act_param),
+            g.warps_m, g.kc, g.buffers, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wide tensor-core residual stack kernel "
+                           f"({shape}): CUDA error {err}")
+    return out
 
 
 def _check_args(x, unit_params, dilations, kernel_size, kernel_size2,

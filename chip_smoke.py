@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's nine CUDA kernels (the folded residual stack on the
-tensor cores at C <= 32 with bf16 operands, at every unit shape; its FMA
-kernels for true f32, the autoencoder and the vocoder units; its int8
-"row" mode on the int8 tensor cores and its int8 "tile" mode; the archived
-per-tap residual stack, which is also the autoencoder mode above C = 32;
-the fused RVQ encode, the rate
+Builds the port's ten CUDA kernels (the folded residual stack on the
+tensor cores with bf16 operands at C <= 32 and above, at every unit shape;
+its FMA kernels for true f32 at C <= 32, the autoencoder and the vocoder
+units; its int8 "row" mode on the int8 tensor cores and its int8 "tile"
+mode; the archived per-tap residual stack in true f32, which is also every
+other true-f32 stack of the folded stack; the fused RVQ encode, the rate
 probe's dot chain and the ablation probe's stack) from the sources in this
 checkout, one nvcc each, all started together; holds each against its
 plain PyTorch version;
@@ -30,7 +30,8 @@ profiles one more transcode of each:
     int8-decode and with --dtype mixed.  It prints the CLI's JSON line;
   - fused_path (slice 4): `bin/fused_probe.py`'s fused_path, symAD in true
     f32 at B=16 x 10 s, every residual stack (C = 32/64/128/256, encoder
-    and decoder) through csrc/resunit_stack.cu and the RVQ through
+    and decoder) through csrc/resunit_stack.cu (slice 10: one CUDA launch
+    per unit, asserted by tracing one call of each stack) and the RVQ through
     csrc/rvq_encode.cu, whose zq the decoder reads; beside it the true-f32
     plain_path on the same input (index flips, the two decoders on the
     plain indices, its time);
@@ -52,7 +53,8 @@ profiles one more transcode of each:
     of the tool's folds, the plain chain, the autoencoder mode with bf16
     dots (csrc/folded_stack.cu at C = 32, csrc/resunit_stack.cu above), and
     the int8 mode with "row" (csrc/int8_mma_stack.cu) and "tile" scales
-    (csrc/int8_tile_stack.cu).
+    (csrc/int8_tile_stack.cu); above C = 32 the autoencoder mode runs on
+    csrc/wide_stack_mma.cu (slice 10; csrc/resunit_stack.cu before).
 
 The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
 256 with ragged T, and the trained golden's eight stacks at B=2, f32
@@ -102,6 +104,17 @@ and bf16 storage, held to INT8_REL like its other cases (bit equality
 expected: the integer sums are exact in any order); the `profile` phase
 names the launches of its traced transcode.
 
+The checks of slice 10: `wide_kernel_vs_plain` (every unit shape of
+WIDE_SHAPES, C = 48, 64, 96, 128, 256, T = 1999 and 50, B = 2: with bf16
+dots in f32 and bf16 storage csrc/wide_stack_mma.cu, held as check_wide
+says; in true f32 csrc/resunit_stack.cu to the f32 tolerance, with the
+bit-equal count); `f32_unit_kernel_vs_plain` (true f32 at C = 4, 8, 20,
+32 for the shapes the FMA kernels there do not take, now
+csrc/resunit_stack.cu's); `resunit_kernel_vs_plain` gains k = 1, 3, 5,
+11, one and four units and C = 1, 33, 200, with the bit-equal count;
+`probe_kernel_rows` gains the wide route in bf16 storage and the true-f32
+route at the probe's shapes, each call's CUDA launches asserted.
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -120,11 +133,13 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-Every path sets the twelve launch counts to 0 just before it and reads
+Every path sets the thirteen launch counts to 0 just before it and reads
 them just after (mma, mma_voc, mma_other: csrc/folded_stack_mma.cu by unit
 shape, autoencoder, vocoder or other; autoencoder and vocoder: the FMA
-kernels; int8, int8_tile, wide: all ops/kernels/folded_stack.py; resunit:
-archive/resunit_kernel.py; rvq: archive/vq_kernel.py; dot_chain:
+kernels; int8, int8_tile, wide (csrc/wide_stack_mma.cu), resunit_f32 (the
+folded stack's calls of csrc/resunit_stack.cu): all
+ops/kernels/folded_stack.py; resunit: archive/resunit_kernel.py (the same
+CUDA kernel); rvq: archive/vq_kernel.py; dot_chain:
 ops/kernels/dot_chain.py; ablate: ops/kernels/ablate_stack.py; one per
 wrapper call), and each path must leave the counts named here and 0 for
 the rest: main_path 2 mma; ad_v1_path 1 mma and 3 mma_voc; int8_path 1
@@ -143,8 +158,10 @@ main_path; its vocoder units: ad_v1_path; its other shapes, which no path
 runs: mma_kernel_vs_plain; the FMA kernels: golden_parity and voc_golden,
 the true-f32 runs; int8 mode: int8_path; the archived stack and the RVQ
 encode: fused_path; the dot chain: mxu_rate_path; the ablation stack:
-ablate_path; the tile mode and the wide autoencoder route:
-folded_probe_path, both dtypes), `launches_by_path` the counts of every
+ablate_path; the tile mode and the wide tensor-core route:
+folded_probe_path, both dtypes; the folded stack's true-f32 calls of
+csrc/resunit_stack.cu, which no path makes: wide_kernel_vs_plain),
+`launches_by_path` the counts of every
 path, and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`,
 `chain_ms` and `bound_ms` add up that path's launches at their shapes
 (the tensor-core kernel's autoencoder units: one f32 stack in the encoder
@@ -162,7 +179,9 @@ eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
 the five variants at (16, 32, 480000) f32 and of the default variant at
 each timed shape; tile mode: one call at each probe
 shape, (16, C, T) f32 at the default fold, its plain version timed once;
-wide route: one call at C = 64, 128, 256).  `bound_ms` is the larger of
+wide route: one call at C = 64, 128, 256 in f32 and in bf16 storage; the
+folded stack's true-f32 route: one call at the same shapes, bound at the
+f32 FMA peak).  `bound_ms` is the larger of
 bytes over 3.35 TB/s and operations over the peak of the dots' type (989
 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32), per launch
 (bin/kernel_bounds.py).  `library_ms` is the dot chain's torch chain
@@ -242,7 +261,7 @@ DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
 KERNELS = ("folded_stack", "resblock_stack", "int8_mma_stack",
-           "resunit_stack",
+           "resunit_stack", "wide_stack_mma",
            "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack",
            "folded_stack_mma")
 VOC_DILATIONS = (1, 3, 5)
@@ -456,25 +475,25 @@ def sq(a, b=None) -> float:
     return float((a * a).sum())
 
 
-def mma_bars(sums: dict) -> dict:
+def mma_bars(sums: dict, base: float = MMA_RL2) -> dict:
     """The relative L2s of squared sums (check_mma) and their bar: within
-    the larger of MMA_RL2 and ABLATE_FLOOR_FACTOR times the plain version's
+    the larger of `base` and ABLATE_FLOOR_FACTOR times the plain version's
     own distance from exact sums, of the plain version and of the exact
     sums."""
     rec = {"rel_l2": (sums["d_plain"] / sums["plain"]) ** 0.5,
            "exact_rl2": (sums["d_exact"] / sums["exact"]) ** 0.5,
            "plain_exact_rl2": (sums["d_plain_exact"] / sums["exact"]) ** 0.5}
-    rec["bar_rl2"] = max(MMA_RL2, ABLATE_FLOOR_FACTOR
+    rec["bar_rl2"] = max(base, ABLATE_FLOOR_FACTOR
                          * rec["plain_exact_rl2"])
     rec["passed"] = max(rec["exact_rl2"], rec["rel_l2"]) <= rec["bar_rl2"]
     return rec
 
 
-def check_pool(pool: list) -> dict:
-    """The relative L2 bar on a phase's short cases pooled (MMA_RL2)."""
+def check_pool(pool: list, base: float = MMA_RL2) -> dict:
+    """The relative L2 bar on a phase's short cases pooled (mma_bars)."""
     if not pool:
         return {"cases": 0}
-    rec = mma_bars({k: sum(p[k] for p in pool) for k in pool[0]})
+    rec = mma_bars({k: sum(p[k] for p in pool) for k in pool[0]}, base)
     if not rec["passed"]:
         raise AssertionError(f"tensor-core kernel, the {len(pool)} cases "
                              f"shorter than the halo pooled: {rec}")
@@ -898,8 +917,10 @@ def fma_timing(params, device, gen):
     (16, 32, 480000) f32: the autoencoder units with the golden's encoder
     weights (csrc/folded_stack.cu) and the vocoder units at k = 11 with
     seeded weights and biases (csrc/resblock_stack.cu), each with the
-    plain version's and the chain's ms and the bound at the f32 FMA peak;
-    rows by counter."""
+    plain version's and the chain's ms and the bound at the f32 FMA peak,
+    and csrc/resunit_stack.cu on the same inputs (`resunit_ms`, its
+    output held bit-equal to the plain version), which computes the same
+    function; rows by counter."""
     b, c, t = BATCH, 32, SECONDS * SR
     x = torch.randn(b, c, t, generator=gen, device=device)
     ae = stack_units(params, "encoder", device, torch.float32)
@@ -921,6 +942,16 @@ def fma_timing(params, device, gen):
         row.update(kernel_bounds.residual_stack(
             b, t, c, k=k, k2=k2, storage=4, weight=4, peak="f32",
             bias=kw.get("biases") is not None))
+
+        def unit_kernel():
+            return folded_stack.resunit_stack(
+                x, units, kw["dilations"], act=kw.get("act", "elu"),
+                act_param=kw.get("act_param", 0.0), biases=kw.get("biases"))
+        if not torch.equal(unit_kernel(), plain_of(x, units, kw)):
+            raise AssertionError(f"csrc/resunit_stack.cu at the {counter} "
+                                 f"units is not bit-equal to the plain "
+                                 f"version")
+        row["resunit_ms"] = cuda_ms(unit_kernel, reps=3)
         rows[counter] = [row]
     return rows
 
@@ -937,7 +968,8 @@ def read_launches() -> dict:
             "dot_chain": dot_chain.launches,
             "ablate": ablate_stack.launches,
             "int8_tile": folded_stack.int8_tile_launches,
-            "wide": folded_stack.wide_launches}
+            "wide": folded_stack.wide_launches,
+            "resunit_f32": folded_stack.resunit_launches}
 
 
 def launch_counts(**nonzero) -> dict:
@@ -953,7 +985,7 @@ def reset_launches():
     folded_stack.mma_other_launches = 0
     folded_stack.launches = folded_stack.resblock_launches = 0
     folded_stack.int8_launches = folded_stack.int8_tile_launches = 0
-    folded_stack.wide_launches = 0
+    folded_stack.wide_launches = folded_stack.resunit_launches = 0
     resunit_kernel.launches = vq_kernel.launches = 0
     dot_chain.launches = ablate_stack.launches = 0
 
@@ -1215,60 +1247,147 @@ def phase_int8_tile_kernel_vs_plain(params, device):
          cases=cases)
 
 
-def check_wide(x, units, bf16_dots: bool = True) -> dict:
-    """The autoencoder mode above C = 32 (csrc/resunit_stack.cu) vs its
-    plain version.  With bf16 operands or storage: relative L2 <= WIDE_RL2
-    and max error <= WIDE_MAX_REL x peak (bf16 flips, see WIDE_RL2); in
-    true f32 the f32 tolerance of check_close."""
-    before = folded_stack.wide_launches
-    out = folded_stack.folded_residual_stack(x, units, dilations=DILATIONS,
-                                             bf16_dots=bf16_dots)
-    ref = folded_stack.folded_residual_stack_plain(x, units, DILATIONS,
-                                                   bf16_dots)
+def check_wide(x, units, pool: list | None = None, **kw) -> dict:
+    """A stack above C = 32 through the wrapper against its plain version.
+    With bf16 operands or storage (csrc/wide_stack_mma.cu, counted in
+    `wide`): relative L2 within the larger of WIDE_RL2 and
+    ABLATE_FLOOR_FACTOR times the plain version's own distance from exact
+    sums, to the plain version and to the exact sums (mma_bars), and max
+    error within WIDE_MAX_REL of the peak.  Given a `pool`, a case shorter
+    than the halo adds its squared sums there for check_pool instead of
+    meeting the relative L2 bar alone, as check_mma pools; without one
+    every case meets it alone.  In true f32 (csrc/resunit_stack.cu, counted
+    in `resunit_f32`) the f32 tolerance of check_close, and whether the two
+    are bit-equal."""
+    bf16_dots = kw.get("bf16_dots", True)
+    counter = ("wide" if bf16_dots or x.dtype == torch.bfloat16
+               else "resunit_f32")
+    kw = {"dilations": DILATIONS, **kw}
+    before = read_launches()[counter]
+    out = folded_stack.folded_residual_stack(x, units, **kw)
+    ref = plain_of(x, units, kw)
     torch.cuda.synchronize()
-    if folded_stack.wide_launches != before + 1:
-        raise AssertionError("the wide autoencoder route was not taken")
+    if read_launches()[counter] != before + 1:
+        raise AssertionError(f"{counter}: the kernel was not launched")
     if out.dtype != x.dtype or out.shape != x.shape:
-        raise AssertionError(f"wide kernel gave {out.dtype} "
+        raise AssertionError(f"{counter} kernel gave {out.dtype} "
                              f"{tuple(out.shape)}")
-    if not (bf16_dots or x.dtype == torch.bfloat16):
+    if counter == "resunit_f32":
         err, rel = check_close(out, ref, x, False)
-        return {"max_abs_err": err, "max_rel_err": rel}
+        return {"max_abs_err": err, "max_rel_err": rel,
+                "bit_equal": bool(torch.equal(out, ref))}
+    exact = plain_of(x, units, kw, exact_sums=True)
     o, r = out.float(), ref.float()
     if not torch.isfinite(o).all():
         raise AssertionError("wide kernel output is not finite")
+    if torch.equal(o, x.float()):
+        raise AssertionError("wide kernel returned its input")
     err, peak = float((o - r).abs().max()), float(r.abs().max())
-    rl2 = float((o - r).norm() / r.norm())
-    if not (rl2 <= WIDE_RL2 and err <= WIDE_MAX_REL * peak):
-        raise AssertionError(f"wide kernel at {tuple(x.shape)} {x.dtype}: "
-                             f"relative L2 {rl2:.3g}, max {err / peak:.3g} "
-                             f"of the peak")
-    return {"max_abs_err": err, "max_rel_err": err / peak, "rel_l2": rl2}
+    sums = {"d_plain": sq(out, ref), "plain": sq(ref),
+            "d_exact": sq(out, exact), "exact": sq(exact),
+            "d_plain_exact": sq(ref, exact)}
+    rec = {**mma_bars(sums, WIDE_RL2), "max_abs_err": err,
+           "max_rel_err": err / peak}
+    halo = sum((kw.get("kernel_size", 7) - 1) * d + kw.get("kernel_size2", 1)
+               - 1 for d in kw["dilations"])
+    if x.shape[-1] < halo and pool is not None:
+        pool.append(sums)
+        rec["pooled"] = True
+    elif not rec["passed"]:
+        raise AssertionError(f"wide kernel at {tuple(x.shape)} {x.dtype} "
+                             f"{kw}: {rec}")
+    if not err <= WIDE_MAX_REL * peak:
+        raise AssertionError(f"wide kernel at {tuple(x.shape)} {x.dtype} "
+                             f"{kw}: max error {err / peak:.3g} of the peak")
+    return rec
+
+
+# the unit shapes of the wide cases: the four no shipped config uses, the
+# vocoder units at k = k2 = 3, 7, 11 with and without biases, and the
+# autoencoder units
+WIDE_SHAPES = {
+    **MMA_OTHER_SHAPES,
+    **{f"vocoder k={k}{', biases' if bias else ''}":
+       ("leaky_relu", k, k, bias, VOC_DILATIONS)
+       for k in (3, 7, 11) for bias in (True, False)},
+    "autoencoder": ("elu", 7, 1, False, DILATIONS),
+}
 
 
 def phase_wide_kernel_vs_plain(device):
-    """The autoencoder mode at C = 48, 64, 128 and 256 (csrc/resunit_stack.cu
-    with its bf16 flags) against its plain version: T = 1999 and 50
-    (shorter than a dilation-9 span), f32 and bf16 storage with bf16 dots,
-    and f32 without."""
+    """Every unit shape of WIDE_SHAPES at C = 48, 64, 96, 128 and 256,
+    T = 1999 and 50 (shorter than most halos), B = 2: with bf16 dots in f32
+    and bf16 storage csrc/wide_stack_mma.cu, and in true f32
+    csrc/resunit_stack.cu, each against its plain version (check_wide).
+    The autoencoder units, which this phase checked before the other
+    shapes, hold every case to the relative L2 bar alone; the other shapes'
+    cases shorter than the halo are pooled.  Returns the launch counts of
+    the phase."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
-    cases = []
-    for c in (48, 64, 128, 256):
-        for t in (1999, 50):
-            for dtype, bf16_dots in ((torch.float32, True),
-                                     (torch.bfloat16, True),
-                                     (torch.float32, False)):
-                units = random_units(c, device, dtype, gen)
-                x = torch.randn(2, c, t, generator=gen,
-                                device=device).to(dtype)
-                cases.append({"C": c, "T": t, "storage": str(dtype)[6:],
-                              "bf16_dots": bf16_dots,
-                              **check_wide(x, units, bf16_dots)})
+    reset_launches()
+    cases, pool = [], []
+    for name, (act, k, k2, bias, dil) in WIDE_SHAPES.items():
+        for c in (48, 64, 96, 128, 256):
+            for t in (1999, 50):
+                for dtype, bf16_dots in ((torch.float32, True),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, False)):
+                    units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                            dtype, gen)
+                    x = torch.randn(2, c, t, generator=gen,
+                                    device=device).to(dtype)
+                    cases.append({"units": name, "C": c, "T": t,
+                                  "storage": str(dtype)[6:],
+                                  "bf16_dots": bf16_dots,
+                                  **check_wide(
+                                      x, units,
+                                      None if name == "autoencoder" else pool,
+                                      bf16_dots=bf16_dots, **kw)})
+    launches = read_launches()
+    f32 = [c for c in cases if not c["bf16_dots"]]
     emit("wide_kernel_vs_plain", t0, tolerance={
-        "bf16": f"relative L2 <= {WIDE_RL2}, max error <= {WIDE_MAX_REL} x "
-                f"peak",
-        "f32": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak"}, cases=cases)
+        "bf16 operands": f"rel_l2 and exact_rl2 <= bar_rl2 = max({WIDE_RL2}, "
+                         f"{ABLATE_FLOOR_FACTOR} x plain_exact_rl2), per "
+                         f"case (the autoencoder units at every T), or over "
+                         f"the other shapes' cases shorter than the halo "
+                         f"pooled; max error <= {WIDE_MAX_REL} x peak",
+        "f32": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak"},
+        short_cases_pooled=check_pool(pool, WIDE_RL2),
+        pooled_over_own_bar=[c for c in cases
+                             if c.get("pooled") and not c["passed"]],
+        launches=launches,
+        f32_bit_equal=f"{sum(c['bit_equal'] for c in f32)} of {len(f32)}",
+        cases=cases)
+    return launches
+
+
+def phase_f32_unit_kernel_vs_plain(device):
+    """True f32 at C <= 32 for the stacks the FMA kernels there do not take,
+    now csrc/resunit_stack.cu's: the unit shapes no shipped config uses
+    (MMA_OTHER_SHAPES) and the autoencoder and vocoder units with four
+    units, at C = 4, 8, 20 and 32, T = 1999 and 50, B = 2, each to the f32
+    tolerance of check_close."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    shapes = {**MMA_OTHER_SHAPES,
+              "autoencoder, four units": ("elu", 7, 1, False,
+                                          (1, 3, 9, 27)),
+              "vocoder k=11, biases, four units": ("leaky_relu", 11, 11,
+                                                   True, (1, 3, 5, 7))}
+    cases = []
+    for name, (act, k, k2, bias, dil) in shapes.items():
+        for c in (4, 8, 20, 32):
+            for t in (1999, 50):
+                units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                        torch.float32, gen)
+                x = torch.randn(2, c, t, generator=gen, device=device)
+                cases.append({"units": name, "C": c, "T": t,
+                              **check_wide(x, units, bf16_dots=False, **kw)})
+    emit("f32_unit_kernel_vs_plain", t0,
+         tolerance=f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak",
+         bit_equal=f"{sum(c['bit_equal'] for c in cases)} of {len(cases)}",
+         cases=cases)
 
 
 def int8_kernel_timing(params, device, gen):
@@ -1415,37 +1534,57 @@ def symad_stacks(params, device):
     return stacks
 
 
-def check_resunit(x, units):
-    """The archived stack's kernel against its plain version, true f32;
-    returns (max abs error, the same relative to the peak)."""
-    out = resunit_kernel.fused_residual_stack_bct(x, units,
-                                                  dilations=DILATIONS)
-    ref = resunit_kernel.fused_residual_stack_plain(x, units, DILATIONS)
-    return check_close(out, ref, x, bf16_dots=False)
+def check_resunit(x, units, dilations=DILATIONS):
+    """The archived stack's kernel against its plain version, true f32, at
+    the units' conv width; returns (max abs error, the same relative to the
+    peak, whether the two are bit-equal)."""
+    out = resunit_kernel.fused_residual_stack_bct(
+        x, units, dilations=dilations, kernel_size=units[0][0].shape[-1])
+    ref = resunit_kernel.fused_residual_stack_plain(x, units, dilations)
+    err, rel = check_close(out, ref, x, bf16_dots=False)
+    return err, rel, bool(torch.equal(out, ref))
 
 
 def phase_resunit_kernel_vs_plain(params, device):
     """csrc/resunit_stack.cu against its plain version in f32: random units
-    at C = 4, 8, 32, 64, 128 and 256 with ragged T (1999, and 50, shorter
-    than a dilation-9 span), and the trained golden's eight stacks at
-    their full lengths (B=2)."""
+    at C = 1, 4, 8, 32, 33, 64, 128, 200 and 256 with ragged T (1999, and
+    50, shorter than a dilation-9 span); k = 1, 3, 5 and 11 at C = 33 and
+    200; one unit and four at C = 1, 33 and 200; and the trained golden's
+    eight stacks at their full lengths (B=2).  Each launch is one unit, so
+    a call makes one CUDA launch per unit."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    shapes = [(c, t, 7, DILATIONS) for c in (1, 4, 8, 32, 33, 64, 128, 200,
+                                              256) for t in (1999, 50)]
+    shapes += [(c, 1999, k, DILATIONS) for k in (1, 3, 5, 11)
+               for c in (33, 200)]
+    shapes += [(c, t, 7, dil) for dil in ((3,), (1, 3, 9, 27))
+               for c in (1, 33, 200) for t in (1999, 50)]
     cases = []
-    for c in (4, 8, 32, 64, 128, 256):
-        for t in (1999, 50):
-            units = random_units(c, device, torch.float32, gen)
-            x = torch.randn(2, c, t, generator=gen, device=device)
-            err, rel = check_resunit(x, units)
-            cases.append({"C": c, "T": t, "weights": "random",
-                          "max_abs_err": err, "max_rel_err": rel})
+    for c, t, k, dil in shapes:
+        units = shape_units(c, "elu", k, 1, False, dil, device,
+                            torch.float32, gen)[0]
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        before = resunit_kernel.launches
+        cuda = folded_stack.cuda_launches("resunit_stack")
+        err, rel, equal = check_resunit(x, units, dil)
+        if (resunit_kernel.launches != before + 1
+                or folded_stack.cuda_launches("resunit_stack")
+                != cuda + len(dil)):
+            raise AssertionError(f"csrc/resunit_stack.cu: not one call of "
+                                 f"one CUDA launch per unit ({len(dil)})")
+        cases.append({"C": c, "T": t, "k": k, "dilations": list(dil),
+                      "weights": "random", "max_abs_err": err,
+                      "max_rel_err": rel, "bit_equal": equal})
     for name, units, (c, t) in symad_stacks(params, device):
         x = torch.randn(2, c, t, generator=gen, device=device)
-        err, rel = check_resunit(x, units)
-        cases.append({"C": c, "T": t, "weights": name, "max_abs_err": err,
-                      "max_rel_err": rel})
+        err, rel, equal = check_resunit(x, units)
+        cases.append({"C": c, "T": t, "k": 7, "dilations": list(DILATIONS),
+                      "weights": name, "max_abs_err": err,
+                      "max_rel_err": rel, "bit_equal": equal})
     emit("resunit_kernel_vs_plain", t0,
          tolerance=f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x peak",
+         bit_equal=f"{sum(c['bit_equal'] for c in cases)} of {len(cases)}",
          cases=cases)
 
 
@@ -1578,17 +1717,20 @@ def resunit_timing(params, device, gen):
     rows = []
     for name, units, (c, t) in symad_stacks(params, device):
         x = torch.randn(BATCH, c, t, generator=gen, device=device)
-        err, _ = check_resunit(x, units)
+        err, _, equal = check_resunit(x, units)
         row = {
             "stack": name, "shape": [BATCH, c, t], "dtype": "float32",
-            "max_abs_err": err,
+            "max_abs_err": err, "bit_equal": equal,
             "ms": cuda_ms(lambda: resunit_kernel.fused_residual_stack_bct(
                 x, units, dilations=DILATIONS), reps=3),
             "plain_ms": cuda_ms(
                 lambda: resunit_kernel.fused_residual_stack_plain(
                     x, units, DILATIONS), reps=2),
             "chain_ms": cuda_ms(lambda: chain(x, units), reps=2),
-            "cuda_launches_per_call": 2 * len(units),
+            "cuda_launches_per_call": cuda_launches_per_call(
+                lambda: resunit_kernel.fused_residual_stack_bct(
+                    x, units, dilations=DILATIONS), "resunit_stack",
+                len(units)),
         }
         b, c, t = x.shape
         row.update(kernel_bounds.resunit_stack(b, t, c))
@@ -1638,12 +1780,18 @@ def phase_fused_path(device, params, x, z_main):
         return vq_kernel.rvq_encode_pallas(z, p["quantizer"]["embed"])
 
     reset_launches()
+    cuda = folded_stack.cuda_launches("resunit_stack")
     idx, y = fused(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(resunit=8, rvq=1):
-        raise AssertionError(f"kernel launches {launches}, expected 8 "
-                             f"resunit_stack and 1 rvq_encode")
+    units = sum(len(bp["res"]) for where in ("encoder", "decoder")
+                for bp in p[where]["blocks"])
+    cuda = folded_stack.cuda_launches("resunit_stack") - cuda
+    if launches != launch_counts(resunit=8, rvq=1) or cuda != units:
+        raise AssertionError(f"kernel launches {launches} and {cuda} CUDA "
+                             f"launches of csrc/resunit_stack.cu, expected "
+                             f"8 resunit_stack ({units} CUDA launches, one "
+                             f"per unit) and 1 rvq_encode")
     check_transcode(idx, y, x, cfg)
     idx_p, y_p = plain(x)
     flips = int((idx != idx_p).sum())
@@ -1677,7 +1825,8 @@ def phase_fused_path(device, params, x, z_main):
     rows = resunit_timing(params, device, gen)
     rvq_row = rvq_timing(z_main, p["quantizer"]["embed"])
     emit("fused_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
-         **times, launches=launches, index_flips_vs_plain=flips,
+         **times, launches=launches, resunit_cuda_launches=cuda,
+         index_flips_vs_plain=flips,
          indices=idx.numel(), fused_vs_plain_decode_rel_err=dec_rel,
          resunit_stack=rows, rvq_encode=rvq_row)
     return launches, rows, [rvq_row], fused
@@ -2017,14 +2166,17 @@ def device_ms_by_kernel(fn) -> dict:
 
 
 def probe_kernel_rows(records, device):
-    """The tile mode's and the wide autoencoder route's rows of the
-    `kernels` line at the probe's shapes, default fold, f32: the kernel's
-    and the chain's ms from the probe's records, the plain version timed
-    once, its error against the kernel at full size, the bound, and for
-    the tile mode one call's device time by kernel.  Beside them, not in
-    the `kernels` line, the row mode at the probe's other folds the same
-    way."""
-    tile_rows, wide_rows, fold_rows = [], [], []
+    """The tile mode's and the wide routes' rows of the `kernels` line at
+    the probe's shapes, default fold: the kernel's and the chain's ms from
+    the probe's records, the plain version timed once, its error against
+    the kernel at full size, the bound, for the tile mode one call's
+    device time by kernel, and for the wide routes the CUDA launches of one
+    call (asserted, one per unit).  The tile mode in f32; the wide
+    tensor-core route (csrc/wide_stack_mma.cu) in f32 and bf16 storage;
+    the same units in true f32 through csrc/resunit_stack.cu, timed here.
+    Beside them, not in the `kernels` line, the row mode at the probe's
+    other folds the same way."""
+    tile_rows, wide_rows, fold_rows, f32_rows = [], [], [], []
     by_shape = {(r["C"], r["fold"]): r for r in records
                 if r["dtype"] == "float32"}
     for c, t in folded_probe.SHAPES:
@@ -2063,16 +2215,54 @@ def probe_kernel_rows(records, device):
         tile_rows.append(row)
         if c <= folded_stack.PADDED_CHANNELS[-1]:
             continue
-        row = {"shape": [BATCH, c, t], "dtype": "float32", "bf16_dots": True,
-               **check_wide(x, units), "ms": rec["folded_ms"],
+        for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+            name = str(dtype)[6:]
+            rec_d = next(r for r in records if r["dtype"] == name
+                         and r["C"] == c and r["fold"] == rec["fold"])
+            xd = x.to(dtype)
+            ud = tuple((a.to(dtype), b.to(dtype)) for a, b in units)
+            row = {"shape": [BATCH, c, t], "dtype": name, "bf16_dots": True,
+                   **check_wide(xd, ud), "ms": rec_d["folded_ms"],
+                   "chain_ms": rec_d["chain_ms"],
+                   "plain_ms": cuda_ms(
+                       lambda: folded_stack.folded_residual_stack_plain(
+                           xd, ud, DILATIONS, True), reps=1),
+                   "cuda_launches_per_call": cuda_launches_per_call(
+                       lambda: folded_stack.folded_residual_stack(
+                           xd, ud, dilations=DILATIONS), "wide_stack_mma",
+                       len(units))}
+            row.update(kernel_bounds.mma_stack(BATCH, t, c, storage=size))
+            wide_rows.append(row)
+        del xd
+        row = {"shape": [BATCH, c, t], "dtype": "float32", "bf16_dots": False,
+               **check_wide(x, units, bf16_dots=False),
+               "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                   x, units, dilations=DILATIONS, bf16_dots=False), reps=3),
                "chain_ms": rec["chain_ms"],
                "plain_ms": cuda_ms(
                    lambda: folded_stack.folded_residual_stack_plain(
-                       x, units, DILATIONS, True), reps=1),
-               "cuda_launches_per_call": 2 * len(units)}
-        row.update(kernel_bounds.autoencoder_stack(BATCH, t, c))
-        wide_rows.append(row)
-    return tile_rows, wide_rows, fold_rows
+                       x, units, DILATIONS, False), reps=1),
+               "cuda_launches_per_call": cuda_launches_per_call(
+                   lambda: folded_stack.folded_residual_stack(
+                       x, units, dilations=DILATIONS, bf16_dots=False),
+                   "resunit_stack", len(units))}
+        row.update(kernel_bounds.resunit_stack(BATCH, t, c))
+        f32_rows.append(row)
+    return tile_rows, wide_rows, fold_rows, f32_rows
+
+
+def cuda_launches_per_call(fn, source: str, want: int) -> int:
+    """The CUDA launches one call of fn makes in the library of `source`
+    (folded_stack.cuda_launches, counted by the library), which must be
+    `want` (one per unit)."""
+    before = folded_stack.cuda_launches(source)
+    fn()
+    torch.cuda.synchronize()
+    n = folded_stack.cuda_launches(source) - before
+    if n != want:
+        raise AssertionError(f"{source}: {n} CUDA launches in one call, "
+                             f"expected {want}")
+    return n
 
 
 def phase_profile(path: str, tc, x):
@@ -2172,7 +2362,8 @@ def main():
     mma_counts, other_rows = phase_mma_kernel_vs_plain(trained, device)
     phase_int8_kernel_vs_plain(trained, device)
     phase_int8_tile_kernel_vs_plain(trained, device)
-    phase_wide_kernel_vs_plain(device)
+    wide_counts = phase_wide_kernel_vs_plain(device)
+    phase_f32_unit_kernel_vs_plain(device)
     phase_resunit_kernel_vs_plain(trained, device)
     z_main = phase_rvq_kernel_vs_plain(trained, device)
     dot_rows = phase_dot_chain_vs_plain(device)
@@ -2202,10 +2393,11 @@ def main():
     ablate_launches, ablate_rows = phase_ablate_path(ablate_rows, device)
     probe_counts, probe_records = phase_folded_probe_path()
     t1 = time.perf_counter()
-    tile_rows, wide_rows, fold_rows = probe_kernel_rows(probe_records,
-                                                        device)
+    tile_rows, wide_rows, fold_rows, f32_rows = probe_kernel_rows(
+        probe_records, device)
     emit("probe_kernel_rows", t1, int8_tile_stack=tile_rows,
-         wide_autoencoder=wide_rows, int8_stack_at_folds=fold_rows)
+         wide_autoencoder=wide_rows, true_f32_autoencoder=f32_rows,
+         int8_stack_at_folds=fold_rows)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
@@ -2213,7 +2405,8 @@ def main():
                "folded_probe_path": probe_counts,
                "golden_parity": golden_launches,
                "voc_golden": voc_golden_launches,
-               "mma_kernel_vs_plain": mma_counts}
+               "mma_kernel_vs_plain": mma_counts,
+               "wide_kernel_vs_plain": wide_counts}
     folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
     mma = "audiodec_tpu_torch/csrc/folded_stack_mma.cu"
     print(json.dumps({"kernels": [
@@ -2257,9 +2450,13 @@ def main():
                      "int8_tile", "audiodec_tpu_torch/csrc/int8_tile_stack.cu",
                      folded, tile_rows, by_path, "folded_probe_path"),
         kernel_entry("folded_residual_stack",
-                     "autoencoder, C > 32, bf16 dots", "wide",
-                     "audiodec_tpu_torch/csrc/resunit_stack.cu", folded,
+                     "C > 32, bf16 operands, every unit shape", "wide",
+                     "audiodec_tpu_torch/csrc/wide_stack_mma.cu", folded,
                      wide_rows, by_path, "folded_probe_path"),
+        kernel_entry("folded_residual_stack",
+                     "true f32 beyond the C <= 32 FMA kernels' shapes",
+                     "resunit_f32", "audiodec_tpu_torch/csrc/resunit_stack.cu",
+                     folded, f32_rows, by_path, "wide_kernel_vs_plain"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -386,16 +386,31 @@ def test_wide_autoencoder_cpu_and_device_checks():
 
 @pytest.mark.parametrize("rounded", [True, False])
 def test_packed_resunit_layout(rounded):
-    """csrc/resunit_stack.cu's weights: (K, CI, CO) [k][i][o], input
-    channels zero-padded to a multiple of 8 and output channels to one of
-    64 above C = 32; bf16 values when the operands are rounded."""
+    """The weights of the kernels above C = 32: with bf16 operands
+    csrc/wide_stack_mma.cu's (n, k, cp, cp) bf16 [u][tap][c_out][c_in],
+    channels padded to a multiple of 32; in true f32
+    csrc/resunit_stack.cu's (n, cp, k, cp) f32 [u][c_in][tap][c_out],
+    padded to a multiple of 16; zero in the padding, and the biases f32
+    (n, 2, cp) either way."""
     c = 72
-    w = torch.from_numpy(np.random.default_rng(10).standard_normal(
-        (c, c, 7)).astype(np.float32))
-    p = port.pack_resunit(w, c, rounded)
-    assert p.shape == (7, 72, 128) and p.dtype == torch.float32
-    want = w.permute(2, 1, 0)
+    rng = np.random.default_rng(10)
+    w1, w2 = (torch.from_numpy(rng.standard_normal((c, c, k))
+                               .astype(np.float32)) for k in (7, 1))
+    b = [tuple(torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+               for _ in range(2))]
     if rounded:
-        want = want.to(torch.bfloat16).float()
-    assert torch.equal(p[:, :, :c], want)
-    assert not p[:, :, c:].any()
+        cp = port.wide_geometry(c, 7, 1, DILATIONS).cp
+        p1, p2, pb = port._packed_mma([(w1, w2)], b, c, cp)
+        assert cp == 96 and p1.dtype == p2.dtype == torch.bfloat16
+        assert p1.shape == (1, 7, cp, cp) and p2.shape == (1, 1, cp, cp)
+        want, real = w1.permute(2, 0, 1).bfloat16(), p1[0, :, :c, :c]
+    else:
+        cp = port.unit_geometry(c, 7, 1, DILATIONS).cp
+        p1, p2, pb = port._packed_unit([(w1, w2)], b, c, cp)
+        assert cp == 80 and p1.dtype == p2.dtype == torch.float32
+        assert p1.shape == (1, cp, 7, cp) and p2.shape == (1, cp, 1, cp)
+        want, real = w1.permute(1, 2, 0), p1[0, :c, :, :c]
+    assert torch.equal(real, want)
+    assert p1.float().abs().sum() == real.float().abs().sum()
+    assert pb.shape == (1, 2, cp) and pb.dtype == torch.float32
+    assert torch.equal(pb[0, 1, :c], b[0][1]) and not pb[:, :, c:].any()

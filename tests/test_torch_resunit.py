@@ -2,9 +2,9 @@
 `audiodec_tpu/archive/resunit_kernel.py fused_residual_stack`.
 
 On the CPU the port's wrapper runs its plain PyTorch version; JAX runs its
-kernel in interpret mode, at tests/test_pallas_resunit.py's cases.  The
-CUDA kernel (csrc/resunit_stack.cu) is held to the plain version on the
-card by chip_smoke.py.
+kernel in interpret mode, at tests/test_pallas_resunit.py's cases and at
+other conv widths and unit counts.  The CUDA kernel (csrc/resunit_stack.cu)
+is held to the plain version on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -27,10 +27,11 @@ torch.set_num_threads(1)
 DILATIONS = (1, 3, 9)
 
 
-def _units(c):
-    """tests/test_pallas_resunit.py's units: JAX init, weights x10."""
-    keys = jax.random.split(jax.random.PRNGKey(0), 3)
-    units = [_res_unit_init(keys[i], c, 7) for i in range(3)]
+def _units(c, k=7, n=3):
+    """tests/test_pallas_resunit.py's units (k = 7, three units): JAX init,
+    weights x10."""
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
+    units = [_res_unit_init(keys[i], c, k) for i in range(n)]
     units = jax.tree_util.tree_map(lambda w: np.asarray(w * 10.0), units)
     return jax_res_stack_params({"res": units})
 
@@ -50,6 +51,26 @@ def test_plain_matches_jax_kernel(c, t, tile):
     # true f32 on both sides: only the order of the sums differs
     # (tests/test_pallas_resunit.py)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,dilations", [(3, DILATIONS), (5, DILATIONS),
+                                         (7, (1, 3, 9, 27))])
+def test_plain_matches_jax_kernel_at_unit_shapes(k, dilations):
+    """Other conv widths and four units, which csrc/resunit_stack.cu takes on
+    the card: true f32, rtol 1e-4 and atol 5e-5 of the peak."""
+    c, t = 8, 300
+    units = _units(c, k, len(dilations))
+    x = np.random.default_rng(k).standard_normal((2, t, c)) \
+        .astype(np.float32)
+    ref = np.asarray(jax_stack(jnp.asarray(x), tuple(
+        (jnp.asarray(a), jnp.asarray(b)) for a, b in units),
+        dilations=dilations, kernel_size=k, tile_t=100, interpret=True))
+    out = port.fused_residual_stack(torch.from_numpy(x),
+                                    unit_params_from_jax(units),
+                                    dilations=dilations, kernel_size=k)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4,
+                               atol=5e-5 * float(np.abs(ref).max()))
 
 
 def test_bct_entry_equals_public_entry():

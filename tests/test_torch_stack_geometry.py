@@ -1,0 +1,168 @@
+"""Launch geometries and weight packs of the folded stack's two kernels that
+take every unit shape at C up to 256: csrc/resunit_stack.cu (true f32 on
+the FMA units, also the archived stack's kernel) and csrc/wide_stack_mma.cu
+(bf16 operands on the tensor cores above C = 32).
+
+The kernels run only on the card, where chip_smoke.py holds them to their
+plain versions; here, without a card, every width from 1 to 256 at the unit
+shapes of the TPU kernel's configs and beyond either gets a geometry whose
+shared memory fits a block, or raises a ValueError that names the shape,
+and the packs put each weight where the kernels read it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audiodec_tpu_torch.ops.kernels import folded_stack as port
+
+torch.set_num_threads(1)
+
+KERNEL_SIZES = (1, 3, 5, 7, 11)
+KERNEL_SIZES2 = (1, 3, 7, 11)
+DILATIONS = ((1, 3, 9), (1, 3, 9, 27))
+
+
+def _named(err: ValueError, c, k, k2, dilations) -> bool:
+    msg = str(err)
+    return (f"k={k}, k2={k2}, dilations={dilations}" in msg
+            and f"C={c}" in msg)
+
+
+@pytest.mark.parametrize("dilations", DILATIONS)
+@pytest.mark.parametrize("k2", KERNEL_SIZES2)
+@pytest.mark.parametrize("k", KERNEL_SIZES)
+def test_unit_geometry_fits_or_raises(k, k2, dilations):
+    """csrc/resunit_stack.cu: cp / 16 threads along the channels, 8
+    samples each along time, conv1 over tile + k2 - 1 samples, the widest
+    stages that fit at that tile, and the layout's shared memory within a
+    block's."""
+    d = max(dilations)
+    for c in range(1, port.MAX_CHANNELS + 1):
+        try:
+            g = port.unit_geometry(c, k, k2, dilations)
+        except ValueError as err:
+            assert _named(err, c, k, k2, dilations), err
+            continue
+        ny = g.cp // port.UNIT_TM
+        assert g.cp % port.UNIT_TM == 0 and c <= g.cp < c + port.UNIT_TM
+        assert 1 <= g.threads <= port.UNIT_THREADS and g.threads % ny == 0
+        assert g.rows == port.UNIT_TN * (g.threads // ny)
+        assert g.tile == g.rows - (k2 - 1) >= 1
+        assert g.halo == (k - 1) * d + k2 - 1
+        assert g.kc2 * k2 <= max(g.kc1 * k, k2)
+        width = g.rows + (k - 1) * d
+        assert g.smem == port.unit_smem(g.cp, k, k2, g.rows, width, g.kc1,
+                                        g.kc2) <= port.BLOCK_SMEM
+        if g.kc1 < port.UNIT_KC[0]:
+            assert port.unit_smem(g.cp, k, k2, g.rows, width, 2 * g.kc1,
+                                  g.kc2) > port.BLOCK_SMEM
+        assert g.launches == len(dilations) and g.warps * 32 >= g.threads
+
+
+@pytest.mark.parametrize("dilations", DILATIONS)
+@pytest.mark.parametrize("k2", KERNEL_SIZES2)
+@pytest.mark.parametrize("k", KERNEL_SIZES)
+def test_wide_geometry_fits_or_raises(k, k2, dilations):
+    """csrc/wide_stack_mma.cu: a warp per 32 output channels, rows of warps
+    of 64 samples, up to 16 warps; the staged rows cover the tile, k2 - 1
+    more samples and the look-back, and with the weight stages fit a
+    block's shared memory."""
+    d = max(dilations)
+    for c in range(1, port.MAX_CHANNELS + 1):
+        try:
+            g = port.wide_geometry(c, k, k2, dilations)
+        except ValueError as err:
+            assert _named(err, c, k, k2, dilations), err
+            continue
+        wn = g.cp // port.WIDE_WARP_N
+        assert g.cp % port.WIDE_WARP_N == 0
+        assert c <= g.cp < c + port.WIDE_WARP_N
+        assert g.warps == g.warps_m * wn <= port.WIDE_MAX_WARPS
+        assert g.rows == port.WIDE_WARP_ROWS * g.warps_m
+        assert g.rows <= port.WIDE_MAX_ROWS
+        assert g.tile == g.rows - (k2 - 1) >= 1
+        assert g.halo == (k - 1) * d + k2 - 1
+        assert g.kc in port.WIDE_KC and g.cp % g.kc == 0
+        assert g.buffers in (2, 3)
+        yrows = max(g.rows + (k - 1) * d, g.rows + k2 - 1)
+        assert g.smem == port.wide_smem(g.cp, yrows, g.kc,
+                                        g.buffers) <= port.BLOCK_SMEM
+        assert g.launches == len(dilations)
+
+
+@pytest.mark.parametrize("c,threads,rows,kc1,kc2", [
+    (32, 256, 1024, 8, 16), (64, 256, 512, 8, 16), (128, 256, 256, 8, 16),
+    (256, 256, 128, 4, 16)])
+def test_unit_geometry_at_symad_stacks(c, threads, rows, kc1, kc2):
+    """The archived stack's shapes (k = 7, a 1x1 second conv, dilations
+    1, 3, 9): 256 threads at every width, the first conv's stage of 8 input
+    channels but at C = 256, where a2 takes more of the block."""
+    g = port.unit_geometry(c, 7, 1, (1, 3, 9))
+    assert (g.cp, g.threads, g.rows, g.tile, g.kc1, g.kc2, g.halo) == (
+        c, threads, rows, rows, kc1, kc2, 54)
+
+
+@pytest.mark.parametrize("c,warps,rows,kc", [
+    (48, 8, 256, 64), (64, 8, 256, 64), (128, 16, 256, 128),
+    (256, 16, 128, 64)])
+def test_wide_geometry_at_symad_stacks(c, warps, rows, kc):
+    """The autoencoder units at the probe's widths (and C = 48, padded to
+    64): up to 256 samples and 16 warps, three weight buffers."""
+    g = port.wide_geometry(c, 7, 1, (1, 3, 9))
+    assert (g.warps, g.rows, g.tile, g.kc, g.buffers) == (
+        warps, rows, rows, kc, 3)
+
+
+def _units(c, k, k2, n, seed):
+    rng = np.random.default_rng(seed)
+    units = [tuple(torch.from_numpy(rng.standard_normal((c, c, kk))
+                                    .astype(np.float32)) for kk in (k, k2))
+             for _ in range(n)]
+    biases = [tuple(torch.from_numpy(rng.standard_normal(c)
+                                     .astype(np.float32)) for _ in range(2))
+              for _ in range(n)]
+    return units, biases
+
+
+@pytest.mark.parametrize("c,k,k2", [(5, 3, 3), (40, 5, 1), (200, 11, 11)])
+def test_unit_pack_layout_and_padding(c, k, k2):
+    """csrc/resunit_stack.cu's operands: (n, cp, k, cp) f32 [u][c_in][tap]
+    [c_out] for each conv and (n, 2, cp) f32 biases, zero-padded from C to
+    cp: turned back into torch weights they give the plain stack's result
+    on the first C channels of a zero-padded input (to f32 rounding), and
+    the padded channels stay exactly zero."""
+    dilations = (1, 3)
+    units, biases = _units(c, k, k2, len(dilations), seed=c)
+    cp = port.unit_geometry(c, k, k2, dilations).cp
+    w1, w2, b = port._pack_unit(units, biases, c, cp, False)
+    assert w1.shape == (2, cp, k, cp) and w2.shape == (2, cp, k2, cp)
+    assert torch.equal(w1[1, :c, :, :c], units[1][0].permute(1, 2, 0))
+    assert torch.equal(w2[0, :c, :, :c], units[0][1].permute(1, 2, 0))
+    assert torch.equal(b[1, 0, :c], biases[1][0]) and not b[:, :, c:].any()
+    packed = [(a.permute(2, 0, 1), bb.permute(2, 0, 1))
+              for a, bb in zip(w1, w2)]
+    x = torch.from_numpy(np.random.default_rng(1)
+                         .standard_normal((1, c, 64)).astype(np.float32))
+    xp = torch.nn.functional.pad(x, (0, 0, 0, cp - c))
+    kw = dict(act="leaky_relu", act_param=0.1)
+    out = port.folded_residual_stack_plain(
+        xp, packed, dilations, False, biases=[tuple(u) for u in b], **kw)
+    ref = port.folded_residual_stack_plain(x, units, dilations, False,
+                                           biases=biases, **kw)
+    # the padded input channels add exact zeros; the CPU's convolution may
+    # block its sums differently at the padded width
+    torch.testing.assert_close(out[:, :c], ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert not out[:, c:].any()
+
+
+def test_unit_pack_is_cached_until_changed():
+    units, biases = _units(40, 7, 1, 3, seed=4)
+    first = port._packed_unit(units, biases, 40, 48)
+    assert all(a is b for a, b in
+               zip(first, port._packed_unit(units, biases, 40, 48)))
+    units[2][1].mul_(2.0)  # an in-place update of a weight must repack
+    again = port._packed_unit(units, biases, 40, 48)
+    assert torch.equal(again[1][2, :40, :, :40], units[2][1].permute(1, 2, 0))
+    assert not torch.equal(again[1], first[1])

@@ -7,10 +7,11 @@ to its folded kernel unchanged (`audiodec_tpu/models/fast.py:49-54`,
 `:64-67`), and that kernel takes any act, k, k2, biases and unit count
 (`audiodec_tpu/ops/pallas/folded_stack.py:112-200`).  On the CPU the port's
 wrapper runs its plain versions; JAX runs its kernel in interpret mode.  The
-same numpy inputs feed both.  The tensor-core kernel that runs these shapes
-on the card (csrc/folded_stack_mma.cu) is held to the plain version by
-chip_smoke.py; here its weight pack, its launch geometry and the routing
-rule are checked without a card.
+same numpy inputs feed both.  The kernels that run these shapes on the
+card (csrc/folded_stack_mma.cu, csrc/wide_stack_mma.cu and
+csrc/resunit_stack.cu) are held to the plain version by chip_smoke.py;
+here their weight packs, launch geometries and the routing rule are
+checked without a card.
 """
 
 import functools
@@ -128,6 +129,32 @@ def test_plain_matches_jax_kernel(name, bf16_dots, storage):
         np.testing.assert_allclose(out, ref, rtol=1e-4, atol=5e-5 * scale)
     else:
         assert float(np.max(np.abs(out - ref))) / scale < 0.03
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plain_matches_jax_kernel_at_c48(name):
+    """A width csrc/wide_stack_mma.cu pads (C = 48 to 64), JAX at fold 2,
+    bf16 dots in f32 storage: within 0.03 of the peak, as
+    test_plain_matches_jax_kernel holds bf16 operands."""
+    c = 48
+    units, biases = _units(name, c, seed=c + len(name))
+    x = np.random.default_rng(3).standard_normal((1, T, c)) \
+        .astype(np.float32)
+    kw = _kwargs(name)
+    ref = np.asarray(jax_stack(
+        jnp.asarray(x),
+        tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in units),
+        biases=(None if biases is None else
+                tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in biases)),
+        bf16_dots=True, fold=2, interpret=True, **kw))
+    tu, tb = _torch_units(units, biases)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    out = port.folded_residual_stack(xt, tu, biases=tb, bf16_dots=True,
+                                     fold=2, **kw)
+    assert out.dtype == xt.dtype and out.shape == xt.shape
+    out = out.transpose(1, 2).numpy()
+    assert float(np.max(np.abs(out - ref))) / float(np.max(np.abs(ref))) \
+        < 0.03
 
 
 # ---------------------------------------------------------------------------
@@ -282,22 +309,38 @@ def test_mma_geometry_raises_where_the_halo_does_not_fit():
     ("vocoder", 32, False, False, "fma"),
     ("other", 8, False, True, "mma"),
     ("other", 8, True, False, "mma"),
+    ("other", 8, False, False, "resunit"),
     ("autoencoder", 64, False, True, "wide"),
     ("autoencoder", 256, True, False, "wide"),
-    ("autoencoder", 64, False, False, "wide"),
+    ("autoencoder", 64, False, False, "resunit"),
+    ("vocoder", 64, False, True, "wide"),
+    ("vocoder", 64, False, False, "resunit"),
+    ("other", 64, False, True, "wide"),
     ("int8", 32, False, False, "int8"),
     ("int8", 256, True, True, "int8"),
 ])
 def test_route(mode, c, bf16_storage, bf16_dots, want):
-    """C <= 32 with bf16 operands takes the tensor-core kernel at every unit
-    shape; true f32 keeps the FMA kernels; above C = 32 the autoencoder
-    units take csrc/resunit_stack.cu."""
+    """With bf16 operands C <= 32 takes csrc/folded_stack_mma.cu and wider
+    stacks csrc/wide_stack_mma.cu, at every unit shape; in true f32 the
+    shipped shapes at C <= 32 keep the FMA kernels and every other stack
+    (LeakyReLU at C = 64 among them) takes csrc/resunit_stack.cu."""
     assert port.route(mode, c, bf16_storage, bf16_dots) == want
 
 
-@pytest.mark.parametrize("mode,c,bf16_dots", [
-    ("other", 8, False), ("vocoder", 64, True), ("other", 64, True),
-    ("autoencoder", 512, True)])
+@pytest.mark.parametrize("mode,c,bf16_dots,units,want", [
+    ("autoencoder", 8, False, 3, "fma"),
+    ("autoencoder", 8, False, 4, "resunit"),
+    ("vocoder", 32, False, 4, "resunit"),
+    ("autoencoder", 8, True, 4, "mma"),
+    ("autoencoder", 64, True, 4, "wide"),
+])
+def test_route_by_unit_count(mode, c, bf16_dots, units, want):
+    """The FMA kernels at C <= 32 take 1..3 units; a longer true-f32 stack
+    takes csrc/resunit_stack.cu, and the tensor-core kernels any count."""
+    assert port.route(mode, c, False, bf16_dots, units) == want
+
+
+@pytest.mark.parametrize("mode,c,bf16_dots", [("autoencoder", 512, True)])
 def test_route_raises_where_no_kernel_computes(mode, c, bf16_dots):
     with pytest.raises(ValueError, match="k=5"):
         port.route(mode, c, False, bf16_dots, shape="k=5")
