@@ -35,7 +35,6 @@ import torch.nn.functional as F
 
 from audiodec_tpu_torch.ops.activations import elu_exp
 from audiodec_tpu_torch.ops.kernels.folded_stack import (  # noqa: F401
-    MAX_CHANNELS,
     res_stack_params,
     resunit_stack,
 )
@@ -81,8 +80,6 @@ def fused_residual_stack_bct(x: torch.Tensor, unit_params: Sequence, *,
         return fused_residual_stack_plain(x, unit_params, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f"the kernel takes C in 1..{MAX_CHANNELS}, got {c}")
     if any(w.device != x.device for u in unit_params for w in u):
         raise ValueError("weights must be on the device of x")
     if kernel_size < 1 or not dilations or min(dilations) < 1:

@@ -11,8 +11,8 @@ TF32 off) and, at each fold f in {128 / C, 256 / C, 512 / C} (at least 1)
 that divides T, with the tool's tile_rows (1024, 512 or 256 by f * C), the
 folded stack's autoencoder mode with bf16 dots
 (`ops/kernels/folded_stack.py`: csrc/folded_stack_mma.cu at C = 32,
-csrc/resunit_stack.cu above); with --int8 also its int8 modes with "row"
-scales (csrc/int8_mma_stack.cu) and "tile" scales (csrc/int8_tile_stack.cu).
+csrc/wide_stack_mma.cu above); with --int8 also its int8 modes with "row"
+scales (csrc/int8_mma_stack.cu) and "tile" scales (csrc/int8_tile_mma.cu).
 Weights are 0.1 * N(0, 1) and x 0.3 * N(0, 1), cast to --dtype, from
 `np.random.default_rng(C)`: the tool draws them with `jax.random`, so these
 are not its numbers.

@@ -5,10 +5,12 @@
 // folded_residual_stack (pallas_call at :372) in its int8 mode with "row"
 // activation scales (int8_dots=True, int8_scale="row"), the mode that
 // `codec_test --dtype int8-decode` runs for every decoder stack, at any
-// width C from 4 to 256 and any fold.  A unit is
-// v += conv1x1(ELU(conv_k_dil_d(ELU(v)))), no biases, any k, any number of
-// units, f32 or bf16 storage, zero left context at t=0, and both convs
-// multiply int8 by int8 into int32:
+// width C from 1 to 512, any fold and every unit shape the TPU kernel
+// takes.  A unit is
+// v += conv_k2(act(mask(conv_k,d(act(v)) + b1))) + b2, act ELU or
+// LeakyReLU(slope), any k and k2, biases or none, any number of units, f32
+// or bf16 storage, zero left context at t=0, and both convs multiply int8
+// by int8 into int32:
 //
 //   - weights: per output channel, s = max(absmax over taps and input
 //     channels, 1e-12) / 127 and q = round(w / s), done by the wrapper;
@@ -20,12 +22,14 @@
 //   - dequantization: for each folded-row offset o a conv reads
 //     (ascending), the taps that read row u + o are summed exactly in
 //     int32, converted to f32 once and added with one rounding,
-//     acc = fmaf(part, s_row[u + o], acc) from zero; then acc * s_weight;
-//     the residual is v = fmaf(y2, s_weight2, v) in f32 storage; in bf16
-//     storage the buffers hold f32 values, the sum
-//     bf16(v) + bf16(y2 * s_weight2) that the next unit's ELU reads (XLA
-//     keeps that excess precision on the CPU), rounded to bf16 where the
-//     residual is read and by the wrapper at the end.
+//     acc = fmaf(part, s_row[u + o], acc) from zero; then acc * s_weight,
+//     or with biases fmaf(acc, s_weight, b) (XLA's fma); conv1's rows
+//     before t=0 are zero (the TPU kernel's mask); the residual is
+//     v = fmaf(y2, s_weight2, v), or v + fmaf(y2, s_weight2, b2), in f32
+//     storage; in bf16 storage the buffers hold f32 values, the sum
+//     bf16(v) + bf16(y2 * s_weight2 [+ b2]) that the next unit's act reads
+//     (XLA keeps that excess precision on the CPU), rounded to bf16 where
+//     the residual is read and by the wrapper at the end.
 // Every f32 operation is an explicit _rn intrinsic or fmaf, so nvcc's
 // contraction cannot move a rounding; rounding to int8 is half to even, as
 // torch.round; ELU is exp(min(v, 0)) - 1 with expf, the TPU kernel's form.
@@ -45,44 +49,50 @@
 // with all C output channels, so it can requantize conv1's output, whose
 // row scale needs every channel of the row (the trap of a split over
 // channels).  In shared memory:
-//   1. ELU(v) for the tile and its left halo of whole rows (the conv's
-//      span, zero before t=0) is staged as f32, [channel][sample], in
-//      chunks of TS samples (a warp keeps U loads of 32 samples in
-//      flight); one warp per folded row takes its absmax and quantizes it
-//      to int8 rows of CP channels, the next of 32, 64, 128 and 256 (zero
-//      padded: exact in integers), laid out phase-major,
-//      Q[t mod F][t div F][CP + 16 bytes];
+//   1. act(v) for the tile and its left halo of whole rows (conv1's span
+//      and the X rows of conv1's output that conv2 reads before the tile,
+//      zero before t=0) is staged as f32, [channel][sample], in chunks of
+//      TS samples (a warp keeps U loads of 32 samples in flight); one warp
+//      per folded row takes its absmax and quantizes it to int8 rows of CP
+//      channels, the next of 32, 64, 128, 256 and 512 (zero padded: exact
+//      in integers), laid out phase-major, Q[t mod F][t div F][CP + 16];
 //   2. conv1 on the tensor cores, mma.sync m16n8k32 s8 x s8 -> s32: an M
 //      tile is 16 consecutive folded rows of one phase p, so all its rows
-//      share one tap-to-offset map (tap j reads phase (p + j d - span)
-//      mod F at row offset o = floor((p + j d - span) / F), advanced from
-//      tap to tap without a division) and its A operand is 16 consecutive
-//      rows of Q, loaded with ldmatrix; the taps of one offset chain in
-//      the s32 accumulator (the chain's first mma adds to zero), and at
-//      each change of offset (ascending with j) the warp flushes it
-//      through the per-row fmaf in registers: the TPU kernel's per-offset
-//      dot, with no per-element bookkeeping.  At F = 1 every tap is its own
-//      offset.  Each warp owns 2 M tiles x 32 output channels;
-//   3. ELU(acc * s1) goes to the f32 buffer, [channel][sample], its rows'
-//      absmax to shared memory (the four lanes of a row by shuffles, then
-//      atomicMax), and it is quantized per row as in 1; the 1x1 conv runs
-//      the same way (one offset), y2 = part * s_row goes to the f32
-//      buffer, and the residual is read and written with coalesced
-//      accesses.
+//      share one tap-to-offset map (tap j reads phase (p + j d - span) mod
+//      F at row offset o = floor((p + j d - span) / F), advanced from tap
+//      to tap without a division) and its A operand is 16 consecutive rows
+//      of Q, loaded with ldmatrix; the taps of one offset chain in the s32
+//      accumulator (the chain's first mma adds to zero), and at each change
+//      of offset (ascending with j) the warp flushes it through the
+//      per-row fmaf in registers: the TPU kernel's per-offset dot, with no
+//      per-element bookkeeping.  At F = 1 every tap is its own offset.
+//      Each warp owns 2 M tiles x 32 output channels.  conv1 covers the
+//      tile's R rows and the X rows before them, R + X whole M tiles;
+//   3. act(acc * s1 [+ b1]) goes to the f32 buffer, [channel][sample], its
+//      rows' absmax to shared memory (the four lanes of a row by shuffles,
+//      then atomicMax), and it is quantized per row as in 1; conv2 runs as
+//      conv1 does, over `fold_offsets(k2, 1, F)` (one offset for a 1x1
+//      conv), y2 goes to the f32 buffer, and the residual is read and
+//      written with coalesced accesses.
 // Blocks are 8 warps at CP <= 64, two per SM (in half the SM's shared
 // memory), and 16 warps at CP >= 128, one per SM: with 113-118 registers a
 // thread, two blocks let one block's loads and stores overlap the other's
-// products.  TS = 256 samples at C = 32, 128 at 64 and 128, 64 at 256,
-// rounded up to whole M tiles of every phase; where that makes more M
-// tiles than the warps hold, the block runs them in rounds.  The weights
+// products.  TS = 256 samples at C = 32, 128 at 64 and 128, 64 at 256, 32
+// at 512, rounded up to whole M tiles of every phase; where that makes
+// more M tiles than the warps hold, the block runs them in rounds.  The f32
+// buffer holds the C real channels only, so that a large fold (C = 4 at
+// F = 128: 2048 samples a tile) fits; where it still does not fit beside
+// the rest (C = 512 at F = 4), each block keeps it in its own slice of a
+// device-memory buffer instead (slower, and only there).  The weights
 // stream through shared memory with cp.async, a stage holding
-// `taps_per_stage` taps of `kc` input channels in 2 buffers (at C = 32 all
-// k taps, at 64 six, at 128 three; at C = 256 one tap's half, 32 KiB, in 3
-// buffers); ops/kernels/folded_stack.py int8_mma_geometry sizes it all.  An
-// int32 partial exceeds 2^22 only when 127^2 C times the taps of one offset
+// `taps_per_stage` taps of `kc` input channels in 2 buffers (at C = 32 all k taps, at 64 six, at 128
+// three; at C = 256 one tap's half, 32 KiB, in 3 buffers; at C = 512 the
+// widest of 128, 64 and 32 channels that fits two buffers);
+// ops/kernels/folded_stack.py int8_mma_geometry sizes it all.  An int32
+// partial exceeds 2^22 only when 127^2 C times the taps of one offset
 // does; below that (every decoder stack) it converts to f32 exactly by
-// adding 1.5 x 2^23 to its bits (`exact_small`), else with cvt.rn.f32.s32.
-// What holds it back: PERF.md §7.
+// adding 1.5 x 2^23 to its bits (`exact_small`, per conv), else with
+// cvt.rn.f32.s32.  What holds it back: PERF.md §7.
 //
 // Plain C interface for ctypes: pointers and the stream as void*, ints as
 // int; returns the first CUDA error of the launches, or
@@ -100,6 +110,7 @@ constexpr int MT = 2;                 // M tiles a warp owns per round
 constexpr int U = 8;                  // loads a lane keeps in flight
 constexpr int SMEM_LIMIT = 232448;    // bytes a block may use on sm_90
 constexpr float QMAX = 127.f;
+enum { ELU = 0, LEAKY = 1 };
 
 // warps per block: 8 at CP <= 64, two blocks per SM; 16 above, one block
 __host__ __device__ constexpr int warps_for(int cp) {
@@ -108,18 +119,36 @@ __host__ __device__ constexpr int warps_for(int cp) {
 constexpr float MAGIC = 12582912.f;   // 1.5 x 2^23
 constexpr int MAGIC_BITS = 0x4B400000;
 
+// one conv of a unit: its taps are read at row offsets advanced by
+// d = dq F + dr from tap to tap; its output rows (per phase) start `halo`
+// rows into its operand's `lr` rows per phase
+struct Conv {
+  int k, d, span;     // width, dilation, (k - 1) d
+  int dq, dr;         // d / F, d % F
+  int per_phase;      // M tiles per phase (output rows / 16)
+  int lr, halo;       // operand rows per phase, rows before the output's
+  int rounds, nst;    // rounds of the warps' M tiles, weight stages
+  int exact_small;    // every int32 partial below 2^22
+};
+
 // one unit's launch
 struct Params {
   int C, Tp, F;
   int TS, R;          // tile samples, tile rows (TS / F)
-  int k, d, span;     // conv1 width, dilation, (k - 1) d
-  int dq, dr;         // d / F, d % F
-  int hrow, LR;       // halo rows, staged rows (R + hrow)
-  int rounds, tps, kc, nkc, nbuf;
-  int exact_small, bf16;
+  int R1, X;          // conv1 output rows per phase (R1 = R + X: the X rows
+                      // before the tile that the second conv reads)
+  int hrow;           // conv1's halo rows
+  int tps, kc, nkc, nbuf;
+  int act, has_bias, bf16;
+  float slope;
+  Conv c1, c2;
+  float* sg;          // the f32 buffer in device memory, c x (r1 f + 1) a
+                      // block, where a block's shared memory cannot hold it
 };
 
-__device__ __forceinline__ float elu(float v) {
+// ELU as exp(min(v, 0)) - 1 (the TPU kernel's form), or LeakyReLU
+__device__ __forceinline__ float activate(float v, int act, float slope) {
+  if (act == LEAKY) return v > 0.f ? v : __fmul_rn(v, slope);
   return v > 0.f ? v : __fsub_rn(expf(fminf(v, 0.f)), 1.f);
 }
 
@@ -198,15 +227,16 @@ struct Layout {
   int w, q, s, sd, rm, total;
 };
 
-__host__ __device__ inline Layout layout(int cp, int nbuf, int tps, int kc,
-                                         int ts, int f, int lr_max) {
+__host__ __device__ inline Layout layout(int cp, int c, int nbuf, int tps,
+                                         int kc, int r1, int f, int lr_max,
+                                         bool s_global) {
   Layout l;
   l.w = 0;                                    // nbuf x tps x cp x (kc + 16)
   l.q = l.w + nbuf * tps * cp * (kc + 16);    // f x lr x (cp + 16)
-  l.s = l.q + f * lr_max * (cp + 16);               // cp x (ts + 1) f32
-  l.sd = l.s + 4 * cp * (ts + 1);                   // lr f32
-  l.rm = l.sd + 4 * lr_max;                         // ts / f u32
-  l.total = l.rm + 4 * (ts / f);
+  l.s = l.q + f * lr_max * (cp + 16);         // c x (r1 f + 1) f32, or none
+  l.sd = l.s + (s_global ? 0 : 4 * c * (r1 * f + 1));  // lr f32
+  l.rm = l.sd + 4 * lr_max;                   // r1 u32
+  l.total = l.rm + 4 * r1;
   return l;
 }
 
@@ -268,42 +298,52 @@ __device__ void quantize_rows(const float* S, int LS, int8_t* Q, float* SD,
   }
 }
 
-template <int CP>
+// GENERAL = false: the int8 decode's units (ELU, a 1x1 conv2, no biases),
+// whose conv2 is one offset read straight from its accumulator; GENERAL =
+// true: every unit shape
+template <int CP, bool GENERAL>
 __global__ void __launch_bounds__(32 * warps_for(CP), 16 / warps_for(CP))
 int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
               const int8_t* __restrict__ w1,  // (k, CP, CP) [tap][out][in]
-              const int8_t* __restrict__ w2,  // (CP, CP) [out][in]
+              const int8_t* __restrict__ w2,  // (k2, CP, CP) [tap][out][in]
               const float* __restrict__ s1,   // (CP) conv1 weight scales
-              const float* __restrict__ s2,   // (CP) 1x1 weight scales
+              const float* __restrict__ s2,   // (CP) conv2 weight scales
+              const float* __restrict__ b1,   // (CP) conv1 bias, or null
+              const float* __restrict__ b2,   // (CP) conv2 bias, or null
               const Params P) {
   constexpr int QS = CP + 16;
   constexpr int NWARPS = warps_for(CP), NTHREADS = 32 * NWARPS;
   constexpr int NS = CP / NW;                 // warps across the channels
   constexpr int MPR = (NWARPS / NS) * MT;     // M tiles per round
+  static_assert(NS <= NWARPS, "a warp owns 32 of the channels");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int F = P.F, TS = P.TS, R = P.R, LS = TS + 1, KS = P.kc + 16;
-  const Layout lay = layout(CP, P.nbuf, P.tps, P.kc, TS, F, P.LR);
+  const int F = P.F, TS = P.TS, R1 = P.R1, LS = R1 * F + 1, KS = P.kc + 16;
+  const Layout lay = layout(CP, P.C, P.nbuf, P.tps, P.kc, R1, F, P.c1.lr,
+                            P.sg != nullptr);
   int8_t* Wbuf = reinterpret_cast<int8_t*>(smem + lay.w);
   int8_t* Q = reinterpret_cast<int8_t*>(smem + lay.q);
-  float* S = reinterpret_cast<float*>(smem + lay.s);
+  float* S = P.sg == nullptr
+                 ? reinterpret_cast<float*>(smem + lay.s)
+                 : P.sg + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                              P.C * LS;
   float* SD = reinterpret_cast<float*>(smem + lay.sd);
   unsigned* RM = reinterpret_cast<unsigned*>(smem + lay.rm);
   const int wbuf_bytes = P.tps * CP * KS;
+  const int act = GENERAL ? P.act : ELU;
+  const bool bias = GENERAL && P.has_bias;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TS;       // first output sample of the tile
-  const int H = P.hrow * F;
+  const int H = (P.hrow + P.X) * F;     // staged samples before the tile
   const float* xb = x + (size_t)b * P.C * P.Tp;
   float* ob = out + (size_t)b * P.C * P.Tp;
 
   // the steps of the weight pipeline: rounds x conv1 stages, then
-  // rounds x 1x1 stages
-  const int groups = (P.k + P.tps - 1) / P.tps;
-  const int nst1 = groups * P.nkc;
-  const int n1 = P.rounds * nst1;
-  const int nsteps = n1 + P.rounds * P.nkc;
+  // rounds x conv2 stages
+  const int n1 = P.c1.rounds * P.c1.nst;
+  const int nsteps = n1 + P.c2.rounds * P.c2.nst;
   // stage s into buffer s mod nbuf, one commit group per call (empty past
   // the last stage, so that every step waits on the same group count)
   auto issue = [&](int s) {
@@ -312,18 +352,11 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
       return;
     }
     int8_t* dst = Wbuf + (s % P.nbuf) * wbuf_bytes;
-    int j0 = 0, ntaps = 1, kci;
-    const int8_t* src;
-    if (s < n1) {
-      const int r = s % nst1;
-      kci = r % P.nkc;
-      j0 = (r / P.nkc) * P.tps;
-      ntaps = min(P.tps, P.k - j0);
-      src = w1 + (size_t)j0 * CP * CP;
-    } else {
-      kci = (s - n1) % P.nkc;
-      src = w2;
-    }
+    const bool first = s < n1;
+    const int r = first ? s % P.c1.nst : (s - n1) % P.c2.nst;
+    const int kci = r % P.nkc, j0 = (r / P.nkc) * P.tps;
+    const int ntaps = min(P.tps, (first ? P.c1.k : P.c2.k) - j0);
+    const int8_t* src = (first ? w1 : w2) + (size_t)j0 * CP * CP;
     const int vpr = P.kc / 16;  // 16-byte vectors per weight row
     for (int e = tid; e < ntaps * CP * vpr; e += NTHREADS) {
       const int row = e / vpr, v = e - row * vpr;  // row = tap * CP + out
@@ -333,9 +366,9 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
     cp_async_commit();
   };
   for (int s = 0; s < P.nbuf - 1; ++s) issue(s);
-  for (int e = tid; e < R; e += NTHREADS) RM[e] = 0u;
+  for (int e = tid; e < R1; e += NTHREADS) RM[e] = 0u;
 
-  // 1. ELU(v) over the halo and the tile, in chunks of TS samples, each
+  // 1. act(v) over the halo and the tile, in chunks of TS samples, each
   // quantized per row into Q (rows 0 .. LR - 1).  A warp reads segments of
   // 32 samples of one channel, U segments before it uses any, so that
   // enough loads are in flight
@@ -358,26 +391,28 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
       for (int i = 0; i < U; ++i) {
         const int gi = g0 + i * NWARPS, c = fast_div(gi, nseg, magic);
         const int s = (gi - c * nseg) * 32 + lane;
-        if (gi < total && s < n) S[c * LS + s] = elu(v[i]);
+        if (gi < total && s < n)
+          S[c * LS + s] = activate(v[i], act, P.slope);
       }
     }
     __syncthreads();
-    quantize_rows<CP, NWARPS, false>(S, LS, Q, SD, RM, cs / F, n / F, P.LR,
-                                     F, P.C);
+    quantize_rows<CP, NWARPS, false>(S, LS, Q, SD, RM, cs / F, n / F,
+                                     P.c1.lr, F, P.C);
     __syncthreads();
   }
 
   // this warp's channels and M tiles (slot i of round rd: M tile
-  // rd * MPR + mgroup * MT + i, phase mt / (R / 16), rows from
-  // 16 * (mt % (R / 16)))
+  // rd * MPR + mgroup * MT + i, phase mt / per_phase, rows from
+  // 16 * (mt % per_phase))
   const int nbase = (warp % NS) * NW;
   const int mgroup = warp / NS;
-  const int mtiles = TS / 16, per_phase = R / 16;
   float acc[MT][NW / 8][4];
   int iacc[MT][NW / 8][4];
   bool fresh[MT];
 
-  for (int s = 0; s < nsteps; ++s) {
+  // step s of the weight pipeline, of conv1 (first) or conv2 (cv); two
+  // loops below call it, so that each conv's parameters stay constants
+  auto step = [&](const int s, const Conv& cv, const bool first) {
     // stage s has landed (nbuf - 2 later groups may be pending), and every
     // warp is done with step s - 1, whose buffer the next issue refills
     if (P.nbuf == 2)
@@ -389,23 +424,23 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
     __syncthreads();
     issue(s + P.nbuf - 1);
     const int8_t* Wb = Wbuf + (s % P.nbuf) * wbuf_bytes;
-    const bool conv1 = s < n1;
-    const int rd = conv1 ? s / nst1 : (s - n1) / P.nkc;
-    const int r = conv1 ? s % nst1 : (s - n1) % P.nkc;
+    const int sl = first ? s : s - n1;
+    const int rd = sl / cv.nst, r = sl % cv.nst;
     const int kci = r % P.nkc;
-    const int j0 = conv1 ? (r / P.nkc) * P.tps : 0;
-    const int ntaps = conv1 ? min(P.tps, P.k - j0) : 1;
+    const int j0 = (r / P.nkc) * P.tps;
+    const int ntaps = min(P.tps, cv.k - j0);
+    const int mtiles = F * cv.per_phase;
     // off, pp: the row offset and phase that tap j of each M tile reads,
     // advanced by d = dq F + dr from tap to tap
     int mt[MT], ph[MT], u0[MT], off[MT], pp[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       mt[i] = rd * MPR + mgroup * MT + i;
-      ph[i] = mt[i] / per_phase;
-      u0[i] = 16 * (mt[i] % per_phase);
-      const int a = ph[i] + j0 * P.d - P.span;
-      off[i] = conv1 ? floor_div(a, F) : 0;
-      pp[i] = conv1 ? a - off[i] * F : ph[i];
+      ph[i] = mt[i] / cv.per_phase;
+      u0[i] = 16 * (mt[i] % cv.per_phase);
+      const int a = ph[i] + j0 * cv.d - cv.span;
+      off[i] = floor_div(a, F);
+      pp[i] = a - off[i] * F;
     }
     if (r == 0) {  // the first stage of a conv in this round
 #pragma unroll
@@ -424,8 +459,7 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
       const int8_t* arow[MT];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const int row = conv1 ? pp[i] * P.LR + u0[i] + P.hrow + off[i]
-                              : ph[i] * R + u0[i];
+        const int row = pp[i] * cv.lr + u0[i] + cv.halo + off[i];
         arow[i] = Q + (row + (lane & 15)) * QS + kci * P.kc + (lane >> 4) * 16;
       }
       const int8_t* brow = Wb + (jj * CP + nbase + (lane & 7) +
@@ -448,11 +482,11 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
           fresh[i] = false;
         }
       }
-      if (!conv1 || kci != P.nkc - 1) continue;
+      if (kci != P.nkc - 1 || (!GENERAL && !first)) continue;
       // a change of offset ends a chain: flush it through the row scales
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        int pn = pp[i] + P.dr, on = off[i] + P.dq;
+        int pn = pp[i] + cv.dr, on = off[i] + cv.dq;
         if (pn >= F) {
           pn -= F;
           ++on;
@@ -460,29 +494,28 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
         const int o = off[i];
         off[i] = on;
         pp[i] = pn;
-        if (mt[i] >= mtiles || (j + 1 < P.k && on == o)) continue;
-        const int ra = u0[i] + g + P.hrow + o;
+        if (mt[i] >= mtiles || (j + 1 < cv.k && on == o)) continue;
+        const int ra = u0[i] + g + cv.halo + o;
         const float sa = SD[ra], sb = SD[ra + 8];
 #pragma unroll
         for (int n = 0; n < NW / 8; ++n) {
-          acc[i][n][0] = fmaf(to_f32(iacc[i][n][0], P.exact_small), sa,
+          acc[i][n][0] = fmaf(to_f32(iacc[i][n][0], cv.exact_small), sa,
                               acc[i][n][0]);
-          acc[i][n][1] = fmaf(to_f32(iacc[i][n][1], P.exact_small), sa,
+          acc[i][n][1] = fmaf(to_f32(iacc[i][n][1], cv.exact_small), sa,
                               acc[i][n][1]);
-          acc[i][n][2] = fmaf(to_f32(iacc[i][n][2], P.exact_small), sb,
+          acc[i][n][2] = fmaf(to_f32(iacc[i][n][2], cv.exact_small), sb,
                               acc[i][n][2]);
-          acc[i][n][3] = fmaf(to_f32(iacc[i][n][3], P.exact_small), sb,
+          acc[i][n][3] = fmaf(to_f32(iacc[i][n][3], cv.exact_small), sb,
                               acc[i][n][3]);
         }
         fresh[i] = true;  // the next chain's first mma starts from zero
       }
     }
 
-    const bool last = conv1 ? r == nst1 - 1 : r == P.nkc - 1;
-    if (last) {
-      // conv1: ELU(acc * s1) and its rows' absmax (rows u0 + g and
-      // u0 + g + 8, over the 4 lanes of a row); the 1x1 conv:
-      // y2 = part * s_row; both to S
+    if (r == cv.nst - 1) {
+      // conv1: act(acc * s1 [+ b1]) and its rows' absmax (rows u0 + g and
+      // u0 + g + 8, over the 4 lanes of a row); conv2: its sum y2; both
+      // to S
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (mt[i] >= mtiles) continue;
@@ -493,28 +526,34 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
           for (int q = 0; q < 4; ++q) {
             const int c = nbase + n * 8 + 2 * t4 + (q & 1);
             const int row = u0[i] + g + 8 * (q >> 1);
-            float y;
-            if (conv1) {
-              y = elu(__fmul_rn(acc[i][n][q], __ldg(s1 + c)));
+            float y = acc[i][n][q];
+            if (first) {
+              // with biases, conv1's rows before t=0 are zero: the second
+              // conv reads them as the TPU kernel's masked rows
+              y = !bias ? __fmul_rn(y, __ldg(s1 + c))
+                  : t0 / F - P.X + row < 0
+                      ? 0.f
+                      : fmaf(y, __ldg(s1 + c), __ldg(b1 + c));
+              y = activate(y, act, P.slope);
               m[q >> 1] = fmaxf(m[q >> 1], fabsf(y));
-            } else {
-              y = __fmul_rn(to_f32(iacc[i][n][q], P.exact_small), SD[row]);
+            } else if (!GENERAL) {  // the 1x1 conv: one offset, o = 0
+              y = __fmul_rn(to_f32(iacc[i][n][q], cv.exact_small), SD[row]);
             }
-            S[c * LS + row * F + ph[i]] = y;
+            if (c < P.C) S[c * LS + row * F + ph[i]] = y;
           }
-        if (conv1) {
+        if (first) {
           row_max(RM, u0[i] + g, m[0]);
           row_max(RM, u0[i] + g + 8, m[1]);
         }
       }
     }
-    if (s == n1 - 1) {
-      // conv1 done in every round: quantize its output into Q (rows
-      // 0 .. R - 1 of each phase) for the 1x1 conv
-      __syncthreads();
-      quantize_rows<CP, NWARPS, true>(S, LS, Q, SD, RM, 0, R, R, F, P.C);
-    }
-  }
+  };
+  for (int s = 0; s < n1; ++s) step(s, P.c1, true);
+  // conv1 done in every round: quantize its output into Q (rows 0 .. R1 - 1
+  // of each phase) for the second conv
+  __syncthreads();
+  quantize_rows<CP, NWARPS, true>(S, LS, Q, SD, RM, 0, R1, R1, F, P.C);
+  for (int s = n1; s < nsteps; ++s) step(s, P.c2, false);
   __syncthreads();
 
   // 3. the residual, coalesced over time, U segments of 32 samples in
@@ -536,42 +575,56 @@ int8_mma_unit(const float* __restrict__ x, float* __restrict__ out,
       const int s = (gi - c * nseg) * 32 + lane, t = t0 + s;
       if (gi < total && s < TS && t < P.Tp) {
         const float y2 = S[c * LS + s], sc = __ldg(s2 + c);
-        ob[(size_t)c * P.Tp + t] =
-            P.bf16 ? __fadd_rn(round_bf16(v[i]), round_bf16(__fmul_rn(y2, sc)))
-                   : fmaf(y2, sc, v[i]);
+        float y;
+        if (bias) {  // v + (y2 * s2 + b2), as storage_residual
+          const float yb = fmaf(y2, sc, __ldg(b2 + c));
+          y = P.bf16 ? __fadd_rn(round_bf16(v[i]), round_bf16(yb))
+                     : __fadd_rn(v[i], yb);
+        } else {
+          y = P.bf16 ? __fadd_rn(round_bf16(v[i]),
+                                 round_bf16(__fmul_rn(y2, sc)))
+                     : fmaf(y2, sc, v[i]);
+        }
+        ob[(size_t)c * P.Tp + t] = y;
       }
     }
   }
 }
 
-template <int CP>
+template <int CP, bool GENERAL>
 int launch_units(const float* x, float* out, float* tmp, const int8_t* w1,
-                 const int8_t* w2, const float* scales, int B, Params P,
-                 int n_units, const int* dil, const int* exact_small,
-                 int smem, cudaStream_t s) {
+                 const int8_t* w2, const float* scales, const float* bias,
+                 int B, Params P, int n_units, const int* dil,
+                 const int* exact_small, int smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      int8_mma_unit<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      int8_mma_unit<CP, GENERAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err == cudaSuccess)  // all of the SM's L1 as shared memory
-    err = cudaFuncSetAttribute(int8_mma_unit<CP>,
+    err = cudaFuncSetAttribute(int8_mma_unit<CP, GENERAL>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P.Tp + P.TS - 1) / P.TS, B);
+  const int k = P.c1.k, k2 = P.c2.k;
   const float* src = x;
   for (int u = 0; u < n_units; ++u) {
-    P.d = dil[u];
-    P.dq = P.d / P.F;
-    P.dr = P.d % P.F;
-    P.span = (P.k - 1) * P.d;
-    P.hrow = (P.span + P.F - 1) / P.F;
-    P.LR = P.R + P.hrow;
-    P.exact_small = exact_small[u];
+    P.c1.d = dil[u];
+    P.c1.dq = P.c1.d / P.F;
+    P.c1.dr = P.c1.d % P.F;
+    P.c1.span = (k - 1) * P.c1.d;
+    P.hrow = (P.c1.span + P.F - 1) / P.F;
+    P.c1.lr = P.R1 + P.hrow;
+    P.c1.halo = P.hrow;
+    P.c1.exact_small = exact_small[2 * u];
+    P.c2.exact_small = exact_small[2 * u + 1];
     // the last unit writes out; earlier ones alternate so no unit reads
     // the buffer it writes
     float* dst = (n_units - 1 - u) % 2 == 0 ? out : tmp;
-    int8_mma_unit<CP><<<grid, 32 * warps_for(CP), smem, s>>>(
-        src, dst, w1 + (size_t)u * P.k * CP * CP, w2 + (size_t)u * CP * CP,
-        scales + (size_t)u * 2 * CP, scales + (size_t)u * 2 * CP + CP, P);
+    const float* sc = scales + (size_t)u * 2 * CP;
+    const float* bs = bias == nullptr ? nullptr : bias + (size_t)u * 2 * CP;
+    int8_mma_unit<CP, GENERAL><<<grid, 32 * warps_for(CP), smem, s>>>(
+        src, dst, w1 + (size_t)u * k * CP * CP, w2 + (size_t)u * k2 * CP * CP,
+        sc, sc + CP, bs, bs == nullptr ? nullptr : bs + CP, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     src = dst;
@@ -579,28 +632,60 @@ int launch_units(const float* x, float* out, float* tmp, const int8_t* w1,
   return 0;
 }
 
+// launch_units at the kernel's width cp
+template <bool GENERAL>
+int launch_width(int cp, const float* x, float* out, float* tmp,
+                 const int8_t* w1, const int8_t* w2, const float* scales,
+                 const float* bias, int B, const Params& P, int n_units,
+                 const int* dil, const int* exact_small, int smem,
+                 cudaStream_t s) {
+  auto run = [&](auto launch) {
+    return launch(x, out, tmp, w1, w2, scales, bias, B, P, n_units, dil,
+                  exact_small, smem, s);
+  };
+  switch (cp) {
+    case 32:
+      return run(launch_units<32, GENERAL>);
+    case 64:
+      return run(launch_units<64, GENERAL>);
+    case 128:
+      return run(launch_units<128, GENERAL>);
+    case 256:
+      return run(launch_units<256, GENERAL>);
+    default:
+      return run(launch_units<512, GENERAL>);
+  }
+}
+
 }  // namespace
 
 // x, out, tmp: (B, C, Tp) contiguous f32, Tp a multiple of the fold F;
-// w1: (n_units, k, cp, cp) int8 [u][tap][out][in], w2: (n_units, cp, cp),
-// channels zero-padded to cp, the next of 32, 64, 128 and 256; scales:
-// (n_units, 2, cp) f32 weight scales of conv1 and the 1x1 conv; dil,
-// exact_small: n_units ints (host memory), exact_small[u] = 1 where every
-// int32 partial of unit u is below 2^22; tile: samples per block, a
-// multiple of 16 F; taps_per_stage, kc, nbuf: the weight pipeline's stage
-// (kc input channels of taps_per_stage taps; taps_per_stage > 1 only with
-// kc = cp) and its buffers (2 to 4); bf16: the storage is bf16 (x holds
-// bf16 values).  x is read only; with one unit tmp is not used.
+// w1: (n_units, k, cp, cp) and w2: (n_units, k2, cp, cp) int8 as
+// [u][tap][out][in], channels zero-padded to cp, the next of 32, 64, 128,
+// 256 and 512; scales: (n_units, 2, cp) f32 weight scales of the two
+// convs; bias: (n_units, 2, cp) f32 or null; dil: n_units ints and
+// exact_small: 2 n_units ints (host memory), exact_small[2 u + i] = 1
+// where every int32 partial of conv i of unit u is below 2^22; act: 0 ELU,
+// 1 LeakyReLU(slope); tile: samples per block, a multiple of 16 F;
+// sglobal: null, or B ceil(Tp / tile) C (r1 f + 1) f32 for the f32 buffer
+// (r1 the rows per phase of conv1, int8_mma_geometry's) where it does not
+// fit a block's shared memory beside the rest;
+// taps_per_stage, kc, nbuf: the weight pipeline's stage (kc input
+// channels of taps_per_stage taps; taps_per_stage > 1 only with kc = cp)
+// and its buffers (2 to 4); bf16: the storage is bf16 (x holds bf16
+// values).  x is read only; with one unit tmp is not used.
 extern "C" int int8_mma_stack_forward(
     const void* x, void* out, void* tmp, const void* w1, const void* w2,
-    const void* scales, int B, int C, int Tp, int cp, int F, int k,
-    int n_units, const int* dil, const int* exact_small, int tile,
+    const void* scales, const void* bias, void* sglobal, int B, int C,
+    int Tp, int cp,
+    int F, int k, int k2, int n_units, const int* dil,
+    const int* exact_small, int act, float slope, int tile,
     int taps_per_stage, int kc, int nbuf, int bf16, void* stream) {
-  if ((cp != 32 && cp != 64 && cp != 128 && cp != 256) || C < 1 || C > cp ||
-      B < 1 || Tp < 1 || F < 1 || Tp % F || k < 1 || n_units < 1 ||
-      tile < 16 * F || tile % (16 * F) ||
-      kc < 32 || kc % 32 || cp % kc || taps_per_stage < 1 || nbuf < 2 ||
-      nbuf > 4 ||
+  if ((cp != 32 && cp != 64 && cp != 128 && cp != 256 && cp != 512) ||
+      C < 1 || C > cp || B < 1 || Tp < 1 || F < 1 || Tp % F || k < 1 ||
+      k2 < 1 || n_units < 1 || (act != ELU && act != LEAKY) ||
+      tile < 16 * F || tile % (16 * F) || kc < 32 || kc % 32 || cp % kc ||
+      taps_per_stage < 1 || nbuf < 2 || nbuf > 4 ||
       (taps_per_stage > 1 && kc != cp))
     return (int)cudaErrorInvalidValue;
   Params P;
@@ -609,21 +694,43 @@ extern "C" int int8_mma_stack_forward(
   P.F = F;
   P.TS = tile;
   P.R = tile / F;
-  P.k = k;
-  P.tps = taps_per_stage < k ? taps_per_stage : k;
+  // conv1 runs over whole M tiles that reach k2 - 1 samples before the tile
+  const int hrow2 = (k2 - 1 + F - 1) / F;
+  P.R1 = (P.R + hrow2 + 15) / 16 * 16;
+  P.X = P.R1 - P.R;
+  const int kmax = k > k2 ? k : k2;
+  P.tps = taps_per_stage < kmax ? taps_per_stage : kmax;
   P.kc = kc;
   P.nkc = cp / kc;
   P.nbuf = nbuf;
+  P.act = act;
+  P.slope = slope;
+  P.has_bias = bias != nullptr;
   P.bf16 = bf16;
   const int mpr = (warps_for(cp) / (cp / NW)) * MT;
-  P.rounds = (tile / 16 + mpr - 1) / mpr;
+  P.c1.k = k;
+  P.c1.per_phase = P.R1 / 16;
+  P.c1.rounds = (F * P.R1 / 16 + mpr - 1) / mpr;
+  P.c1.nst = (k + P.tps - 1) / P.tps * P.nkc;
+  P.c2.k = k2;
+  P.c2.d = 1;
+  P.c2.dq = 1 / F;
+  P.c2.dr = 1 % F;
+  P.c2.span = k2 - 1;
+  P.c2.per_phase = P.R / 16;
+  P.c2.lr = P.R1;
+  P.c2.halo = P.X;
+  P.c2.rounds = (F * P.R / 16 + mpr - 1) / mpr;
+  P.c2.nst = (k2 + P.tps - 1) / P.tps * P.nkc;
   int lr_max = 0;
   for (int u = 0; u < n_units; ++u) {
     if (dil[u] < 1) return (int)cudaErrorInvalidValue;
     const int hrow = ((k - 1) * dil[u] + F - 1) / F;
-    if (P.R + hrow > lr_max) lr_max = P.R + hrow;
+    if (P.R1 + hrow > lr_max) lr_max = P.R1 + hrow;
   }
-  const int smem = layout(cp, nbuf, P.tps, kc, tile, F, lr_max).total;
+  P.sg = static_cast<float*>(sglobal);
+  const int smem =
+      layout(cp, C, nbuf, P.tps, kc, P.R1, F, lr_max, P.sg != nullptr).total;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const float* xs = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
@@ -631,19 +738,11 @@ extern "C" int int8_mma_stack_forward(
   const int8_t* a = static_cast<const int8_t*>(w1);
   const int8_t* b = static_cast<const int8_t*>(w2);
   const float* sc = static_cast<const float*>(scales);
+  const float* bs = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cp) {
-    case 32:
-      return launch_units<32>(xs, o, tm, a, b, sc, B, P, n_units, dil,
-                              exact_small, smem, s);
-    case 64:
-      return launch_units<64>(xs, o, tm, a, b, sc, B, P, n_units, dil,
-                              exact_small, smem, s);
-    case 128:
-      return launch_units<128>(xs, o, tm, a, b, sc, B, P, n_units, dil,
-                               exact_small, smem, s);
-    default:
-      return launch_units<256>(xs, o, tm, a, b, sc, B, P, n_units, dil,
-                               exact_small, smem, s);
-  }
+  return act != ELU || k2 != 1 || bias != nullptr
+             ? launch_width<true>(cp, xs, o, tm, a, b, sc, bs, B, P, n_units,
+                                  dil, exact_small, smem, s)
+             : launch_width<false>(cp, xs, o, tm, a, b, sc, bs, B, P,
+                                   n_units, dil, exact_small, smem, s);
 }

@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel audiodec_tpu/ops/pallas/folded_stack.py
 // folded_residual_stack (pallas_call at :372) whenever its dot operands are
-// rounded to bf16 (`bf16_dots`, or bf16 storage) at C from 33 to 256: a
+// rounded to bf16 (`bf16_dots`, or bf16 storage) at C from 33 to 512 (one
+// warp per 32 output channels, at most 16 warps a block): a
 // chain of units
 //
 //   v += mask(conv_k2,1(act(mask(conv_k,d(act(v)) + b1))) + b2)
@@ -75,7 +76,6 @@ namespace {
 constexpr int MTW = 4;               // m16 tiles per warp
 constexpr int WARP_N = 32;           // output channels per warp
 constexpr int MAX_WARPS = 16;
-constexpr int MAX_C = 256;
 constexpr int MAX_UNITS = 256;
 constexpr int SMEM_LIMIT = 232448;   // bytes a block may use on sm_90
 enum { ELU = 0, LEAKY = 1 };  // the C interface's act
@@ -406,8 +406,8 @@ extern "C" int wide_stack_forward(
     const void* bias, int B, int C, int T, int cp, int n_units,
     const int* dil, int k, int k2, int act, float slope, int warps_m, int kc,
     int nbuf, int storage_bf16, void* stream) {
-  if (B < 1 || C < 1 || C > MAX_C || T < 1 || cp < C || cp % WARP_N ||
-      cp > MAX_C || n_units < 1 || n_units > MAX_UNITS || k < 1 || k2 < 1 ||
+  if (B < 1 || C < 1 || T < 1 || cp < C || cp % WARP_N ||
+      n_units < 1 || n_units > MAX_UNITS || k < 1 || k2 < 1 ||
       (act != ELU && act != LEAKY) || warps_m < 1 ||
       warps_m * (cp / WARP_N) > MAX_WARPS || kc < 16 || kc % 16 || cp % kc ||
       (nbuf != 2 && nbuf != 3) || (n_units > 1 && scratch == nullptr))

@@ -2,8 +2,8 @@
 
 Replaces the TPU kernel `audiodec_tpu/ops/pallas/folded_stack.py:112
 folded_residual_stack`, which takes any chain of units act -> conv(k, d) ->
-act -> conv(k2) -> + skip, act ELU or LeakyReLU, with or without biases.
-On the card (`route` picks):
+act -> conv(k2) -> + skip, act ELU or LeakyReLU, with or without biases,
+at any width C.  On the card (`route` picks):
 
   - C <= 32 with the dot operands rounded to bf16 (`bf16_dots`, or bf16
     storage): `csrc/folded_stack_mma.cu` (bf16 `mma.sync`) at every unit
@@ -11,30 +11,25 @@ On the card (`route` picks):
     k=7, 1x1 second conv, no biases), `mma_voc_launches` (the vocoder
     units: LeakyReLU with slope `act_param`, k = k2 in {3, 7, 11},
     optional biases) and `mma_other_launches` (any other shape);
-  - C <= 32 in true f32 (f32 storage, `bf16_dots=False`), the shipped
-    shapes with 1..3 units: the f32 FMA kernels, `csrc/folded_stack.cu`
-    for the autoencoder units (counted in `launches`) and
-    `csrc/resblock_stack.cu` for the vocoder units (`resblock_launches`);
-  - C from 33 to 256 with bf16 operands (`bf16_dots`, or bf16 storage):
+  - C > 32 with bf16 operands (`bf16_dots`, or bf16 storage):
     `csrc/wide_stack_mma.cu` (bf16 `mma.sync`, one CUDA launch per unit)
-    at every unit shape, counted in `wide_launches`;
-  - every other true-f32 stack, any C up to 256 and any unit shape and
-    count: `csrc/resunit_stack.cu` (f32 FMA, one CUDA launch per unit, the
-    archived stack's kernel), counted in `resunit_launches`;
-  - int8 mode (`int8_dots`) with "row" activation scales, the int8
-    decode's units (ELU, a 1x1 second conv, no biases) at any k and number
-    of units, any C from 4 to 256 and any fold, f32 or bf16 storage:
-    `csrc/int8_mma_stack.cu` (int8 `mma.sync`), counted in
-    `int8_launches`; arithmetic at `folded_residual_stack_int8_plain`;
-  - int8 mode with "tile" scales (`int8_scale="tile"`), the same units at
-    k = 7 and 1..3 units: `csrc/int8_tile_stack.cu`, counted in
-    `int8_tile_launches`; arithmetic at
-    `folded_residual_stack_int8_tile_plain`.
-The plain int8 versions take every unit shape the TPU kernel takes
-(LeakyReLU, k2 > 1, biases); no path sends those to the int8 kernels, which
-raise ValueError for them on the card, as every kernel does above C = 256.
-`_fma_stack` also runs the FMA kernels with bf16 operands, so that
-chip_smoke.py can time them beside the tensor-core kernel; no path calls it.
+    at every unit shape, C up to 512, counted in `wide_launches`;
+  - true f32 (f32 storage, `bf16_dots=False`), any C and any unit shape
+    and count: `csrc/resunit_stack.cu` (f32 FMA, one CUDA launch per unit,
+    the archived stack's kernel), counted in `resunit_launches`;
+  - int8 mode (`int8_dots`) with "row" activation scales, every unit shape
+    (ELU or LeakyReLU, any k and k2, biases or none, any number of units),
+    C up to 512, any fold, f32 or bf16 storage: `csrc/int8_mma_stack.cu`
+    (int8 `mma.sync`), counted in `int8_launches`; arithmetic at
+    `folded_residual_stack_int8_plain`;
+  - int8 mode with "tile" scales (`int8_scale="tile"`), every unit shape,
+    any C, fold and tile_rows: `csrc/int8_tile_mma.cu` (int8 `mma.sync`,
+    2 n_units + 1 CUDA launches), counted in `int8_tile_launches`;
+    arithmetic at `folded_residual_stack_int8_tile_plain`.
+Each kernel holds every channel of a time tile and its halo in one block's
+shared memory; the geometry functions raise a ValueError naming the shape
+where nothing fits (a halo of thousands of samples, or widths past those
+above), which no shipped config reaches (ROADMAP §C).
 
 `fold` and `tile_rows` are the TPU kernel's (0 means f = max(1, 128 // C)).
 They define the int8 modes' functions: a "row" scale covers one folded row
@@ -53,7 +48,8 @@ peak, 989 TFLOP/s bf16, 1979 TOP/s int8):
     against 3 * (11 + 11) * 32 * 32 * 2 FLOP per sample (1.04e12, 1.05 ms),
     so it is bound by operations;
   - int8 modes at the symAD decoder's stacks: see csrc/int8_mma_stack.cu
-    (0.203-0.587 ms against the int8 tensor cores' 1979 TOP/s);
+    and csrc/int8_tile_mma.cu (0.203-0.587 ms against the int8 tensor
+    cores' 1979 TOP/s);
   - true f32 on the FMA units (67 TFLOP/s): see csrc/resunit_stack.cu.
 See the notes in the CUDA sources for each design.
 
@@ -99,13 +95,7 @@ ACTIVATIONS = ("elu", "leaky_relu")
 # vocoder units' k = k2
 KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
-# units the FMA kernels and the int8 "tile" kernel take
-MAX_UNITS = 3
 DEFAULT_TILE_ROWS = 1024
-# widths csrc/folded_stack.cu and csrc/resblock_stack.cu are built for, and
-# the widest C any kernel takes
-PADDED_CHANNELS = (4, 8, 16, 32)
-MAX_CHANNELS = 256
 # csrc/folded_stack_mma.cu: its padded widths, units, the samples a warp
 # takes per step, the largest tile, and the shared memory one block may use
 # on an H100 (227 KB)
@@ -134,7 +124,6 @@ WIDE_MAX_WARPS = 16
 WIDE_MAX_ROWS = 256
 WIDE_KC = (128, 64, 32)
 
-INT8_CHANNELS = (4, 256)
 INT8_QMAX = 127.0
 # csrc/int8_mma_stack.cu: each warp owns INT8_MMA_MT M tiles of 16 folded
 # rows x INT8_MMA_NW output channels, in blocks of 8 warps at cp <= 64 (two
@@ -144,20 +133,25 @@ INT8_QMAX = 127.0
 # stage holds at most INT8_MMA_KC input channels; an int32 partial below
 # INT8_MMA_SMALL converts to f32 by an add
 INT8_MMA_MT, INT8_MMA_NW = 2, 32
-INT8_MMA_CHANNELS = (32, 64, 128, 256)
+INT8_MMA_CHANNELS = (32, 64, 128, 256, 512)
 INT8_MMA_PAIR_SMEM = 233472 // 2 - 1024
-INT8_MMA_KC = 128
+INT8_MMA_KC = (128, 64, 32)
 INT8_MMA_SMALL = 1 << 22
+# csrc/int8_tile_mma.cu: its widest tile, and the channel-samples a tile
+# takes at most (TS x CP) by M tiles per warp item: 2 below cp = 128 (three
+# blocks per SM), else 4 (two).  (Chosen on the card, PERF.md §6: at
+# C = 64 a tile of 128 samples ran faster than 256, and from C = 128 two
+# blocks per SM faster than one.)
+INT8_TILE_MAX_TS = 256
+INT8_TILE_WORK = {2: 8192, 4: 16384}
 
 mma_launches = 0        # csrc/folded_stack_mma.cu, autoencoder units
 mma_voc_launches = 0    # csrc/folded_stack_mma.cu, vocoder units
 mma_other_launches = 0  # csrc/folded_stack_mma.cu, any other unit shape
-launches = 0            # autoencoder units, FMA, csrc/folded_stack.cu
 wide_launches = 0       # C > 32, bf16 operands, csrc/wide_stack_mma.cu
-resunit_launches = 0    # other true-f32 stacks, FMA, csrc/resunit_stack.cu
-resblock_launches = 0   # vocoder units, FMA, csrc/resblock_stack.cu
+resunit_launches = 0    # true f32, FMA, csrc/resunit_stack.cu
 int8_launches = 0       # int8 mode, "row" scales, csrc/int8_mma_stack.cu
-int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_stack.cu
+int8_tile_launches = 0  # int8 mode, "tile" scales, csrc/int8_tile_mma.cu
 
 
 def res_stack_params(block_params: dict) -> Tuple:
@@ -489,15 +483,6 @@ def folded_residual_stack_int8_tile_plain(
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _kernel():
-    fn = _build.load("folded_stack").folded_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
 def _mma_kernel():
     fn = _build.load("folded_stack_mma").folded_stack_mma_forward
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -511,27 +496,20 @@ def _mma_kernel():
 @functools.cache
 def _int8_kernel():
     fn = _build.load("int8_mma_stack").int8_mma_stack_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_int)] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
 def _int8_tile_kernel():
-    fn = _build.load("int8_tile_stack").int8_tile_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _resblock_kernel():
-    fn = _build.load("resblock_stack").resblock_stack_forward
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+    fn = _build.load("int8_tile_mma").int8_tile_mma_forward
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -573,24 +551,6 @@ def cuda_launches(source: str) -> int:
     return fn()
 
 
-def _pack_convs(ws, c: int, cp: int, rounded: bool) -> torch.Tensor:
-    """Torch (C, C, K) conv weights -> (n, K, cp, cp) [u][k][i][o], f32,
-    zero-padded from C to cp channels."""
-    w = torch.stack([F.pad(w.float().permute(2, 1, 0), (0, cp - c, 0, cp - c))
-                     for w in ws])
-    if rounded:
-        w = w.to(torch.bfloat16).float()
-    return w.contiguous()
-
-
-def _pack_weights(unit_params, c: int, cp: int, rounded: bool):
-    """Autoencoder mode: (n, K, cp, cp) [u][k][i][o] and (n, cp, cp)
-    [u][i][o] (the 1x1 conv's single tap), f32."""
-    w1 = _pack_convs([w for w, _ in unit_params], c, cp, rounded)
-    w2 = _pack_convs([w for _, w in unit_params], c, cp, rounded)
-    return w1, w2[:, 0].contiguous()
-
-
 def _pack_biases(biases, c: int, cp: int):
     """The biases as (n, 2, cp) f32 (never rounded: the TPU kernel adds them
     in f32), zero-padded from C to cp channels, or None."""
@@ -599,13 +559,6 @@ def _pack_biases(biases, c: int, cp: int):
     return torch.stack([torch.stack([F.pad(b1.float(), (0, cp - c)),
                                      F.pad(b2.float(), (0, cp - c))])
                         for b1, b2 in biases]).contiguous()
-
-
-def _pack_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
-    """Vocoder mode: (n, K, cp, cp) twice and the biases (`_pack_biases`)."""
-    w1 = _pack_convs([w for w, _ in unit_params], c, cp, rounded)
-    w2 = _pack_convs([w for _, w in unit_params], c, cp, rounded)
-    return w1, w2, _pack_biases(biases, c, cp)
 
 
 def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
@@ -635,37 +588,50 @@ def _pack_unit(unit_params, biases, c: int, cp: int, _rounded: bool):
             convs([w for _, w in unit_params]), _pack_biases(biases, c, cp))
 
 
-def _pack_int8_mma(unit_params, c: int, cp: int, _rounded: bool):
-    """csrc/int8_mma_stack.cu's operands: conv1 (n, k, cp, cp) and the 1x1
-    conv (n, cp, cp) int8 as [u][tap][c_out][c_in], channels zero-padded
-    from C to cp; the weight scales (n, 2, cp) f32, zero on the padding."""
+def _int8_scaled(unit_params, biases, c: int, cp: int, layout):
+    """Both convs of each unit quantized (`int8_weight_scales`), the
+    integers as `layout` packs a (k, cp_out, cp_in) tensor zero-padded from
+    C to cp, as int8; the weight scales (n, 2, cp) f32, zero on the
+    padding; and the biases (`_pack_biases`)."""
     def pack(w):
         q, s = int8_weight_scales(w)
         q = F.pad(q.permute(2, 0, 1), (0, cp - c, 0, cp - c))
-        return q.to(torch.int8).contiguous(), F.pad(s, (0, cp - c))
+        return layout(q).to(torch.int8).contiguous(), F.pad(s, (0, cp - c))
 
     w1, s1 = zip(*(pack(w) for w, _ in unit_params))
     w2, s2 = zip(*(pack(w) for _, w in unit_params))
-    return (torch.stack(w1), torch.stack(w2)[:, 0].contiguous(),
-            torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous())
+    return (torch.stack(w1), torch.stack(w2),
+            torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous(),
+            _pack_biases(biases, c, cp))
 
 
-def _pack_int8(unit_params, c: int, cp: int, _rounded: bool):
-    """The "tile" mode (csrc/int8_tile_stack.cu): conv1 (n, K, cp/16, C,
-    16) and the 1x1 conv (n, cp/16, C, 16) int8, input channels zero-padded
-    from C to cp (a multiple of 16) and grouped by 16 for the kernel's
-    16-byte loads; the weight scales (n, 2, C) f32."""
-    def pack(w):
-        q, s = int8_weight_scales(w)
-        k = q.shape[-1]
-        q = F.pad(q.permute(2, 0, 1), (0, cp - c))      # (k, C_out, cp)
-        q = q.reshape(k, c, cp // 16, 16).permute(0, 2, 1, 3)
-        return q.to(torch.int8).contiguous(), s
+def _pack_int8_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/int8_mma_stack.cu's operands: conv1 (n, k, cp, cp) and conv2
+    (n, k2, cp, cp) int8 as [u][tap][c_out][c_in], channels zero-padded
+    from C to cp; the weight scales (n, 2, cp) f32, zero on the padding;
+    the biases."""
+    return _int8_scaled(unit_params, biases, c, cp, lambda q: q)
 
-    w1, s1 = zip(*(pack(w) for w, _ in unit_params))
-    w2, s2 = zip(*(pack(w) for _, w in unit_params))
-    return (torch.stack(w1), torch.stack(w2)[:, 0].contiguous(),
-            torch.stack([torch.stack(s1), torch.stack(s2)], 1).contiguous())
+
+def int8_fragment_order(q: torch.Tensor) -> torch.Tensor:
+    """(k, cp, cp) [tap][c_out][c_in], cp a multiple of 32 -> the B
+    fragments of mma.m16n8k32 s8 as csrc/int8_tile_mma.cu reads them:
+    (k, cp/32, cp/8, 32, 8) [tap][32 input channels][8 output channels]
+    [lane][byte], lane = 4 g + t4 holding output channel 8 ot + g and input
+    channels 32 kc + 4 t4 + (0..3) (its first register) and 16 more (its
+    second)."""
+    k, cp, _ = q.shape
+    q = q.reshape(k, cp // 8, 8, cp // 32, 2, 4, 4)  # tap ot g kc half t4 b
+    return q.permute(0, 3, 1, 2, 5, 4, 6).reshape(k, cp // 32, cp // 8,
+                                                  32, 8)
+
+
+def _pack_int8_tile(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/int8_tile_mma.cu's operands: conv1 (n, k, cp/32, cp/8, 32, 8)
+    and conv2 (n, k2, ...) int8 in B-fragment order
+    (`int8_fragment_order`), channels zero-padded from C to cp; the weight
+    scales (n, 2, cp) f32, zero on the padding; the biases."""
+    return _int8_scaled(unit_params, biases, c, cp, int8_fragment_order)
 
 
 # packed weights by what the weight tensors hold (device, dtype, address,
@@ -690,19 +656,6 @@ def cached_pack(pack, tensors, c: int, cp: int, rounded: bool, *args):
     return hit[1]
 
 
-def _packed_weights(unit_params, c: int, cp: int, rounded: bool):
-    weights = tuple(w for u in unit_params for w in u)
-    return cached_pack(_pack_weights, weights, c, cp, rounded, unit_params)
-
-
-def _packed_int8(unit_params, c: int, cp: int):
-    weights = tuple(w for u in unit_params for w in u)
-    return cached_pack(_pack_int8, weights, c, cp, False, unit_params)
-
-
-def _packed_int8_mma(unit_params, c: int, cp: int):
-    weights = tuple(w for u in unit_params for w in u)
-    return cached_pack(_pack_int8_mma, weights, c, cp, False, unit_params)
 
 
 def _unit_tensors(unit_params, biases):
@@ -712,11 +665,6 @@ def _unit_tensors(unit_params, biases):
     return tensors
 
 
-def _packed_resblock(unit_params, biases, c: int, cp: int, rounded: bool):
-    return cached_pack(_pack_resblock, _unit_tensors(unit_params, biases), c,
-                       cp, rounded, unit_params, biases)
-
-
 def _packed_mma(unit_params, biases, c: int, cp: int):
     return cached_pack(_pack_mma, _unit_tensors(unit_params, biases), c, cp,
                        True, unit_params, biases)
@@ -724,6 +672,12 @@ def _packed_mma(unit_params, biases, c: int, cp: int):
 
 def _packed_unit(unit_params, biases, c: int, cp: int):
     return cached_pack(_pack_unit, _unit_tensors(unit_params, biases), c, cp,
+                       False, unit_params, biases)
+
+
+def _packed_int8(pack, unit_params, biases, c: int, cp: int):
+    """`pack` (_pack_int8_mma or _pack_int8_tile) through the pack cache."""
+    return cached_pack(pack, _unit_tensors(unit_params, biases), c, cp,
                        False, unit_params, biases)
 
 
@@ -752,26 +706,16 @@ def _shape(kernel_size, kernel_size2, act, biases, dilations) -> str:
             f"biases={biases is not None}, dilations={tuple(dilations)}")
 
 
-def route(mode: str, c: int, bf16_storage: bool, bf16_dots: bool,
-          units: int = MAX_UNITS, shape: str = "") -> str:
-    """The kernel a CUDA tensor of C channels and `units` units takes in
-    `mode` (`_mode`): 'int8' (the int8 modes' kernels); with the dot
-    operands rounded to bf16, 'mma' at C <= 32 (csrc/folded_stack_mma.cu)
-    and 'wide' above (csrc/wide_stack_mma.cu); in true f32, 'fma' for the
-    autoencoder and vocoder units at C <= 32 with 1..3 units
-    (csrc/folded_stack.cu, csrc/resblock_stack.cu) and 'resunit' for every
-    other stack (csrc/resunit_stack.cu).  Raises ValueError, naming
-    `shape`, above C = 256, where no kernel computes the units."""
+def route(mode: str, c: int, bf16_storage: bool, bf16_dots: bool) -> str:
+    """The kernel a CUDA tensor of C channels takes in `mode` (`_mode`):
+    'int8' (the int8 modes' kernels); with the dot operands rounded to
+    bf16, 'mma' at C <= 32 (csrc/folded_stack_mma.cu) and 'wide' above
+    (csrc/wide_stack_mma.cu); in true f32 'resunit'
+    (csrc/resunit_stack.cu), at every width and unit shape."""
     if mode == "int8":
         return "int8"
-    if c > MAX_CHANNELS:
-        raise ValueError(f"the card takes C <= {MAX_CHANNELS}, got C={c} "
-                         f"({shape})")
     if bf16_dots or bf16_storage:
         return "mma" if c <= MMA_CHANNELS[-1] else "wide"
-    if (c <= PADDED_CHANNELS[-1] and mode in ("autoencoder", "vocoder")
-            and units <= MAX_UNITS):
-        return "fma"
     return "resunit"
 
 
@@ -983,16 +927,10 @@ def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
     c = x.shape[1]
     bf16 = x.dtype == torch.bfloat16
     shape = _shape(kernel_size, kernel_size2, act, biases, dilations)
-    kernel = route(mode, c, bf16, bf16_dots, len(dilations), shape)
+    kernel = route(mode, c, bf16, bf16_dots)
     if kernel == "mma":
         return _mma_stack(x, unit_params, dilations, kernel_size,
                           kernel_size2, act, act_param, biases, mode)
-    if kernel == "fma":
-        return _fma_stack(x, unit_params, dilations=dilations,
-                          kernel_size=kernel_size,
-                          kernel_size2=kernel_size2, act=act,
-                          act_param=act_param, biases=biases,
-                          bf16_dots=False)
     if kernel == "wide":
         out = _wide_stack(x, unit_params, dilations, act, act_param, biases,
                           shape)
@@ -1009,8 +947,7 @@ def resunit_stack(x: torch.Tensor, unit_params: Sequence,
                   act_param: float = 0.0, biases=None,
                   shape: str = "") -> torch.Tensor:
     """One wrapper call of csrc/resunit_stack.cu, true f32 on the FMA units,
-    one CUDA launch per unit: x contiguous (B, C, T) f32 on the card, C up
-    to 256; act 'elu_exp' (the archived stack's exp(min(v, 0)) - 1),
+    one CUDA launch per unit: x contiguous (B, C, T) f32 on the card; act 'elu_exp' (the archived stack's exp(min(v, 0)) - 1),
     'elu' (expm1) or 'leaky_relu' (slope act_param); each conv's width its
     weights'.  The caller counts the call."""
     b, c, t = x.shape
@@ -1123,60 +1060,6 @@ def _mma_stack(x, unit_params, dilations, kernel_size, kernel_size2, act,
     return out
 
 
-def _fma_stack(x: torch.Tensor, unit_params: Sequence, *,
-               dilations: Sequence[int] = (1, 3, 9),
-               kernel_size: int = KERNEL_SIZE, kernel_size2: int = 1,
-               act: str = "elu", act_param: float = 0.0, biases=None,
-               bf16_dots: bool = True) -> torch.Tensor:
-    """One launch of the f32 FMA kernels: csrc/folded_stack.cu (the
-    autoencoder units, counted in `launches`) or csrc/resblock_stack.cu
-    (the vocoder units, `resblock_launches`), C <= 32, 1..3 units.  The
-    stack takes them in true f32; their bf16-operand modes (`bf16_dots`,
-    or bf16 storage) are reached only here, for chip_smoke.py to time and
-    check them beside csrc/folded_stack_mma.cu."""
-    global launches, resblock_launches
-    mode = _mode(kernel_size, kernel_size2, act, biases, False)
-    _check_args(x, unit_params, dilations, kernel_size, kernel_size2, biases)
-    _check_cuda(x, unit_params, biases)
-    b, c, t = x.shape
-    n = len(dilations)
-    if (mode not in ("autoencoder", "vocoder") or n > MAX_UNITS
-            or c > PADDED_CHANNELS[-1]):
-        raise ValueError(
-            f"the FMA kernels take the autoencoder and vocoder units at "
-            f"C <= {PADDED_CHANNELS[-1]} with 1..{MAX_UNITS} units; got "
-            f"C={c}, {n} units ("
-            f"{_shape(kernel_size, kernel_size2, act, biases, dilations)})")
-    rounded = bf16_dots or x.dtype == torch.bfloat16
-    storage_bf16 = int(x.dtype == torch.bfloat16)
-    cp = next(p for p in PADDED_CHANNELS if c <= p)
-    dil = list(dilations) + [0] * (MAX_UNITS - n)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if mode == "autoencoder":
-            w1, w2 = _packed_weights(unit_params, c, cp, rounded)
-            err = _kernel()(
-                x.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                b, c, t, cp, n, *dil, int(rounded), storage_bf16, stream)
-        else:
-            w1, w2, bias = _packed_resblock(unit_params, biases, c, cp,
-                                            rounded)
-            err = _resblock_kernel()(
-                x.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                None if bias is None else bias.data_ptr(),
-                b, c, t, cp, kernel_size, n, *dil, float(act_param),
-                int(rounded), storage_bf16, stream)
-    if err != 0:
-        raise RuntimeError(f"{mode}-mode FMA residual stack kernel: CUDA "
-                           f"error {err}")
-    if mode == "autoencoder":
-        launches += 1
-    else:
-        resblock_launches += 1
-    return out
-
-
 def _check_cuda(x, unit_params, biases):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -1186,22 +1069,6 @@ def _check_cuda(x, unit_params, biases):
     tensors += [bb for u in biases for bb in u] if biases is not None else []
     if any(w.device != x.device for w in tensors):
         raise ValueError("weights must be on the device of x")
-
-
-def _check_int8_width(c: int):
-    if not INT8_CHANNELS[0] <= c <= INT8_CHANNELS[1]:
-        raise ValueError(f"the int8 modes take C in {INT8_CHANNELS}, "
-                         f"got {c}")
-
-
-def _check_int8_shape(units: dict, kernel_size2: int, shape: str):
-    """The int8 kernels take the units of the int8 decode (ELU, a 1x1
-    second conv, no biases); the plain versions take every shape."""
-    if (units["act"] != "elu" or kernel_size2 != 1
-            or units["biases"] is not None):
-        raise ValueError(f"the int8 kernels take ELU units with a 1x1 "
-                         f"second conv and no biases on the card, got "
-                         f"{shape}")
 
 
 def int8_offset_schedule(k: int, d: int, f: int) -> list:
@@ -1221,10 +1088,10 @@ def int8_offset_schedule(k: int, d: int, f: int) -> list:
 
 
 def int8_exact_small(c: int, k: int, d: int, f: int) -> bool:
-    """Whether every int32 partial of a unit (the taps of one offset times
-    C channels of codes and weights within +-127, and the 1x1 conv's C)
-    stays below 2^22, where csrc/int8_mma_stack.cu converts it to f32 with
-    an add of 1.5 x 2^23 instead of cvt.rn.f32.s32 (the same value)."""
+    """Whether every int32 partial of a conv(k, d) (the taps of one offset
+    times C channels of codes and weights within +-127) stays below 2^22,
+    where csrc/int8_mma_stack.cu converts it to f32 with an add of
+    1.5 x 2^23 instead of cvt.rn.f32.s32 (the same value)."""
     taps = max(len(js) for ph in int8_offset_schedule(k, d, f)
                for _, js in ph)
     return int(INT8_QMAX) ** 2 * c * taps < INT8_MMA_SMALL
@@ -1233,18 +1100,23 @@ def int8_exact_small(c: int, k: int, d: int, f: int) -> bool:
 class Int8MmaGeometry(NamedTuple):
     """A launch of csrc/int8_mma_stack.cu: channels padded to cp, f samples
     per folded row, tile output samples per block in `rounds` rounds of the
-    warps' M tiles, the largest halo (samples), the weight pipeline's stage
-    (taps_per_stage taps of kc input channels) and its buffers, the
-    block's shared memory in bytes and the CUDA launches per wrapper call
-    (one per unit)."""
+    warps' M tiles, the largest halo (samples), the rows per phase of
+    conv1's output (r1: the tile's and the rows before it that conv2
+    reads), the weight pipeline's stage (taps_per_stage taps of kc input
+    channels) and its buffers, whether the f32 buffer of conv1's output is
+    in device memory (s_global) rather than shared memory, the block's
+    shared memory in bytes and the CUDA launches per wrapper call (one per
+    unit)."""
     cp: int
     f: int
     tile: int
     rounds: int
     halo: int
+    r1: int
     taps_per_stage: int
     kc: int
     buffers: int
+    s_global: bool
     smem: int
     launches: int
 
@@ -1254,58 +1126,75 @@ def int8_mma_warps(cp: int) -> int:
     return 8 if cp <= 64 else 16
 
 
-def int8_mma_smem(cp: int, buffers: int, taps_per_stage: int, kc: int,
-                  tile: int, f: int, rows: int) -> int:
+def int8_mma_smem(cp: int, c: int, buffers: int, taps_per_stage: int,
+                  kc: int, r1: int, f: int, rows: int,
+                  s_global: bool = False) -> int:
     """Shared memory of a block (csrc/int8_mma_stack.cu `layout`): the
     weight stages' buffers (rows of kc + 16 bytes), the int8 activation
-    rows of `rows` folded rows per phase (cp + 16 bytes), the f32 staging
-    buffer [cp][tile + 1], the rows' scales and the tile rows' absmax."""
+    rows of `rows` folded rows per phase (cp + 16 bytes), the f32 buffer of
+    the C channels [c][r1 f + 1] unless it is in device memory, the rows'
+    scales and conv1's rows' absmax."""
     return (buffers * taps_per_stage * cp * (kc + 16) + f * rows * (cp + 16)
-            + 4 * cp * (tile + 1) + 4 * rows + 4 * (tile // f))
+            + (0 if s_global else 4 * c * (r1 * f + 1)) + 4 * rows + 4 * r1)
 
 
 def int8_mma_geometry(c: int, f: int, kernel_size: int,
-                      dilations: Sequence[int]) -> Int8MmaGeometry:
+                      dilations: Sequence[int],
+                      kernel_size2: int = 1) -> Int8MmaGeometry:
     """How csrc/int8_mma_stack.cu runs these units: warps of 2 M tiles
     (16 folded rows of one phase) x 32 channels each, 8 per block at
     cp <= 64 and 16 above (`int8_mma_warps`), so a round covers 4096 (8
     warps) or 16384 (16) / cp samples; the tile is that, rounded up to 16
-    rows of every phase, in as many rounds as it takes.  The weights: two
+    rows of every phase, in as many rounds as it takes; conv1 runs over
+    r1 rows per phase, the tile's and the ceil((k2 - 1) / f) before it
+    that conv2 reads, rounded up to whole M tiles.  The weights: two
     buffers of as many whole taps as fit beside the rest (kc = cp <= 128:
     all k at cp = 32, 6 at 64, 3 at 128, k = 7, dilations (1, 3, 9)); at
     cp = 256 one tap's 128 channels per stage, three buffers where they
-    fit.  An 8-warp block keeps to half an SM's shared memory where three
-    taps fit in it.  Raises ValueError where the halo leaves no room for
-    the tile in a block's shared memory.  (Chosen on the card, PERF.md §6:
-    fewer, larger stages and two blocks per SM ran fastest.)"""
+    fit; at cp = 512 the widest stage of INT8_MMA_KC that fits two.  An
+    8-warp block keeps to half an SM's shared memory where three taps fit
+    in it.  Where nothing fits, the f32 buffer of conv1's output moves to
+    device memory (s_global; C = 512 at f = 4).  Raises ValueError above
+    C = 512 or where the halo leaves no room even so.  (Chosen on the card,
+    PERF.md §6: fewer, larger stages and two blocks per SM ran fastest.)"""
+    k, k2 = kernel_size, kernel_size2
+    shape = (f"k={k}, k2={k2}, dilations={tuple(dilations)}, fold {f}, "
+             f"C={c}")
+    if c > INT8_MMA_CHANNELS[-1]:
+        raise ValueError(f"csrc/int8_mma_stack.cu takes C up to "
+                         f"{INT8_MMA_CHANNELS[-1]} ({shape})")
     cp = next(p for p in INT8_MMA_CHANNELS if c <= p)
     mpr = int8_mma_warps(cp) // (cp // INT8_MMA_NW) * INT8_MMA_MT
     tile = -(-16 * mpr // (16 * f)) * 16 * f
     rounds = -(-(tile // 16) // mpr)
-    k = kernel_size
+    r = tile // f
+    r1 = -(-(r - fold_offsets(k2, 1, f)[0]) // 16) * 16
     hrow = max(-(-(k - 1) * d // f) for d in dilations)
-    rows = tile // f + hrow
-    kc = min(cp, INT8_MMA_KC)
-    fixed = int8_mma_smem(cp, 0, 0, kc, tile, f, rows)
-    per_tap = int8_mma_smem(cp, 1, 1, kc, tile, f, rows) - fixed
-    budget = BLOCK_SMEM
-    if (int8_mma_warps(cp) == 8
-            and fixed + 3 * per_tap <= INT8_MMA_PAIR_SMEM):
-        budget = INT8_MMA_PAIR_SMEM
-    room = (budget - fixed) // per_tap   # tap buffers that fit
-    if kc == cp:
-        buffers, tps = 2, max(1, min(k, room // 2))
-    else:
-        buffers, tps = (3 if room >= 3 else 2), 1
-    smem = int8_mma_smem(cp, buffers, tps, kc, tile, f, rows)
-    if smem > BLOCK_SMEM:
-        raise ValueError(
-            f"csrc/int8_mma_stack.cu: a halo of {hrow * f} samples (k={k}, "
-            f"dilations={tuple(dilations)}, fold {f}) leaves no room for a "
-            f"tile of {tile} samples in a block's {BLOCK_SMEM} bytes of "
-            f"shared memory at C={c}")
-    return Int8MmaGeometry(cp, f, tile, rounds, hrow * f, tps, kc, buffers,
-                           smem, len(dilations))
+    rows = r1 + hrow
+    for s_global in (False, True):
+        for kc in (v for v in INT8_MMA_KC if v <= cp):
+            fixed = int8_mma_smem(cp, c, 0, 0, kc, r1, f, rows, s_global)
+            per_tap = int8_mma_smem(cp, c, 1, 1, kc, r1, f, rows,
+                                    s_global) - fixed
+            budget = BLOCK_SMEM
+            if (int8_mma_warps(cp) == 8
+                    and fixed + 3 * per_tap <= INT8_MMA_PAIR_SMEM):
+                budget = INT8_MMA_PAIR_SMEM
+            room = (budget - fixed) // per_tap   # tap buffers that fit
+            if kc == cp:
+                buffers, tps = 2, max(1, min(max(k, k2), room // 2))
+            else:
+                buffers, tps = (3 if room >= 3 else 2), 1
+            smem = int8_mma_smem(cp, c, buffers, tps, kc, r1, f, rows,
+                                 s_global)
+            if smem <= BLOCK_SMEM:
+                return Int8MmaGeometry(cp, f, tile, rounds, hrow * f, r1,
+                                       tps, kc, buffers, s_global, smem,
+                                       len(dilations))
+    raise ValueError(
+        f"csrc/int8_mma_stack.cu: a halo of {hrow * f} samples ({shape}) "
+        f"leaves no room for a tile of {tile} samples in a block's "
+        f"{BLOCK_SMEM} bytes of shared memory")
 
 
 def _int8_stack(x, unit_params, dilations, fold, units, shape):
@@ -1314,32 +1203,38 @@ def _int8_stack(x, unit_params, dilations, fold, units, shape):
     unit)."""
     global int8_launches
     b, c, t = x.shape
-    _check_int8_width(c)
     if x.device.type == "cpu":
         return folded_residual_stack_int8_plain(x, unit_params, dilations,
                                                 fold, **units)
     _check_cuda(x, unit_params, units["biases"])
-    _check_int8_shape(units, unit_params[0][1].shape[-1], shape)
     n = len(dilations)
-    k = unit_params[0][0].shape[-1]
+    k, k2 = unit_params[0][0].shape[-1], unit_params[0][1].shape[-1]
     f = fold or int8_fold(c)
-    g = int8_mma_geometry(c, f, k, dilations)
+    g = int8_mma_geometry(c, f, k, dilations, k2)
     tp = -(-t // f) * f
-    w1, w2, scales = _packed_int8_mma(unit_params, c, g.cp)
+    w1, w2, scales, bias = _packed_int8(_pack_int8_mma, unit_params,
+                                        units["biases"], c, g.cp)
     dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
-    exact = (ctypes.c_int * n)(*(int8_exact_small(c, k, int(d), f)
-                                 for d in dilations))
+    exact = (ctypes.c_int * (2 * n))(*(
+        e for d in dilations for e in (int8_exact_small(c, k, int(d), f),
+                                       int8_exact_small(c, k2, 1, f))))
     # the kernel works on whole folded rows of f32 values: the tail pad's
     # zeros evolve like the TPU kernel's and enter the last row's scale
     xp = F.pad(x.float(), (0, tp - t)) if tp != t else x.float()
     out = torch.empty_like(xp)
     tmp = torch.empty_like(xp) if n > 1 else out
+    sg = (torch.empty(b * -(-tp // g.tile) * c * (g.r1 * f + 1),
+                      device=x.device, dtype=torch.float32)
+          if g.s_global else None)
     with torch.cuda.device(x.device):
         err = _int8_kernel()(
             xp.data_ptr(), out.data_ptr(), tmp.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), scales.data_ptr(), b, c, tp, g.cp, f, k, n, dil,
-            exact, g.tile, g.taps_per_stage, g.kc, g.buffers,
-            int(x.dtype == torch.bfloat16),
+            w2.data_ptr(), scales.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if sg is None else sg.data_ptr(), b, c, tp, g.cp, f, k,
+            k2, n, dil, exact, MMA_ACT[units["act"]],
+            float(units["act_param"]), g.tile, g.taps_per_stage, g.kc,
+            g.buffers, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8-mode residual stack kernel ({shape}): "
@@ -1348,47 +1243,97 @@ def _int8_stack(x, unit_params, dilations, fold, units, shape):
     return out[:, :, :t].to(x.dtype).contiguous()
 
 
+class Int8TileGeometry(NamedTuple):
+    """A launch of csrc/int8_tile_mma.cu: channels padded to cp (a
+    multiple of 32), ts output samples per block, mt M tiles per warp item,
+    the unit pass's shared memory in bytes at the widest span, and the
+    CUDA launches per wrapper call (two per unit and the windows'
+    build)."""
+    cp: int
+    ts: int
+    mt: int
+    smem: int
+    launches: int
+
+
+def int8_tile_smem(cp: int, c: int, ts: int, k2: int, span: int) -> int:
+    """Shared memory of the unit pass (csrc/int8_tile_mma.cu `layout`):
+    q(act(v)) over conv1's m1 = ceil((ts + k2 - 1) / 16) M tiles and its
+    span, q(act(conv1)) over the M tiles, rows of cp + 16 bytes, and y2 as
+    f32 [ts][C | 1]."""
+    m1 = -(-(ts + k2 - 1) // 16)
+    return (16 * m1 + span) * (cp + 16) + 16 * m1 * (cp + 16) + 4 * ts * (c | 1)
+
+
+def int8_tile_mma_geometry(c: int, kernel_size: int, kernel_size2: int,
+                           dilations: Sequence[int]) -> Int8TileGeometry:
+    """How csrc/int8_tile_mma.cu runs these units: channels padded to a
+    multiple of 32; 4 M tiles per warp item from cp = 128 (each weight
+    fragment read once for 64 samples), else 2; the tile the largest power
+    of two from 16 to INT8_TILE_MAX_TS samples with ts x cp within
+    INT8_TILE_WORK[mt] whose unit pass fits a block's shared memory at the
+    widest span.  Raises ValueError where not even 16 samples fit beside
+    the span."""
+    k, k2 = kernel_size, kernel_size2
+    cp = -(-c // 32) * 32
+    mt = 4 if cp >= 128 else 2
+    span = (k - 1) * max(dilations)
+    ts = INT8_TILE_MAX_TS
+    while ts > 16 and (ts * cp > INT8_TILE_WORK[mt]
+                       or int8_tile_smem(cp, c, ts, k2, span) > BLOCK_SMEM):
+        ts //= 2
+    smem = int8_tile_smem(cp, c, ts, k2, span)
+    if smem > BLOCK_SMEM:
+        raise ValueError(
+            f"csrc/int8_tile_mma.cu: a span of {span} samples (k={k}, "
+            f"k2={k2}, dilations={tuple(dilations)}) leaves no tile of 16 "
+            f"samples in a block's {BLOCK_SMEM} bytes of shared memory at "
+            f"C={c}")
+    return Int8TileGeometry(cp, ts, mt, smem, 2 * len(dilations) + 1)
+
+
 def _int8_tile_stack(x, unit_params, dilations, fold, tile_rows, units,
                      shape):
     """The int8 mode with "tile" scales: the plain version on the CPU, else
-    one wrapper call of csrc/int8_tile_stack.cu (2 CUDA launches per unit
-    and 2 more) on the tiles' windows, which it builds in `win`; the kernel
-    takes k = 7 and 1..3 units."""
+    one wrapper call of csrc/int8_tile_mma.cu (2 n_units + 1 CUDA
+    launches) on the tiles' windows, which it builds in `win`, with the
+    quantized act(v) a unit's scale pass hands its unit pass in `codes`."""
     global int8_tile_launches
     b, c, t = x.shape
-    _check_int8_width(c)
     if x.device.type == "cpu":
         return folded_residual_stack_int8_tile_plain(
             x, unit_params, dilations, fold, tile_rows, **units)
     _check_cuda(x, unit_params, units["biases"])
-    _check_int8_shape(units, unit_params[0][1].shape[-1], shape)
-    k = unit_params[0][0].shape[-1]
-    if k != KERNEL_SIZE or len(dilations) > MAX_UNITS:
-        raise ValueError(f"csrc/int8_tile_stack.cu takes k={KERNEL_SIZE} "
-                         f"and 1..{MAX_UNITS} units, got {shape}")
-    g = tile_geometry(c, t, dilations, fold, tile_rows, k)
-    cp = -(-c // 16) * 16
     n = len(dilations)
-    dil = list(dilations) + [0] * (MAX_UNITS - n)
-    cuts = [-fold_offsets(k, d, g.f)[0] * g.f for d in dilations]
-    cuts += [0] * (MAX_UNITS - n)
-    w1, w2, scales = _packed_int8(unit_params, c, cp)
-    win = torch.empty(b * g.n_tiles, g.window, c, device=x.device,
+    k, k2 = unit_params[0][0].shape[-1], unit_params[0][1].shape[-1]
+    g = tile_geometry(c, t, dilations, fold, tile_rows, k, k2)
+    tg = int8_tile_mma_geometry(c, k, k2, dilations)
+    w1, w2, scales, bias = _packed_int8(_pack_int8_tile, unit_params,
+                                        units["biases"], c, tg.cp)
+    dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    cuts = (ctypes.c_int * n)(*(-fold_offsets(k, int(d), g.f)[0] * g.f
+                                for d in dilations))
+    cut2 = -fold_offsets(k2, 1, g.f)[0] * g.f if k2 > 1 else 0
+    windows = b * g.n_tiles
+    win = torch.empty((min(n, 2), windows, g.window, c), device=x.device,
                       dtype=torch.float32)
-    acc = torch.empty_like(win)
-    absmax = torch.empty(2 * n, b * g.n_tiles, device=x.device,
-                         dtype=torch.float32)
+    codes = torch.empty((windows, g.window, tg.cp), device=x.device,
+                        dtype=torch.int8)
+    scal = torch.empty((2, n, windows), device=x.device, dtype=torch.int32)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _int8_tile_kernel()(
-            x.data_ptr(), out.data_ptr(), win.data_ptr(), acc.data_ptr(),
-            absmax.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            scales.data_ptr(), b, c, t, g.window, g.n_tiles,
-            g.rows_tile * g.f, g.halo * g.f, cp,
-            int(x.dtype == torch.bfloat16), n, *dil, *cuts,
+            x.data_ptr(), out.data_ptr(), win.data_ptr(), codes.data_ptr(),
+            scal.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), scales.data_ptr(),
+            None if bias is None else bias.data_ptr(), b, c, t, tg.cp,
+            g.n_tiles, g.rows_tile * g.f, g.halo * g.f, g.window, n, dil,
+            cuts, k, k2, cut2, MMA_ACT[units["act"]],
+            float(units["act_param"]), tg.ts, tg.mt,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"int8 tile-mode residual stack kernel: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"int8 tile-mode residual stack kernel ({shape}): "
+                           f"CUDA error {err}")
     int8_tile_launches += 1
     return out

@@ -1,12 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's ten CUDA kernels (the folded residual stack on the
+Builds the port's eight CUDA kernels (the folded residual stack on the
 tensor cores with bf16 operands at C <= 32 and above, at every unit shape;
-its FMA kernels for true f32 at C <= 32, the autoencoder and the vocoder
-units; its int8 "row" mode on the int8 tensor cores and its int8 "tile"
-mode; the archived per-tap residual stack in true f32, which is also every
-other true-f32 stack of the folded stack; the fused RVQ encode, the rate
-probe's dot chain and the ablation probe's stack) from the sources in this
+its int8 "row" and "tile" modes on the int8 tensor cores, at every unit
+shape; the archived per-tap residual stack in true f32, which is also every
+true-f32 stack of the folded stack; the fused RVQ encode, the rate probe's
+dot chain and the ablation probe's stack) from the sources in this
 checkout, one nvcc each, all started together; holds each against its
 plain PyTorch version;
 checks the batch transcode, the fused transcode and the vocoder against
@@ -51,10 +50,10 @@ profiles one more transcode of each:
     in float32 and in bfloat16 at B = 16: at every symAD stack shape
     (C, T) = (32, 480000), (64, 160000), (128, 40000), (256, 8000) and each
     of the tool's folds, the plain chain, the autoencoder mode with bf16
-    dots (csrc/folded_stack.cu at C = 32, csrc/resunit_stack.cu above), and
-    the int8 mode with "row" (csrc/int8_mma_stack.cu) and "tile" scales
-    (csrc/int8_tile_stack.cu); above C = 32 the autoencoder mode runs on
-    csrc/wide_stack_mma.cu (slice 10; csrc/resunit_stack.cu before).
+    dots (csrc/folded_stack_mma.cu at C = 32, csrc/wide_stack_mma.cu
+    above), and the int8 mode with "row" (csrc/int8_mma_stack.cu) and
+    "tile" scales (csrc/int8_tile_mma.cu, slice 11; the dp4a
+    csrc/int8_tile_stack.cu before).
 
 The checks of slice 4: `resunit_kernel_vs_plain` (random units at C = 4 to
 256 with ragged T, and the trained golden's eight stacks at B=2, f32
@@ -79,8 +78,7 @@ T = 3996 and 60) in both storages, and the default variant at the timed
 shapes, with the same bar; `kernel_vs_plain`, `voc_kernel_vs_plain` and
 `wide_kernel_vs_plain` hold the repaired bf16-storage residual (the next
 unit's activation reads the f32 sum, ops/kernels/folded_stack.py
-storage_residual) of csrc/folded_stack.cu, csrc/resblock_stack.cu and
-csrc/resunit_stack.cu to the plain version's.
+storage_residual) to the plain version's.
 
 The checks of slice 8: `mma_kernel_vs_plain` (csrc/folded_stack_mma.cu
 with bf16 operands: the autoencoder and vocoder units at C = 4-32 and
@@ -91,9 +89,9 @@ relative L2 within 5e-4 of the same function with exact sums, and of the
 plain version within the larger of 5e-4 and 1.5 x the plain version's own
 distance from exact sums; max error below BF16_REL of the peak); the
 bf16-operand cases of `kernel_vs_plain` and `voc_kernel_vs_plain` now
-reach the tensor-core kernel and are held to the same bar, and beside it
-the FMA kernels' bf16-operand modes (`folded_stack._fma_stack`) to
-BF16_REL; their true-f32 cases hold the FMA kernels to F32_RTOL.
+reach the tensor-core kernel and are held to the same bar; their true-f32
+cases hold csrc/resunit_stack.cu bit-equal (slice 11; the narrow FMA
+kernels to F32_RTOL before).
 `golden_parity` prints, beside the bf16-operand flips on
 gen_symad_trained, those of the same encode through the plain version.
 
@@ -109,11 +107,25 @@ WIDE_SHAPES, C = 48, 64, 96, 128, 256, T = 1999 and 50, B = 2: with bf16
 dots in f32 and bf16 storage csrc/wide_stack_mma.cu, held as check_wide
 says; in true f32 csrc/resunit_stack.cu to the f32 tolerance, with the
 bit-equal count); `f32_unit_kernel_vs_plain` (true f32 at C = 4, 8, 20,
-32 for the shapes the FMA kernels there do not take, now
-csrc/resunit_stack.cu's); `resunit_kernel_vs_plain` gains k = 1, 3, 5,
+32 at the unit shapes no shipped config uses, csrc/resunit_stack.cu's);
+`resunit_kernel_vs_plain` gains k = 1, 3, 5,
 11, one and four units and C = 1, 33, 200, with the bit-equal count;
 `probe_kernel_rows` gains the wide route in bf16 storage and the true-f32
 route at the probe's shapes, each call's CUDA launches asserted.
+
+The checks of slice 11: `int8_kernel_vs_plain` and
+`int8_tile_kernel_vs_plain` gain every unit shape of INT8_NEW_SHAPES
+(LeakyReLU k = k2 = 3, 7, 11 with biases, ELU k = 5, four units) in both
+storages and the widths the card refused (C = 2, 3, 264, and for the tile
+mode 512, at two folds and two tile_rows; C = 4 at f = 128 for the row
+mode), each with the bit-equal count; `wide_c_kernel_vs_plain` runs every
+mode above C = 256 (C = 264 and 512: true f32 and the archived stack
+bit-equal, bf16 operands in both storages at check_wide's bar, both int8
+modes) and times one call of each at WIDE_C_TIMED; `f32_timing` times the
+true-f32 route at (16, 32, 480000), the autoencoder units and the vocoder
+units at k = 11 (the narrow FMA kernels' shapes), held bit-equal; the true
+f32 cases of `kernel_vs_plain`, `voc_kernel_vs_plain`, `golden_parity` and
+`voc_golden` take csrc/resunit_stack.cu.
 
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
@@ -133,11 +145,11 @@ Output, in order: the card's name and power limit as nvidia-smi gives
 them, one JSON line per phase, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`.
 
-Every path sets the thirteen launch counts to 0 just before it and reads
+Every path sets the eleven launch counts to 0 just before it and reads
 them just after (mma, mma_voc, mma_other: csrc/folded_stack_mma.cu by unit
-shape, autoencoder, vocoder or other; autoencoder and vocoder: the FMA
-kernels; int8, int8_tile, wide (csrc/wide_stack_mma.cu), resunit_f32 (the
-folded stack's calls of csrc/resunit_stack.cu): all
+shape, autoencoder, vocoder or other; int8, int8_tile, wide
+(csrc/wide_stack_mma.cu), resunit_f32 (the folded stack's calls of
+csrc/resunit_stack.cu, every true-f32 stack): all
 ops/kernels/folded_stack.py; resunit: archive/resunit_kernel.py (the same
 CUDA kernel); rvq: archive/vq_kernel.py; dot_chain:
 ops/kernels/dot_chain.py; ablate: ops/kernels/ablate_stack.py; one per
@@ -150,28 +162,24 @@ five variants and of the autoencoder units with bf16 dots, and 7 of the
 default variant at each of 7 timed shapes); folded_probe_path per dtype
 60 mma, 160 wide, 220 int8 and 220 int8_tile (11 (C, fold) cases, 3 of
 them at C = 32, each mode 20 calls: the error, a warm-up and 3 x 6 timed).
-The true-f32 golden phases count too: golden_parity 4 autoencoder (the
-FMA kernel) and 2 mma, voc_golden only vocoder (the FMA kernel).  In the
-`kernels` line, `launches` is the count from the run of the path that
-brought the kernel in (the tensor-core kernel's autoencoder units:
-main_path; its vocoder units: ad_v1_path; its other shapes, which no path
-runs: mma_kernel_vs_plain; the FMA kernels: golden_parity and voc_golden,
-the true-f32 runs; int8 mode: int8_path; the archived stack and the RVQ
-encode: fused_path; the dot chain: mxu_rate_path; the ablation stack:
-ablate_path; the tile mode and the wide tensor-core route:
-folded_probe_path, both dtypes; the folded stack's true-f32 calls of
-csrc/resunit_stack.cu, which no path makes: wide_kernel_vs_plain),
+The true-f32 golden phases count too: golden_parity 4 resunit_f32 and 2
+mma, voc_golden only resunit_f32.  In the `kernels` line, `launches` is
+the count from the run of the path that brought the kernel in (the
+tensor-core kernel's autoencoder units: main_path; its vocoder units:
+ad_v1_path; its other shapes, which no path runs: mma_kernel_vs_plain;
+int8 mode: int8_path; the archived stack and the RVQ encode: fused_path;
+the dot chain: mxu_rate_path; the ablation stack: ablate_path; the tile
+mode and the wide tensor-core route: folded_probe_path, both dtypes; the
+folded stack's true-f32 calls of csrc/resunit_stack.cu: golden_parity,
+the true-f32 transcode),
 `launches_by_path` the counts of every
 path, and `replaces` the TPU kernel's pallas_call.  `ms`, `plain_ms`,
 `chain_ms` and `bound_ms` add up that path's launches at their shapes
 (the tensor-core kernel's autoencoder units: one f32 stack in the encoder
-and one bf16 stack in the decoder, both (16, 32, 480000), each row with
-the FMA kernel's bf16-operand `fma_ms` beside it; its vocoder units: the
-three groups' resblocks of the last stage, (16, 32, 480000) bf16, with
-`fma_ms`; its other shapes: ELU k = 5 and LeakyReLU k = k2 = 5 with
-biases at (16, 32, 480000) bf16; the FMA kernels: the autoencoder units
-and the vocoder units at k = 11 in true f32 at (16, 32, 480000), bound at
-the f32 FMA peak; int8: the four decoder stacks, (16, C, T) f32 at
+and one bf16 stack in the decoder, both (16, 32, 480000); its vocoder
+units: the three groups' resblocks of the last stage, (16, 32, 480000)
+bf16; its other shapes: ELU k = 5 and LeakyReLU k = k2 = 5 with biases at
+(16, 32, 480000) bf16; int8: the four decoder stacks, (16, C, T) f32 at
 C = 256/128/64/32 and T = 8000/40000/160000/480000; archived stack: the
 eight stacks of the fused transcode, (16, C, T) f32; RVQ: one encode of
 (16, 1600, 64) with 8 x 1024 codes; dot chain: one call of each of the
@@ -180,10 +188,11 @@ the five variants at (16, 32, 480000) f32 and of the default variant at
 each timed shape; tile mode: one call at each probe
 shape, (16, C, T) f32 at the default fold, its plain version timed once;
 wide route: one call at C = 64, 128, 256 in f32 and in bf16 storage; the
-folded stack's true-f32 route: one call at the same shapes, bound at the
-f32 FMA peak).  `bound_ms` is the larger of
-bytes over 3.35 TB/s and operations over the peak of the dots' type (989
-TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32), per launch
+folded stack's true-f32 route: one call of f32_timing's two shapes at
+C = 32 and one at the wide route's shapes, bound at the f32 FMA peak).
+`bound_ms` is the larger of bytes over 3.35 TB/s and operations over the
+peak of the dots' type (989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
+f32), per launch
 (bin/kernel_bounds.py).  `library_ms` is the dot chain's torch chain
 (one `torch.matmul` or `torch._int_mm` per dot, the probe's `torch`
 impl); it is null for the rest: no single PyTorch call computes a stack or
@@ -260,9 +269,8 @@ BATCH, SECONDS = 16, 10
 DILATIONS = (1, 3, 9)
 SEED = 0
 PROFILE_TOP = 15
-KERNELS = ("folded_stack", "resblock_stack", "int8_mma_stack",
-           "resunit_stack", "wide_stack_mma",
-           "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_stack",
+KERNELS = ("int8_mma_stack", "resunit_stack", "wide_stack_mma",
+           "rvq_encode", "dot_chain", "ablate_stack", "int8_tile_mma",
            "folded_stack_mma")
 VOC_DILATIONS = (1, 3, 5)
 VOC_SLOPE = 0.1
@@ -284,6 +292,29 @@ INT8_UNIT_SHAPES = ((32, 4803, 5, DILATIONS), (128, 803, 5, DILATIONS),
                     (32, 4803, 7, (1, 3, 9, 27)),
                     (256, 1601, 7, (1, 3, 9, 27)),
                     (96, 1601, 7, DILATIONS), (160, 803, 7, DILATIONS))
+# slice 11: the int8 modes at every unit shape of the TPU kernel, (name:
+# act, k, k2, biases, dilations, C, T), LeakyReLU k = k2 = 3, 7, 11 with
+# biases (the vocoder's units), ELU k = 5 and four units; and at the
+# widths the modes refused before, (C, T, folds, tile_rows), two folds and
+# two tile_rows each
+INT8_NEW_SHAPES = {
+    "leaky_relu k=k2=3, biases": ("leaky_relu", 3, 3, True, VOC_DILATIONS,
+                                  32, 1201),
+    "leaky_relu k=k2=7, biases": ("leaky_relu", 7, 7, True, VOC_DILATIONS,
+                                  64, 801),
+    "leaky_relu k=k2=11, biases": ("leaky_relu", 11, 11, True,
+                                   VOC_DILATIONS, 32, 1201),
+    "elu k=5": ("elu", 5, 1, False, DILATIONS, 128, 403),
+    "elu, four units": ("elu", 7, 1, False, (1, 3, 9, 27), 32, 1201),
+}
+INT8_NEW_WIDTHS = ((2, 1201, (0, 16), (16, 1024)),
+                   (3, 1201, (0, 8), (16, 1024)),
+                   (264, 333, (0, 2), (16, 1024)),
+                   (512, 333, (0, 4), (16, 1024)))
+# slice 11: every mode above C = 256, checked at (2, C, T) and timed at
+# WIDE_C_TIMED (B, C, T)
+WIDE_C = ((264, 333), (512, 203))
+WIDE_C_TIMED = (16, 512, 8000)
 # the int8 decode against the true-f32 decode, relative to its peak
 INT8_DECODE_REL = 5e-2
 # the fused RVQ encode: a flipped index (at its first layer) must be a near
@@ -549,34 +580,30 @@ def check_mma(x, units, pool: list | None = None, **kw) -> dict:
     return rec
 
 
-def check_fma(x, units, **kw) -> dict:
-    """The FMA kernels (`folded_stack._fma_stack`) against the plain
-    version: in true f32 the route the stack takes, to the f32 tolerance;
-    with bf16 operands reached only here, within BF16_REL of the peak."""
-    bf16_dots = kw.get("bf16_dots", True)
-    before = read_launches()
-    if bf16_dots or x.dtype == torch.bfloat16:
-        out = folded_stack._fma_stack(x, units, **kw)
-    else:
-        out = folded_stack.folded_residual_stack(x, units, **kw)
-    launched = {k: n - before[k] for k, n in read_launches().items()
-                if n != before[k]}
-    if launched not in ({"autoencoder": 1}, {"vocoder": 1}):
-        raise AssertionError(f"the FMA kernel was not launched: {launched}")
-    err, rel = check_close(out, plain_of(x, units, kw), x, bf16_dots)
-    return {"max_abs_err": err, "max_rel_err": rel}
+def check_f32(x, units, **kw) -> dict:
+    """True f32 (f32 storage, bf16_dots=False), the route of
+    csrc/resunit_stack.cu, against the plain version: bit-equal (the
+    kernel keeps cuDNN's fmaf order), and one launch of the route."""
+    before = folded_stack.resunit_launches
+    out = folded_stack.folded_residual_stack(x, units, bf16_dots=False, **kw)
+    if folded_stack.resunit_launches != before + 1:
+        raise AssertionError("csrc/resunit_stack.cu was not launched")
+    ref = plain_of(x, units, {**kw, "bf16_dots": False})
+    err, rel = check_close(out, ref, x, False)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"true f32 at {tuple(x.shape)} {kw}: not "
+                             f"bit-equal to the plain version ({err:.3g})")
+    return {"max_abs_err": err, "max_rel_err": rel, "bit_equal": True}
 
 
 def check_stack(x, units, bf16_dots: bool, pool=None, **kw) -> dict:
     """Units of any shape (kw: the wrapper's keyword arguments): with bf16
-    operands the tensor-core kernel (check_mma) and beside it the FMA
-    kernel's bf16-operand mode; in true f32 the FMA kernel."""
+    operands the tensor-core kernel (check_mma); in true f32
+    csrc/resunit_stack.cu, bit-equal (check_f32)."""
     if bf16_dots or x.dtype == torch.bfloat16:
-        rec = check_mma(x, units, pool, bf16_dots=bf16_dots, **kw)
-        fma = check_fma(x, units, bf16_dots=bf16_dots, **kw)
-        return {"kernel": "mma", **rec,
-                **{f"fma_{key}": v for key, v in fma.items()}}
-    return {"kernel": "fma", **check_fma(x, units, bf16_dots=False, **kw)}
+        return {"kernel": "mma",
+                **check_mma(x, units, pool, bf16_dots=bf16_dots, **kw)}
+    return {"kernel": "resunit", **check_f32(x, units, **kw)}
 
 
 def shape_units(c, act, k, k2, bias, dilations, device, dtype, gen):
@@ -605,9 +632,8 @@ def random_units(c: int, device, dtype, gen):
 def phase_kernel_vs_plain(params, device):
     """The autoencoder units: C=32 with the golden weights at the main
     path's length, one more and one shorter than the halo; C = 4, 8, 16 and
-    12 (padded to 16) with random weights, so every width the kernels are
-    built for runs; with bf16 operands the tensor-core kernel and the FMA
-    kernel's bf16-operand mode, in true f32 the FMA kernel."""
+    12 (padded to 16) with random weights; with bf16 operands the
+    tensor-core kernel, in true f32 csrc/resunit_stack.cu, bit-equal."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = ([(32, t) for t in (48000, 48001, 50)]
@@ -632,15 +658,12 @@ def phase_kernel_vs_plain(params, device):
 
 
 def mma_tolerance() -> dict:
-    return {"f32 (FMA kernels)": f"rtol {F32_RTOL}, atol {F32_ATOL_REL} x "
-                                 f"peak",
+    return {"f32 (csrc/resunit_stack.cu)": "bit-equal",
             "bf16 operands (tensor-core kernel)":
                 f"rel_l2 and exact_rl2 <= bar_rl2 = max({MMA_RL2}, "
                 f"{ABLATE_FLOOR_FACTOR} x plain_exact_rl2), per case, or "
                 f"over the cases shorter than the halo pooled; max error < "
-                f"{BF16_REL} x peak per case",
-            "bf16 operands (FMA kernels, fma_*)":
-                f"max error < {BF16_REL} x peak"}
+                f"{BF16_REL} x peak per case"}
 
 
 def phase_voc_kernel_vs_plain(device):
@@ -768,12 +791,13 @@ def phase_mma_kernel_vs_plain(params, device):
 
 def phase_golden(device):
     """The symAD goldens through BatchTranscoder(stack="folded"): in true
-    f32 (the FMA kernels) the golden indices with 0 flips and y within
-    rtol 1e-3, atol 1e-4; with bf16 operands (the tensor-core kernel) the
-    encode's index flips, 0 on gen_symad, and on gen_symad_trained beside
-    the flips of the same encode through the plain version.  Returns the
-    launch counts of the phase: 2 FMA launches per true-f32 transcode and
-    1 tensor-core launch per bf16-operand encode."""
+    f32 (csrc/resunit_stack.cu) the golden indices with 0 flips and y
+    within rtol 1e-3, atol 1e-4; with bf16 operands (the tensor-core
+    kernel) the encode's index flips, 0 on gen_symad, and on
+    gen_symad_trained beside the flips of the same encode through the
+    plain version.  Returns the launch counts of the phase: 2 resunit_f32
+    launches per true-f32 transcode and 1 tensor-core launch per
+    bf16-operand encode."""
     t0 = time.perf_counter()
     cfg = GeneratorConfig()
     results = {}
@@ -814,9 +838,9 @@ def phase_golden(device):
             results[name]["kernel_vs_plain_moved"] = moved[:64]
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(autoencoder=4, mma=2):
+    if launches != launch_counts(resunit_f32=4, mma=2):
         raise AssertionError(f"kernel launches {launches}, expected 4 "
-                             f"FMA (autoencoder units) and 2 tensor-core")
+                             f"resunit_f32 and 2 tensor-core")
     emit("golden_parity", t0, goldens=results, launches=launches)
     return launches
 
@@ -825,7 +849,7 @@ def phase_voc_golden(device):
     """vocoder_apply_folded on the card in true f32 against the reference's
     batch `y` (rtol 1e-3, atol 1e-5, tests/test_vocoder_parity.py:56,85);
     the trained golden's biases exercise the masking before t=0.  Returns
-    the launch counts of the phase, all of csrc/resblock_stack.cu."""
+    the launch counts of the phase, all of csrc/resunit_stack.cu."""
     t0 = time.perf_counter()
     results = {}
     reset_launches()
@@ -838,19 +862,19 @@ def phase_voc_golden(device):
                      vocoder_params_from_reference_sd(sd, cfg))
         c = data["zq"] if "zq" in data.files else data["c"]
         c = torch.from_numpy(c.transpose(0, 2, 1)).to(device)
-        before = folded_stack.resblock_launches
+        before = folded_stack.resunit_launches
         y = fast.vocoder_apply_folded(p, c, cfg, bf16_dots=False)
         torch.cuda.synchronize()
-        launches = folded_stack.resblock_launches - before
+        launches = folded_stack.resunit_launches - before
         if launches == 0:
-            raise AssertionError(f"{name}: no vocoder-mode kernel launch")
+            raise AssertionError(f"{name}: no true-f32 kernel launch")
         y = y.cpu().numpy().transpose(0, 2, 1)
         np.testing.assert_allclose(y, data["y"], rtol=1e-3, atol=1e-5)
         results[name] = {"samples": int(data["y"].shape[-1]),
                          "max_abs_err": float(np.abs(y - data["y"]).max()),
-                         "resblock_launches": launches}
+                         "resunit_f32_launches": launches}
     launches = read_launches()
-    if launches != launch_counts(vocoder=launches["vocoder"]):
+    if launches != launch_counts(resunit_f32=launches["resunit_f32"]):
         raise AssertionError(f"kernel launches {launches}: a true-f32 "
                              f"vocoder took another kernel")
     emit("voc_golden", t0, goldens=results, launches=launches)
@@ -860,8 +884,7 @@ def phase_voc_golden(device):
 def kernel_timing(params, device, dtype, gen):
     """The autoencoder units at (16, 32, 480000) with the golden's weights
     as the main path runs them (bf16 operands): the tensor-core kernel's
-    ms, beside it the FMA kernel's bf16-operand mode, the plain version and
-    the chain, and the bound."""
+    ms, the plain version's and the chain's, and the bound."""
     b, c, t = BATCH, 32, SECONDS * SR
     units = stack_units(params, "encoder" if dtype == torch.float32
                         else "decoder", device, dtype)
@@ -871,8 +894,6 @@ def kernel_timing(params, device, dtype, gen):
         **check_stack(x, units, bf16_dots=True),
         "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(x, units),
                       reps=5),
-        "fma_ms": cuda_ms(lambda: folded_stack._fma_stack(x, units),
-                          reps=3),
         "plain_ms": cuda_ms(lambda: folded_stack.folded_residual_stack_plain(
             x, units, DILATIONS), reps=3),
         "chain_ms": cuda_ms(lambda: chain(x, units), reps=3),
@@ -883,8 +904,8 @@ def kernel_timing(params, device, dtype, gen):
 
 def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
     """Per group of the AD v1 path's last stage at (16, 32, 480000) bf16:
-    the tensor-core kernel's ms, beside it the FMA kernel's, the plain
-    version's and the chain's, and the bound."""
+    the tensor-core kernel's ms, the plain version's and the chain's, and
+    the bound."""
     c = cfg.stage_channels(len(cfg.upsample_scales) - 1)
     b, t = BATCH, SECONDS * SR
     k = cfg.resblock_kernel_sizes[0]
@@ -900,8 +921,6 @@ def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
                **check_mma(x, units, **kw),
                "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
                    x, units, **kw), reps=5),
-               "fma_ms": cuda_ms(lambda: folded_stack._fma_stack(
-                   x, units, **kw), reps=2),
                "plain_ms": cuda_ms(lambda: plain_of(x, units, kw), reps=2),
                "chain_ms": cuda_ms(lambda: chain(x, units, dil, "leaky_relu",
                                                  slope, biases), reps=2)}
@@ -912,47 +931,36 @@ def voc_kernel_timing(p_block, cfg: VocoderConfig, device, gen):
     return rows
 
 
-def fma_timing(params, device, gen):
-    """The FMA kernels in true f32, the route the stack takes there, at
-    (16, 32, 480000) f32: the autoencoder units with the golden's encoder
-    weights (csrc/folded_stack.cu) and the vocoder units at k = 11 with
-    seeded weights and biases (csrc/resblock_stack.cu), each with the
-    plain version's and the chain's ms and the bound at the f32 FMA peak,
-    and csrc/resunit_stack.cu on the same inputs (`resunit_ms`, its
-    output held bit-equal to the plain version), which computes the same
-    function; rows by counter."""
+def f32_timing(params, device, gen):
+    """True f32 at C = 32, the route of csrc/resunit_stack.cu there (PR 14;
+    the narrow FMA kernels before), at (16, 32, 480000) f32: the
+    autoencoder units with the golden's encoder weights and the vocoder
+    units at k = 11 with seeded weights and biases, each held bit-equal to
+    the plain version, with the plain version's and the chain's ms and the
+    bound at the f32 FMA peak."""
     b, c, t = BATCH, 32, SECONDS * SR
     x = torch.randn(b, c, t, generator=gen, device=device)
     ae = stack_units(params, "encoder", device, torch.float32)
     voc, voc_kw = shape_units(c, "leaky_relu", 11, 11, True, VOC_DILATIONS,
                               device, torch.float32, gen)
-    rows = {}
-    for counter, units, kw in (("autoencoder", ae, {}),
-                               ("vocoder", voc, voc_kw)):
-        kw = {"dilations": DILATIONS, **kw, "bf16_dots": False}
+    rows = []
+    for name, units, kw in (("autoencoder", ae, {}),
+                            ("vocoder k=11, biases", voc, voc_kw)):
+        kw = {"dilations": DILATIONS, **kw}
         k, k2 = kw.get("kernel_size", 7), kw.get("kernel_size2", 1)
-        row = {"units": counter, "shape": [b, c, t], "dtype": "float32",
-               "bf16_dots": False, **check_fma(x, units, **kw),
+        row = {"units": name, "shape": [b, c, t], "dtype": "float32",
+               "bf16_dots": False, **check_f32(x, units, **kw),
                "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
-                   x, units, **kw), reps=3),
-               "plain_ms": cuda_ms(lambda: plain_of(x, units, kw), reps=2),
+                   x, units, bf16_dots=False, **kw), reps=3),
+               "plain_ms": cuda_ms(lambda: plain_of(
+                   x, units, {**kw, "bf16_dots": False}), reps=2),
                "chain_ms": cuda_ms(lambda: chain(
                    x, units, kw["dilations"], kw.get("act", "elu"),
                    VOC_SLOPE, kw.get("biases")), reps=2)}
         row.update(kernel_bounds.residual_stack(
             b, t, c, k=k, k2=k2, storage=4, weight=4, peak="f32",
             bias=kw.get("biases") is not None))
-
-        def unit_kernel():
-            return folded_stack.resunit_stack(
-                x, units, kw["dilations"], act=kw.get("act", "elu"),
-                act_param=kw.get("act_param", 0.0), biases=kw.get("biases"))
-        if not torch.equal(unit_kernel(), plain_of(x, units, kw)):
-            raise AssertionError(f"csrc/resunit_stack.cu at the {counter} "
-                                 f"units is not bit-equal to the plain "
-                                 f"version")
-        row["resunit_ms"] = cuda_ms(unit_kernel, reps=3)
-        rows[counter] = [row]
+        rows.append(row)
     return rows
 
 
@@ -960,8 +968,6 @@ def read_launches() -> dict:
     return {"mma": folded_stack.mma_launches,
             "mma_voc": folded_stack.mma_voc_launches,
             "mma_other": folded_stack.mma_other_launches,
-            "autoencoder": folded_stack.launches,
-            "vocoder": folded_stack.resblock_launches,
             "int8": folded_stack.int8_launches,
             "resunit": resunit_kernel.launches,
             "rvq": vq_kernel.launches,
@@ -983,7 +989,6 @@ def launch_counts(**nonzero) -> dict:
 def reset_launches():
     folded_stack.mma_launches = folded_stack.mma_voc_launches = 0
     folded_stack.mma_other_launches = 0
-    folded_stack.launches = folded_stack.resblock_launches = 0
     folded_stack.int8_launches = folded_stack.int8_tile_launches = 0
     folded_stack.wide_launches = folded_stack.resunit_launches = 0
     resunit_kernel.launches = vq_kernel.launches = 0
@@ -1086,17 +1091,27 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     return launches, rows, tc
 
 
-def check_int8(x, units, fold: int = 0, dilations=DILATIONS):
+def int8_kw(units, dilations, kw) -> dict:
+    """The wrapper's keyword arguments of a unit shape (shape_units' kw,
+    or ELU units of the weights' k)."""
+    return {"dilations": dilations, "kernel_size": units[0][0].shape[-1],
+            "kernel_size2": units[0][1].shape[-1], "act": "elu",
+            "act_param": 0.0, "biases": None, **kw}
+
+
+def check_int8(x, units, fold: int = 0, dilations=DILATIONS, **kw):
     """int8-mode kernel ("row" scales) vs its plain version on the same
-    inputs (ELU units of the weights' k); returns (max abs error, the same
-    relative to the peak, the kernel's error relative to the f32 chain's
-    peak)."""
-    out = folded_stack.folded_residual_stack(
-        x, units, dilations=dilations, kernel_size=units[0][0].shape[-1],
-        int8_dots=True, fold=fold)
-    ref = folded_stack.folded_residual_stack_int8_plain(x, units, dilations,
-                                                        fold)
-    f32 = chain(x.float(), units, dilations)  # f32, no quantization
+    inputs (ELU units of the weights' k, or the unit shape of kw); returns
+    (max abs error, the same relative to the peak, the kernel's error
+    relative to the f32 chain's peak)."""
+    kw = int8_kw(units, dilations, kw)
+    out = folded_stack.folded_residual_stack(x, units, int8_dots=True,
+                                             fold=fold, **kw)
+    ref = folded_stack.folded_residual_stack_int8_plain(
+        x, units, dilations, fold, act=kw["act"], act_param=kw["act_param"],
+        biases=kw["biases"])
+    f32 = chain(x.float(), units, dilations, kw["act"], kw["act_param"],
+                kw["biases"])  # f32, no quantization
     torch.cuda.synchronize()
     if out.dtype != x.dtype or out.shape != x.shape:
         raise AssertionError(f"int8 kernel gave {out.dtype} "
@@ -1115,17 +1130,24 @@ def check_int8(x, units, fold: int = 0, dilations=DILATIONS):
 
 
 def check_int8_tile(x, units, fold: int = 0,
-                    tile_rows: int = folded_stack.DEFAULT_TILE_ROWS) -> dict:
-    """The tile-mode kernel vs its plain version on the same inputs: bit
-    equality is expected, the bar is INT8_REL of the peak (the plain
-    version's f64 fma can round twice where fmaf rounds once, in about
-    2^-29 of the residual updates); returns the errors and the count of
-    differing outputs."""
+                    tile_rows: int = folded_stack.DEFAULT_TILE_ROWS,
+                    dilations=DILATIONS, **kw) -> dict:
+    """The tile-mode kernel (csrc/int8_tile_mma.cu) vs its plain version on
+    the same inputs (ELU units of the weights' k, or the unit shape of
+    kw): bit equality is expected, the bar is INT8_REL of the peak (the
+    plain version's f64 fma can round twice where fmaf rounds once, in
+    about 2^-29 of the residual updates); returns the errors and the count
+    of differing outputs."""
+    kw = int8_kw(units, dilations, kw)
+    before = folded_stack.int8_tile_launches
     out = folded_stack.folded_residual_stack(
-        x, units, dilations=DILATIONS, int8_dots=True, int8_scale="tile",
-        fold=fold, tile_rows=tile_rows)
+        x, units, int8_dots=True, int8_scale="tile", fold=fold,
+        tile_rows=tile_rows, **kw)
+    if folded_stack.int8_tile_launches != before + 1:
+        raise AssertionError("csrc/int8_tile_mma.cu was not launched")
     ref = folded_stack.folded_residual_stack_int8_tile_plain(
-        x, units, DILATIONS, fold, tile_rows)
+        x, units, dilations, fold, tile_rows, act=kw["act"],
+        act_param=kw["act_param"], biases=kw["biases"])
     torch.cuda.synchronize()
     if out.dtype != x.dtype or out.shape != x.shape:
         raise AssertionError(f"tile kernel gave {out.dtype} "
@@ -1206,16 +1228,45 @@ def phase_int8_kernel_vs_plain(params, device):
                           "storage": str(dtype)[6:], "weights": "random",
                           "max_abs_err": err, "max_rel_err": rel,
                           "rel_err_vs_f32_chain": chain_rel})
+    # slice 11: every unit shape, the widths refused before (C = 2, 3 and
+    # 264) and C = 4 at f = 128, whose tile of 16 rows of every phase
+    # outgrew a block before
+    for name, (act, k, k2, bias, dil, c, t) in INT8_NEW_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                    torch.float32, gen)
+            x = torch.randn(2, c, t, generator=gen, device=device).to(dtype)
+            err, rel, chain_rel = check_int8(x, units, **kw)
+            cases.append({"units": name, "C": c, "T": t,
+                          "storage": str(dtype)[6:], "weights": "random",
+                          "max_abs_err": err, "max_rel_err": rel,
+                          "rel_err_vs_f32_chain": chain_rel})
+    for c, t, folds, _ in INT8_NEW_WIDTHS[:3] + ((4, 1999, (128,), ()),):
+        units = random_units(c, device, torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        for f in folds:
+            for dtype in (torch.float32, torch.bfloat16):
+                err, rel, chain_rel = check_int8(x.to(dtype), units, f)
+                cases.append({"C": c, "T": t,
+                              "fold": f or folded_stack.int8_fold(c),
+                              "storage": str(dtype)[6:], "weights": "random",
+                              "max_abs_err": err, "max_rel_err": rel,
+                              "rel_err_vs_f32_chain": chain_rel})
     emit("int8_kernel_vs_plain", t0,
-         tolerance=f"max error < {INT8_REL} x peak", cases=cases)
+         tolerance=f"max error < {INT8_REL} x peak (bit-equal expected)",
+         bit_equal=f"{sum(c['max_abs_err'] == 0 for c in cases)} of "
+                   f"{len(cases)}", cases=cases)
 
 
 def phase_int8_tile_kernel_vs_plain(params, device):
-    """csrc/int8_tile_stack.cu against its plain version: random weights at
+    """csrc/int8_tile_mma.cu against its plain version: random weights at
     C = 32, 64, 128 and 256, two ragged T per C (under and over 256 folded
     rows, so both paddings), two folds and two tile_rows (one giving 3 or
-    more tiles), f32 and bf16 storage; and the trained golden's four
-    decoder stacks at their main-path lengths (B=2) at the defaults."""
+    more tiles), f32 and bf16 storage; the trained golden's four decoder
+    stacks at their main-path lengths (B=2) at the defaults; and (slice
+    11) every unit shape of INT8_NEW_SHAPES in both storages and the
+    widths of INT8_NEW_WIDTHS (C = 2, 3, 264, 512) at two folds and two
+    tile_rows in both storages."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     grid = {32: ((700, 4803), (4, 8), (64, 1024)),
@@ -1241,10 +1292,29 @@ def phase_int8_tile_kernel_vs_plain(params, device):
         x = torch.randn(2, c, t, generator=gen, device=device)
         cases.append({"C": c, "T": t, "weights": f"decoder block {block}",
                       "storage": "float32", **check_int8_tile(x, units)})
+    for name, (act, k, k2, bias, dil, c, t) in INT8_NEW_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                    torch.float32, gen)
+            x = torch.randn(2, c, t, generator=gen, device=device).to(dtype)
+            cases.append({"units": name, "C": c, "T": t,
+                          "storage": str(dtype)[6:], "weights": "random",
+                          **check_int8_tile(x, units, tile_rows=64, **kw)})
+    for c, t, folds, trs in INT8_NEW_WIDTHS:
+        units = random_units(c, device, torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        for f in folds:
+            for tr in trs:
+                for dtype in (torch.float32, torch.bfloat16):
+                    cases.append({
+                        "C": c, "T": t, "fold": f or folded_stack.int8_fold(c),
+                        "tile_rows": tr, "storage": str(dtype)[6:],
+                        "weights": "random",
+                        **check_int8_tile(x.to(dtype), units, f, tr)})
     emit("int8_tile_kernel_vs_plain", t0,
          tolerance=f"bit-equal expected; max error <= {INT8_REL} x peak",
-         bit_equal=sum(c["differing"] == 0 for c in cases),
-         cases=cases)
+         bit_equal=f"{sum(c['differing'] == 0 for c in cases)} of "
+                   f"{len(cases)}", cases=cases)
 
 
 def check_wide(x, units, pool: list | None = None, **kw) -> dict:
@@ -1362,12 +1432,99 @@ def phase_wide_kernel_vs_plain(device):
     return launches
 
 
+def phase_wide_c_kernel_vs_plain(device):
+    """Every mode above C = 256, which the card refused before (slice 11),
+    at WIDE_C's (2, C, T): the autoencoder units and the vocoder units at
+    k = 11 with biases in true f32 (csrc/resunit_stack.cu, bit-equal) and
+    with bf16 dots in f32 and bf16 storage (csrc/wide_stack_mma.cu,
+    check_wide's bar, each case alone); the int8 "row" and "tile" modes in
+    both storages (bit equality expected, INT8_REL); the archived stack
+    (archive/resunit_kernel.py, bit-equal).  Then one call of each mode
+    timed at WIDE_C_TIMED with random autoencoder units, beside its bound
+    (speed above C = 256 is not judged yet)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    cases = []
+    for c, t in WIDE_C:
+        for name in ("autoencoder", "vocoder k=11, biases"):
+            act, k, k2, bias, dil = WIDE_SHAPES[name]
+            for dtype, bf16_dots in ((torch.float32, True),
+                                     (torch.bfloat16, True),
+                                     (torch.float32, False)):
+                units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                        dtype, gen)
+                x = torch.randn(2, c, t, generator=gen,
+                                device=device).to(dtype)
+                rec = check_wide(x, units, bf16_dots=bf16_dots, **kw)
+                if not rec.get("bit_equal", True):
+                    raise AssertionError(f"true f32 at C={c} ({name}) is "
+                                         f"not bit-equal")
+                cases.append({"mode": "wide" if bf16_dots else "true f32",
+                              "units": name, "C": c, "T": t,
+                              "storage": str(dtype)[6:], **rec})
+        units = random_units(c, device, torch.float32, gen)
+        x = torch.randn(2, c, t, generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            err, rel, _ = check_int8(x.to(dtype), units)
+            cases.append({"mode": "int8 row", "C": c, "T": t,
+                          "storage": str(dtype)[6:], "max_abs_err": err,
+                          "max_rel_err": rel})
+            cases.append({"mode": "int8 tile", "C": c, "T": t,
+                          "storage": str(dtype)[6:],
+                          **check_int8_tile(x.to(dtype), units,
+                                            tile_rows=64)})
+        out = resunit_kernel.fused_residual_stack_bct(x, units)
+        ref = resunit_kernel.fused_residual_stack_plain(x, units, DILATIONS)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"the archived stack at C={c} is not "
+                                 f"bit-equal")
+        cases.append({"mode": "archived stack", "C": c, "T": t,
+                      "storage": "float32", "bit_equal": True})
+    b, c, t = WIDE_C_TIMED
+    units = random_units(c, device, torch.float32, gen)
+    x = torch.randn(b, c, t, generator=gen, device=device)
+    xb = x.to(torch.bfloat16)
+    unitsb = tuple((w1.to(torch.bfloat16), w2.to(torch.bfloat16))
+                   for w1, w2 in units)
+    stack = folded_stack.folded_residual_stack
+    timed = {
+        "true f32 (csrc/resunit_stack.cu)": (
+            lambda: stack(x, units, bf16_dots=False),
+            kernel_bounds.resunit_stack(b, t, c)),
+        "bf16 dots, f32 storage (csrc/wide_stack_mma.cu)": (
+            lambda: stack(x, units), kernel_bounds.mma_stack(b, t, c)),
+        "bf16 storage (csrc/wide_stack_mma.cu)": (
+            lambda: stack(xb, unitsb),
+            kernel_bounds.mma_stack(b, t, c, storage=2)),
+        "int8 row (csrc/int8_mma_stack.cu)": (
+            lambda: stack(x, units, int8_dots=True),
+            kernel_bounds.int8_stack(b, t, c)),
+        "int8 tile (csrc/int8_tile_mma.cu)": (
+            lambda: stack(x, units, int8_dots=True, int8_scale="tile"),
+            kernel_bounds.int8_stack(b, t, c)),
+        "archived stack (csrc/resunit_stack.cu)": (
+            lambda: resunit_kernel.fused_residual_stack_bct(x, units),
+            kernel_bounds.resunit_stack(b, t, c)),
+    }
+    times = {name: {"shape": [b, c, t], "ms": cuda_ms(fn, reps=2), **bound}
+             for name, (fn, bound) in timed.items()}
+    emit("wide_c_kernel_vs_plain", t0,
+         tolerance={"true f32, archived stack": "bit-equal",
+                    "bf16 operands": f"check_wide: rel_l2 <= max({WIDE_RL2},"
+                                     f" {ABLATE_FLOOR_FACTOR} x plain_exact_"
+                                     f"rl2) per case, max error <= "
+                                     f"{WIDE_MAX_REL} x peak",
+                    "int8": f"max error <= {INT8_REL} x peak (bit-equal "
+                            f"expected)"},
+         cases=cases, timed=times)
+
+
 def phase_f32_unit_kernel_vs_plain(device):
-    """True f32 at C <= 32 for the stacks the FMA kernels there do not take,
-    now csrc/resunit_stack.cu's: the unit shapes no shipped config uses
-    (MMA_OTHER_SHAPES) and the autoencoder and vocoder units with four
-    units, at C = 4, 8, 20 and 32, T = 1999 and 50, B = 2, each to the f32
-    tolerance of check_close."""
+    """True f32 at C <= 32 through csrc/resunit_stack.cu: the unit shapes
+    no shipped config uses (MMA_OTHER_SHAPES) and the autoencoder and
+    vocoder units with four units, at C = 4, 8, 20 and 32, T = 1999 and 50,
+    B = 2, each to the f32 tolerance of check_close."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     shapes = {**MMA_OTHER_SHAPES,
@@ -2110,7 +2267,7 @@ def probe_launches(shapes) -> dict:
     csrc/folded_stack_mma.cu, above in csrc/resunit_stack.cu."""
     calls = 2 + folded_probe.LOOPS * folded_probe.ITERS
     cases = [(c, f) for c, t in shapes for f in folded_probe.folds(c, t)]
-    narrow = sum(c <= folded_stack.PADDED_CHANNELS[-1] for c, _ in cases)
+    narrow = sum(c <= folded_stack.MMA_CHANNELS[-1] for c, _ in cases)
     return launch_counts(mma=calls * narrow,
                          wide=calls * (len(cases) - narrow),
                          int8=calls * len(cases),
@@ -2205,7 +2362,7 @@ def probe_kernel_rows(records, device):
                        x, units, DILATIONS, rec["fold"], rec["tile_rows"]),
                    reps=1),
                "row_mode_ms": rec["int8_ms"],
-               "cuda_launches_per_call": 2 * len(units) + 2,
+               "cuda_launches_per_call": 2 * len(units) + 1,
                "device_ms_by_kernel": device_ms_by_kernel(
                    lambda: folded_stack.folded_residual_stack(
                        x, units, dilations=DILATIONS, int8_dots=True,
@@ -2213,7 +2370,7 @@ def probe_kernel_rows(records, device):
                        tile_rows=rec["tile_rows"]))}
         row.update(kernel_bounds.int8_stack(BATCH, t, c))
         tile_rows.append(row)
-        if c <= folded_stack.PADDED_CHANNELS[-1]:
+        if c <= folded_stack.MMA_CHANNELS[-1]:
             continue
         for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
             name = str(dtype)[6:]
@@ -2363,6 +2520,7 @@ def main():
     phase_int8_kernel_vs_plain(trained, device)
     phase_int8_tile_kernel_vs_plain(trained, device)
     wide_counts = phase_wide_kernel_vs_plain(device)
+    phase_wide_c_kernel_vs_plain(device)
     phase_f32_unit_kernel_vs_plain(device)
     phase_resunit_kernel_vs_plain(trained, device)
     z_main = phase_rvq_kernel_vs_plain(trained, device)
@@ -2371,9 +2529,9 @@ def main():
     golden_launches = phase_golden(device)
     voc_golden_launches = phase_voc_golden(device)
     t1 = time.perf_counter()
-    fma_rows = fma_timing(trained, device,
-                          torch.Generator(device=device).manual_seed(SEED + 12))
-    emit("fma_timing", t1, **fma_rows)
+    narrow_f32_rows = f32_timing(
+        trained, device, torch.Generator(device=device).manual_seed(SEED + 12))
+    emit("f32_timing", t1, rows=narrow_f32_rows)
     phase_fused_golden(device)
     ae_launches, ae_rows, tc, x, idx, params = phase_main_path(device)
     phase_profile("main_path", tc, x)
@@ -2395,7 +2553,7 @@ def main():
     t1 = time.perf_counter()
     tile_rows, wide_rows, fold_rows, f32_rows = probe_kernel_rows(
         probe_records, device)
-    emit("probe_kernel_rows", t1, int8_tile_stack=tile_rows,
+    emit("probe_kernel_rows", t1, int8_tile_mma=tile_rows,
          wide_autoencoder=wide_rows, true_f32_autoencoder=f32_rows,
          int8_stack_at_folds=fold_rows)
 
@@ -2419,13 +2577,6 @@ def main():
         kernel_entry("folded_residual_stack",
                      "tensor cores, other unit shapes", "mma_other", mma,
                      folded, other_rows, by_path, "mma_kernel_vs_plain"),
-        kernel_entry("folded_residual_stack", "autoencoder units, true f32",
-                     "autoencoder", "audiodec_tpu_torch/csrc/folded_stack.cu",
-                     folded, fma_rows["autoencoder"], by_path,
-                     "golden_parity"),
-        kernel_entry("folded_residual_stack", "vocoder units, true f32",
-                     "vocoder", "audiodec_tpu_torch/csrc/resblock_stack.cu",
-                     folded, fma_rows["vocoder"], by_path, "voc_golden"),
         kernel_entry("folded_residual_stack", "int8", "int8",
                      "audiodec_tpu_torch/csrc/int8_mma_stack.cu", folded,
                      int8_rows, by_path, "int8_path"),
@@ -2447,16 +2598,16 @@ def main():
                      "tools/folded_ablate.py:138", ablate_rows, by_path,
                      "ablate_path"),
         kernel_entry("folded_residual_stack", "int8, tile scales",
-                     "int8_tile", "audiodec_tpu_torch/csrc/int8_tile_stack.cu",
+                     "int8_tile", "audiodec_tpu_torch/csrc/int8_tile_mma.cu",
                      folded, tile_rows, by_path, "folded_probe_path"),
         kernel_entry("folded_residual_stack",
                      "C > 32, bf16 operands, every unit shape", "wide",
                      "audiodec_tpu_torch/csrc/wide_stack_mma.cu", folded,
                      wide_rows, by_path, "folded_probe_path"),
         kernel_entry("folded_residual_stack",
-                     "true f32 beyond the C <= 32 FMA kernels' shapes",
-                     "resunit_f32", "audiodec_tpu_torch/csrc/resunit_stack.cu",
-                     folded, f32_rows, by_path, "wide_kernel_vs_plain"),
+                     "true f32, every width and unit shape", "resunit_f32",
+                     "audiodec_tpu_torch/csrc/resunit_stack.cu", folded,
+                     narrow_f32_rows + f32_rows, by_path, "golden_parity"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

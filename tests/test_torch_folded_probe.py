@@ -38,7 +38,7 @@ def test_main_with_int8_on_cpu():
         assert 0 < r["int8_rel_err"] < 0.1 and 0 < r["int8t_rel_err"] < 0.1
         assert all(math.isfinite(r[k]) and r[k] > 0 for k in
                    ("chain_ms", "folded_ms", "int8_ms", "int8t_ms"))
-    assert folded_stack.int8_tile_launches == folded_stack.launches == 0
+    assert folded_stack.int8_tile_launches == folded_stack.mma_launches == 0
 
 
 def test_main_bf16_without_int8():

@@ -84,10 +84,10 @@ def test_off_path_modes_raise(kwargs):
 
 def test_cpu_call_launches_no_kernel():
     x, units = _case(8, 64, seed=1)
-    before = port.launches
-    port.folded_residual_stack(torch.from_numpy(x).transpose(1, 2),
-                               _port_units(units))
-    assert port.launches == before == 0
+    for bf16_dots in (True, False):
+        port.folded_residual_stack(torch.from_numpy(x).transpose(1, 2),
+                                   _port_units(units), bf16_dots=bf16_dots)
+    assert port.mma_launches == port.resunit_launches == 0
 
 
 def test_bad_shapes_raise():
@@ -98,38 +98,6 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError):
         port.folded_residual_stack(torch.from_numpy(x)[:, :, :4]
                                    .transpose(1, 2), _port_units(units))
-
-
-@pytest.mark.parametrize("rounded", [True, False])
-@pytest.mark.parametrize("c", [4, 12])
-def test_packed_weights_layout_and_padding(c, rounded):
-    """The kernel's weights, [u][k][i][o] zero-padded to the next built
-    width, give the plain stack's result on the first C channels of a
-    zero-padded input and keep the padded channels at exactly zero."""
-    cp = next(p for p in port.PADDED_CHANNELS if c <= p)
-    x, units = _case(c, 200, seed=c)
-    units = _port_units(units)
-    w1, w2 = port._pack_weights(units, c, cp, rounded)
-    assert w1.shape == (3, 7, cp, cp) and w2.shape == (3, cp, cp)
-    packed = [(a.permute(2, 1, 0), b.t()[:, :, None]) for a, b in zip(w1, w2)]
-    xt = torch.from_numpy(x).transpose(1, 2)
-    xp = torch.nn.functional.pad(xt, (0, 0, 0, cp - c))
-    out = port.folded_residual_stack_plain(xp, packed, DILATIONS, rounded)
-    ref = port.folded_residual_stack_plain(xt, units, DILATIONS, rounded)
-    torch.testing.assert_close(out[:, :c], ref, rtol=1e-6, atol=1e-6)
-    assert not out[:, c:].any()
-
-
-def test_packed_weights_are_cached_until_changed():
-    _, units = _case(8, 64, seed=3)
-    units = _port_units(units)
-    first = port._packed_weights(units, 8, 8, True)
-    again = port._packed_weights(units, 8, 8, True)
-    assert all(a is b for a, b in zip(first, again))
-    assert port._packed_weights(units, 8, 8, False)[0] is not first[0]
-    units[0][0].mul_(2.0)  # an in-place update must repack
-    changed = port._packed_weights(units, 8, 8, True)
-    assert not torch.equal(changed[0], first[0])
 
 
 # ---------------------------------------------------------------------------
@@ -238,31 +206,7 @@ def test_cpu_vocoder_call_launches_no_kernel():
         torch.from_numpy(x).transpose(1, 2), _port_units(units),
         dilations=VOC_DILATIONS, kernel_size=3, kernel_size2=3,
         act="leaky_relu", act_param=0.1, biases=_port_biases(biases))
-    assert port.resblock_launches == 0 and port.launches == 0
-
-
-@pytest.mark.parametrize("c", [4, 12])
-def test_packed_resblock_layout_and_padding(c):
-    """The vocoder-mode kernel's weights, [u][k][i][o], and biases, [u][j][o],
-    zero-padded to the next built width, give the plain stack's result on
-    the first C channels and keep the padded channels at exactly zero."""
-    cp = next(p for p in port.PADDED_CHANNELS if c <= p)
-    x, units, biases = _voc_case(c, 200, 7, True, seed=c)
-    units, biases = _port_units(units), _port_biases(biases)
-    w1, w2, b = port._pack_resblock(units, biases, c, cp, False)
-    assert w1.shape == w2.shape == (3, 7, cp, cp) and b.shape == (3, 2, cp)
-    assert port._pack_resblock(units, None, c, cp, False)[2] is None
-    packed = [(a.permute(2, 1, 0), bb.permute(2, 1, 0)) for a, bb in zip(w1, w2)]
-    kw = dict(act="leaky_relu", act_param=0.1)
-    xt = torch.from_numpy(x).transpose(1, 2)
-    xp = torch.nn.functional.pad(xt, (0, 0, 0, cp - c))
-    out = port.folded_residual_stack_plain(
-        xp, packed, VOC_DILATIONS, False, biases=[(u[0], u[1]) for u in b],
-        **kw)
-    ref = port.folded_residual_stack_plain(xt, units, VOC_DILATIONS, False,
-                                           biases=biases, **kw)
-    torch.testing.assert_close(out[:, :c], ref, rtol=1e-6, atol=1e-6)
-    assert not out[:, c:].any()
+    assert port.mma_voc_launches == 0 and port.resunit_launches == 0
 
 
 def test_group_slices_hit_the_pack_cache():
@@ -279,10 +223,10 @@ def test_group_slices_hit_the_pack_cache():
         a, b = (slice_group(cv, g, 8) for cv in full)
         return [(a["w"], b["w"])], [(a["b"], b["b"])]
 
-    first = port._packed_resblock(*unit_views(1), 8, 8, True)
-    again = port._packed_resblock(*unit_views(1), 8, 8, True)
+    first = port._packed_unit(*unit_views(1), 8, 16)
+    again = port._packed_unit(*unit_views(1), 8, 16)
     assert all(a is b for a, b in zip(first, again))
-    other = port._packed_resblock(*unit_views(2), 8, 8, True)
+    other = port._packed_unit(*unit_views(2), 8, 16)
     assert not torch.equal(other[0], first[0])
 
 
@@ -374,7 +318,7 @@ def test_wide_autoencoder_cpu_and_device_checks():
     out = port.folded_residual_stack(xt.to(torch.bfloat16),
                                      _port_units(units))
     assert out.dtype == torch.bfloat16 and out.shape == xt.shape
-    assert port.wide_launches == port.launches == 0
+    assert port.wide_launches == port.resunit_launches == 0
     with pytest.raises(ValueError, match="no kernel"):
         port.folded_residual_stack(
             xt.to("meta"), [(a.to("meta"), b.to("meta"))

@@ -189,6 +189,42 @@ def test_int8_unit_shapes_match_jax(scale, act, k, k2, bias, storage, c,
         assert (np.abs(out - ref) <= NEAR * peak).mean() >= SHARE
 
 
+@pytest.mark.parametrize("c", [2, 3, 264])
+@pytest.mark.parametrize("scale", ["row", "tile"])
+def test_int8_widths_match_jax(scale, c, monkeypatch):
+    """Any width C >= 1: both int8 modes at C = 2, 3 and 264 (outside the
+    4..256 the port took before; JAX's kernel takes any C), two units,
+    T = 64, f32 storage, against JAX's interpret-mode kernel, to the bounds
+    above; with JAX's exp the tile mode is bit-equal and the row mode
+    within 1e-5 of the peak on 95% of outputs."""
+    dil = (1, 3)
+    rng = np.random.default_rng(c)
+    units = [((rng.standard_normal((7, c, c)) / np.sqrt(7 * c))
+              .astype(np.float32),
+              (rng.standard_normal((1, c, c)) / np.sqrt(c))
+              .astype(np.float32)) for _ in dil]
+    x = rng.standard_normal((2, 64, c)).astype(np.float32)
+    kw = dict(dilations=dil, int8_dots=True, int8_scale=scale, tile_rows=16)
+    ref = np.asarray(jax_stack(
+        jnp.asarray(x), tuple((jnp.asarray(a), jnp.asarray(b))
+                              for a, b in units), interpret=True, **kw))
+    xt = torch.from_numpy(x).transpose(1, 2).contiguous()
+
+    def run():
+        out = port.folded_residual_stack(xt, _port_units(units), **kw)
+        assert out.dtype == xt.dtype and out.shape == xt.shape
+        return out.transpose(1, 2).numpy()
+
+    peak = float(np.abs(ref).max())
+    assert np.abs(run() - ref).max() <= STEP * peak
+    monkeypatch.setattr(port, "elu_exp", _jax_elu)
+    out = run()
+    if scale == "tile":
+        np.testing.assert_array_equal(out, ref)
+    else:
+        assert (np.abs(out - ref) <= NEAR * peak).mean() >= SHARE
+
+
 def test_plain_close_to_f32_chain():
     """The JAX test's bar (tests/test_folded_stack.py:240-266): with the
     JAX init's weights the int8 stack is within 2e-3 of the f32 chain at
@@ -257,32 +293,38 @@ def test_weight_scales_match_jax(c):
 
 @pytest.mark.parametrize("c", [4, 12, 32])
 def test_packed_int8_layout(c):
-    """(n, K, cp/16, C, 16) int8 with input channels zero-padded to cp,
-    the 1x1 conv (n, cp/16, C, 16), scales (n, 2, C)."""
+    """The "tile" kernel's pack (csrc/int8_tile_mma.cu): conv1 (n, K,
+    cp/32, cp/8, 32, 8) and the 1x1 conv (n, 1, ...) int8 in the mma's
+    B-fragment order, channels zero-padded to cp = 32; scales (n, 2, cp),
+    zero on the padding."""
     _, units = _case(c, 8, DILATIONS, seed=c)
     pu = _port_units(units)
-    cp = -(-c // 16) * 16
-    w1, w2, scales = port._pack_int8(pu, c, cp, False)
+    cp = -(-c // 32) * 32
+    w1, w2, scales, _ = port._pack_int8_tile(pu, None, c, cp, False)
     assert w1.dtype == w2.dtype == torch.int8
-    assert tuple(w1.shape) == (3, 7, cp // 16, c, 16)
-    assert tuple(w2.shape) == (3, cp // 16, c, 16)
-    assert tuple(scales.shape) == (3, 2, c)
+    assert tuple(w1.shape) == (3, 7, cp // 32, cp // 8, 32, 8)
+    assert tuple(w2.shape) == (3, 1, cp // 32, cp // 8, 32, 8)
+    assert tuple(scales.shape) == (3, 2, cp)
     for u, (a, b) in enumerate(pu):
         qa, sa = port.int8_weight_scales(a)
         qb, sb = port.int8_weight_scales(b)
-        got = w1[u].permute(0, 2, 1, 3).reshape(7, c, cp)
-        assert torch.equal(got[:, :, :c].float(), qa.permute(2, 0, 1))
-        assert not got[:, :, c:].any()
-        got2 = w2[u].permute(1, 0, 2).reshape(c, cp)
-        assert torch.equal(got2[:, :c].float(), qb[:, :, 0])
-        assert torch.equal(scales[u, 0], sa) and torch.equal(scales[u, 1], sb)
+        for got, q in ((w1[u], qa), (w2[u], qb)):
+            # lane 4 g + t4, byte 4 h + i: output 8 ot + g, input
+            # 32 kc + 16 h + 4 t4 + i
+            full = got.reshape(-1, cp // 32, cp // 8, 8, 4, 2, 4) \
+                .permute(0, 2, 3, 1, 5, 4, 6).reshape(-1, cp, cp)
+            assert torch.equal(full[:, :c, :c].float(), q.permute(2, 0, 1))
+            assert not full[:, c:].any() and not full[:, :, c:].any()
+        assert torch.equal(scales[u, 0, :c], sa)
+        assert torch.equal(scales[u, 1, :c], sb)
+        assert not scales[u, :, c:].any()
 
 
 def test_int8_wrapper_checks_and_cpu_count():
     """CPU calls of both int8 modes launch nothing, in f32 and bf16
-    storage (bf16 comes back bf16); other dtypes, a negative fold, a
-    tile_rows below 1 and widths outside INT8_CHANNELS raise; a device
-    with no kernel raises."""
+    storage (bf16 comes back bf16), at any width (C = 2 raised before); other
+    dtypes, a negative fold and a tile_rows below 1 raise; a device with no
+    kernel raises."""
     x, units = _case(8, 64, DILATIONS, seed=3)
     xt = torch.from_numpy(x).transpose(1, 2).contiguous()
     for scale in ("row", "tile"):
@@ -304,10 +346,12 @@ def test_int8_wrapper_checks_and_cpu_count():
                                     for a, b in _port_units(units)],
                                    int8_dots=True, int8_scale="tile")
     x2, units2 = _case(2, 64, DILATIONS, seed=3)
-    with pytest.raises(ValueError):
-        port.folded_residual_stack(
+    for scale in ("row", "tile"):
+        out = port.folded_residual_stack(
             torch.from_numpy(x2).transpose(1, 2).contiguous(),
-            _port_units(units2), int8_dots=True)
+            _port_units(units2), int8_dots=True, int8_scale=scale)
+        assert out.shape == (2, 2, 64) and torch.isfinite(out).all()
+    assert port.int8_launches == port.int8_tile_launches == 0
 
 
 def test_int8_zero_input_stays_zero():

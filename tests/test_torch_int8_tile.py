@@ -2,7 +2,7 @@
 kernel's (`int8_scale="tile"`), in interpret mode, and the port's copies of
 the TPU kernel's tiling (`_pick_tile`, the time padding, the halo rows).
 
-The CUDA kernel (csrc/int8_tile_stack.cu) is held to the plain version on
+The CUDA kernel (csrc/int8_tile_mma.cu) is held to the plain version on
 the card by chip_smoke.py.
 
 Tolerance against JAX, in the form of tests/test_torch_int8_stack.py: every

@@ -1,13 +1,13 @@
 """Launch geometries and weight packs of the folded stack's two kernels that
-take every unit shape at C up to 256: csrc/resunit_stack.cu (true f32 on
-the FMA units, also the archived stack's kernel) and csrc/wide_stack_mma.cu
-(bf16 operands on the tensor cores above C = 32).
+take every unit shape: csrc/resunit_stack.cu (true f32 on the FMA units,
+also the archived stack's kernel) and csrc/wide_stack_mma.cu (bf16 operands
+on the tensor cores above C = 32).
 
 The kernels run only on the card, where chip_smoke.py holds them to their
-plain versions; here, without a card, every width from 1 to 256 at the unit
-shapes of the TPU kernel's configs and beyond either gets a geometry whose
-shared memory fits a block, or raises a ValueError that names the shape,
-and the packs put each weight where the kernels read it.
+plain versions; here, without a card, every width from 1 to WIDEST at the
+unit shapes of the TPU kernel's configs and beyond either gets a geometry
+whose shared memory fits a block, or raises a ValueError that names the
+shape, and the packs put each weight where the kernels read it.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ torch.set_num_threads(1)
 KERNEL_SIZES = (1, 3, 5, 7, 11)
 KERNEL_SIZES2 = (1, 3, 7, 11)
 DILATIONS = ((1, 3, 9), (1, 3, 9, 27))
+WIDEST = 512   # the card took C <= 256 before
 
 
 def _named(err: ValueError, c, k, k2, dilations) -> bool:
@@ -38,7 +39,7 @@ def test_unit_geometry_fits_or_raises(k, k2, dilations):
     stages that fit at that tile, and the layout's shared memory within a
     block's."""
     d = max(dilations)
-    for c in range(1, port.MAX_CHANNELS + 1):
+    for c in range(1, WIDEST + 1):
         try:
             g = port.unit_geometry(c, k, k2, dilations)
         except ValueError as err:
@@ -69,7 +70,7 @@ def test_wide_geometry_fits_or_raises(k, k2, dilations):
     more samples and the look-back, and with the weight stages fit a
     block's shared memory."""
     d = max(dilations)
-    for c in range(1, port.MAX_CHANNELS + 1):
+    for c in range(1, WIDEST + 1):
         try:
             g = port.wide_geometry(c, k, k2, dilations)
         except ValueError as err:

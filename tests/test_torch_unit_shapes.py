@@ -304,9 +304,9 @@ def test_mma_geometry_raises_where_the_halo_does_not_fit():
 @pytest.mark.parametrize("mode,c,bf16_storage,bf16_dots,want", [
     ("autoencoder", 32, False, True, "mma"),
     ("autoencoder", 32, True, False, "mma"),
-    ("autoencoder", 4, False, False, "fma"),
+    ("autoencoder", 4, False, False, "resunit"),
     ("vocoder", 32, True, True, "mma"),
-    ("vocoder", 32, False, False, "fma"),
+    ("vocoder", 32, False, False, "resunit"),
     ("other", 8, False, True, "mma"),
     ("other", 8, True, False, "mma"),
     ("other", 8, False, False, "resunit"),
@@ -318,32 +318,37 @@ def test_mma_geometry_raises_where_the_halo_does_not_fit():
     ("other", 64, False, True, "wide"),
     ("int8", 32, False, False, "int8"),
     ("int8", 256, True, True, "int8"),
+    ("autoencoder", 512, False, True, "wide"),
+    ("autoencoder", 264, True, False, "wide"),
+    ("vocoder", 512, False, False, "resunit"),
+    ("other", 264, False, False, "resunit"),
+    ("int8", 512, False, False, "int8"),
 ])
 def test_route(mode, c, bf16_storage, bf16_dots, want):
     """With bf16 operands C <= 32 takes csrc/folded_stack_mma.cu and wider
-    stacks csrc/wide_stack_mma.cu, at every unit shape; in true f32 the
-    shipped shapes at C <= 32 keep the FMA kernels and every other stack
-    (LeakyReLU at C = 64 among them) takes csrc/resunit_stack.cu."""
+    stacks csrc/wide_stack_mma.cu, at every unit shape; in true f32 every
+    stack takes csrc/resunit_stack.cu (the narrow FMA kernels are gone);
+    above C = 256, which raised before, the same routes."""
     assert port.route(mode, c, bf16_storage, bf16_dots) == want
 
 
 @pytest.mark.parametrize("mode,c,bf16_dots,units,want", [
-    ("autoencoder", 8, False, 3, "fma"),
+    ("autoencoder", 8, False, 3, "resunit"),
     ("autoencoder", 8, False, 4, "resunit"),
     ("vocoder", 32, False, 4, "resunit"),
     ("autoencoder", 8, True, 4, "mma"),
     ("autoencoder", 64, True, 4, "wide"),
 ])
 def test_route_by_unit_count(mode, c, bf16_dots, units, want):
-    """The FMA kernels at C <= 32 take 1..3 units; a longer true-f32 stack
-    takes csrc/resunit_stack.cu, and the tensor-core kernels any count."""
-    assert port.route(mode, c, False, bf16_dots, units) == want
-
-
-@pytest.mark.parametrize("mode,c,bf16_dots", [("autoencoder", 512, True)])
-def test_route_raises_where_no_kernel_computes(mode, c, bf16_dots):
-    with pytest.raises(ValueError, match="k=5"):
-        port.route(mode, c, False, bf16_dots, shape="k=5")
+    """The unit count no longer picks a kernel (the FMA kernels' 1..3 units
+    are gone): every kernel takes any count, and `route` has no count to
+    take; the kernels' geometry at that many units fits."""
+    assert port.route(mode, c, False, bf16_dots) == want
+    dil = (1, 3, 9, 27)[:units]
+    k, k2 = (11, 11) if mode == "vocoder" else (7, 1)
+    geometry = {"resunit": port.unit_geometry, "wide": port.wide_geometry,
+                "mma": port.mma_geometry}[want]
+    assert geometry(c, k, k2, dil).smem <= port.BLOCK_SMEM
 
 
 @pytest.mark.parametrize("kwargs,mode", [

@@ -282,7 +282,7 @@ def test_batch_transcoder_with_vocoder_matches_jax(monkeypatch):
     assert sorted(voc_calls, key=lambda cl: -cl[0]) == \
         [(ch, torch.bfloat16, "leaky_relu")
          for ch in (32, 16, 8, 4) for _ in range(3)]
-    assert folded_stack.resblock_launches == 0  # the CPU runs no kernel
+    assert folded_stack.mma_voc_launches == 0  # the CPU runs no kernel
 
 
 @pytest.mark.parametrize("stack", ["plain", "folded"])
