@@ -7,11 +7,13 @@
 // t=0, in five variants that differ in how the k=7 conv's products are
 // summed:
 //
-//   0 default: one accumulator chained through the taps;
+//   0 default: the taps in sequence;
 //   1 tree:    one partial per tap, added pairwise as the TPU variant adds
 //              its per-offset partials: ((p0+p1)+(p2+p3))+((p4+p5)+p6);
-//   2 im2col:  the taps' shifted rows copied into one (16, 7*CP) operand in
-//              shared memory, then one K = 7 * CP product;
+//   2 im2col:  one product over K = 7 * CP.  The TPU variant copies the
+//              taps' shifted rows into one operand (a Mosaic workaround);
+//              here the operand is read from the staged rows at each tap's
+//              shift, which gives the same operand;
 //   3 noelu:   the default without either ELU;
 //   4 noshift: every folded offset reads the window's first row.  On the
 //              TPU's layout (f = max(1, 128 / C) samples per folded row,
@@ -36,7 +38,9 @@
 // cores.  At (16, 32, 480000): f32 1.97 GB, 0.587 ms, by bytes; bf16
 // 0.382 ms, by operations.  At the symAD stacks (16, C, T) = (64, 160000),
 // (128, 40000), (256, 8000): 0.509 / 0.509 / 0.407 ms, by operations in
-// both storages.
+// both storages.  What holds the kernel back is feeding the tensor cores
+// (fragment loads from shared memory per mma) and restaging the halo,
+// not the device memory.
 //
 // Two designs, both mma.sync m16n8k16 with bf16 operands and f32 sums.
 //
@@ -54,58 +58,75 @@
 // result is added to v.  Channels are padded to 32 with zero weights.
 // Shared rows are padded to 80 bytes, so a warp's fragment loads hit 32
 // distinct banks.  The launch bound caps a thread at 128 registers, so two
-// blocks of 256 threads fit an SM in every variant whose shared memory
-// allows it (all but im2col).
+// blocks of 256 threads fit an SM.  im2col's one sum over K is the default's
+// chain over (tap, k-step), so the two run the same code.
 //
 // C > 32 (`wide_kernel`): the three units' weights (up to 2.75 MB at
 // C = 256) and a C-wide tile with its halo do not fit one block, so each
-// unit is one launch that reads v and writes v; the weights are read from
-// L2 through the read-only path.  Channels are padded to CP, a multiple of
-// 32, with zero weights.  A block of NW warps owns 16 * NW output samples
-// of one batch row: it stages y1 = bf16(ELU(v)) for those samples and the
-// unit's look-back (6d, or noshift's f * span + f - 1), all CP channels,
-// in shared memory.  Each warp owns 16 samples and walks the output
-// channels in groups of 32: the k=7 conv over (tap, 16-channel k-step)
-// into 16 x 32 accumulators, summed in the plain version's association
+// unit is one launch that reads v and writes v, on the design of
+// csrc/wide_stack_mma.cu (the staging, the weight ring and a warp's
+// product over a stage are shared, wide_mma.cuh).
+// Channels are padded to CP, a multiple of 32, with zero weights.  A block
+// of wm x wn warps owns `rows` = 16 MTW wm output samples of one batch row:
+//   - Y = bf16(ELU(v)) for those samples and the unit's look-back (6d, or
+//     noshift's f * span + f - 1) is staged once, time-major, in rows of
+//     CP + 8 bf16 (the pad puts an `ldmatrix`'s eight rows in distinct
+//     banks), a thread's loads issued before any of its stores;
+//   - the weights, packed [tap][c_out][c_in] bf16, stream through a ring of
+//     2 or 3 `cp.async` stages shared by the block, one stage per (tap, kc
+//     input channels) of a pass's output channels, the next stages' copies
+//     in flight while a stage's products run;
+//   - warp (i, j) owns MTW m16 tiles (16 MTW samples) x 32 output channels,
+//     so each B fragment feeds MTW products; A and B fragments come from
+//     `ldmatrix`, A read from Y at each tap's shift (noshift: at its rows'
+//     reads, a row address per lane);
+//   - where CP / 32 exceeds the wn warps along the channels, the block
+//     walks the channels in passes of 32 wn (as csrc/int8_tile_mma.cu), and
+//     a2 goes to its own rows; otherwise a2 = bf16(ELU(acc)) replaces Y;
+//   - the epilogue transposes each m16 tile's 4 x 4 lane blocks with
+//     shuffles, so a lane holds 4 consecutive samples of one channel, and
+//     reads the residual and stores the output 16 bytes at a time (f32;
+//     8 in bf16) where T is a multiple of 4.
+// The k=7 conv's products are summed in the plain version's association
 // (default, noelu, noshift: each folded offset's taps apart, the partials
 // added in offset order; tree: one partial per tap, added pairwise, which
 // at f > 1 groups taps where the TPU variant groups offsets; im2col: one
 // sum over K), each mma's 16 products summed from zero and added with
-// round-to-nearest f32 adds (mma_add; chained in the tensor cores, a sum
-// of 7 * C products drifted twice as far from the exact sum as cuBLAS's
-// f32 product at C = 256), then
-// a2 = bf16(ELU(acc)) into the warp's own 16 x CP rows of shared memory;
-// then the 1x1 conv over those rows, group by group, and the residual in
-// the epilogue, which reads v again (L2-hot) and writes the output.  im2col
-// first copies its 16 samples' seven shifted rows into one 16 x 7*CP
-// operand per warp.  The host picks the largest NW in {8, 4, 2, 1} whose
-// shared memory fits the block's 227 KB: at d <= 9 that holds C up to 1312
-// (im2col 576).  In bf16 storage the carried sum s crosses the launches in
-// f32 buffers from the wrapper (unit 0 reads x, the last unit writes bf16):
-// the same choice as the folded stack's wide route (csrc/resunit_stack.cu).
+// round-to-nearest f32 adds (mma_add; chained in the tensor cores, a sum of
+// 7 * C products drifted twice as far from the exact sum as cuBLAS's f32
+// product at C = 256).  A variant holds MTW x 16 sums a thread per register
+// set (im2col one, default, noelu and noshift two, tree three): up to 64
+// sums a block takes 16 warps at 128 registers a thread, above it 8 warps
+// at 255.  What bounds the kernel is the shared memory's bandwidth for the
+// fragment loads: 0.375 `ldmatrix` per mma at MTW = 4, 0.5 at MTW = 2,
+// where the default variant's second set holds it at 16 warps.
+// ops/kernels/ablate_stack.py ablate_wide_geometry picks MTW (by variant,
+// the fastest on the card), wm, wn, kc and the buffers (this file's
+// `wide_smem` states the same sum); at d <= 9 it fits C up to 1312 in every
+// variant.  In bf16 storage the carried sum s crosses the launches in f32
+// buffers from the wrapper (unit 0 reads x, the last unit writes bf16), as
+// in the folded stack's wide route.
 //
 // Plain C interface for ctypes: pointers and the stream as void*, ints as
 // int; returns the first CUDA error of the launches (cudaGetLastError()
 // after each), or cudaErrorInvalidValue for arguments it does not take.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wide_mma.cuh"
 
 namespace {
+
+using namespace wide_mma;
 
 constexpr int K = 7;
 constexpr int CP = 32;             // narrow: padded channels
 constexpr int RS = CP + 8;         // narrow: bf16 row stride (80 B)
 constexpr int VS = CP + 1;         // narrow: f32 row stride of v
-constexpr int XS = K * CP + 8;     // narrow: bf16 row stride of im2col rows
 constexpr int UNITS = 3;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int TILE = 320;          // narrow: output samples per block
-constexpr int WIDE_GROUP = 32;     // wide: output channels per pass
-constexpr int MAX_WIDE_WARPS = 8;
-constexpr int SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
+constexpr int WIDE_N = 32;         // wide: output channels per warp
+constexpr int MAX_WIDE_WARPS = 16;
 
 enum { DEFAULT = 0, TREE = 1, IM2COL = 2, NOELU = 3, NOSHIFT = 4 };
 
@@ -115,17 +136,15 @@ struct Units {
   int span[UNITS];  // noshift: folded rows back to the window's first row
 };
 
+// ELU in f32 as exp(min(v, 0)) - 1, a select and not a branch
 __device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
+  const float m = v > 0.f ? 0.f : v;
+  return v > 0.f ? v : __fsub_rn(expf(m), 1.f);
 }
 
 template <int VARIANT>
 __device__ __forceinline__ float act(float v) {
   return VARIANT == NOELU ? v : elu(v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -139,20 +158,11 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 
 // the unit's residual sum s from the carried sum v and y2 (see the header)
 __device__ __forceinline__ float residual(float v, float y, bool bf16) {
-  return bf16 ? round_bf16(v) + round_bf16(y) : v + y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+  return bf16 ? __fadd_rn(round_bf16(v), round_bf16(y)) : __fadd_rn(v, y);
 }
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
@@ -165,49 +175,12 @@ __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// c += a * b, the product summed apart (from zero) and added to c with
-// round-to-nearest f32 adds.  The tensor cores' own accumulation of many
-// k-steps into one sum drifts from a round-to-nearest f32 sum as the sum
-// grows; summed apart, each k-step's 16 products are one short partial.
-__device__ __forceinline__ void mma_add(float (&c)[4], uint32_t a0,
-                                        uint32_t a1, uint32_t a2, uint32_t a3,
-                                        uint32_t b0, uint32_t b1) {
-  float d[4];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
-#pragma unroll
-  for (int q = 0; q < 4; ++q) c[q] += d[q];
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {
 #pragma unroll
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int q = 0; q < 4; ++q) c[n][q] = 0.f;
-}
-
-// floor division and the nonnegative remainder, for a negative n too
-__device__ __forceinline__ int fdiv(int n, int f) {
-  return n >= 0 ? n / f : -((f - 1 - n) / f);
-}
-__device__ __forceinline__ int pmod(int n, int f) { return n - f * fdiv(n, f); }
-
-// acc += part and part = 0, row g (fa) and row g + 8 (fb) apart
-template <int N>
-__device__ __forceinline__ void flush(float (&acc)[N][4], float (&part)[N][4],
-                                      bool fa, bool fb) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (q < 2 ? fa : fb) {
-        acc[n][q] += part[n][q];
-        part[n][q] = 0.f;
-      }
 }
 
 template <int N>
@@ -240,28 +213,6 @@ __device__ __forceinline__ void tap_product(float (&acc)[CP / 8][4],
   }
 }
 
-// Wide: acc (16 x WIDE_GROUP) += rows ra, rb of the operand at `a` (row
-// stride `as`, columns col0..col0+kc-1) times the weights at `w`, rows of
-// kc input channels with row stride `ws`, read through the read-only path
-// (w points at the group's first output channel)
-__device__ __forceinline__ void wide_product(float (&acc)[WIDE_GROUP / 8][4],
-                                             const __nv_bfloat16* a, int as,
-                                             int ra, int rb, int col0, int kc,
-                                             const __nv_bfloat16* w, int ws,
-                                             int t, int g) {
-  for (int kk = 0; kk < kc; kk += 16) {
-    const int c = col0 + kk + 2 * t;
-    const uint32_t a0 = lds32(a + ra * as + c), a1 = lds32(a + rb * as + c);
-    const uint32_t a2 = lds32(a + ra * as + c + 8);
-    const uint32_t a3 = lds32(a + rb * as + c + 8);
-#pragma unroll
-    for (int n = 0; n < WIDE_GROUP / 8; ++n) {
-      const __nv_bfloat16* wb = w + (n * 8 + g) * ws + kk + 2 * t;
-      mma_add(acc[n], a0, a1, a2, a3, ldg32(wb), ldg32(wb + 8));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // C <= 32: the whole stack in one launch
 // ---------------------------------------------------------------------------
@@ -278,9 +229,7 @@ narrow_kernel(const S* __restrict__ x, S* __restrict__ out,
   __nv_bfloat16* W1 = reinterpret_cast<__nv_bfloat16*>(smem);  // K*CP x RS
   __nv_bfloat16* W2 = W1 + K * CP * RS;                         // CP x RS
   __nv_bfloat16* Y = W2 + CP * RS;                              // L x RS
-  __nv_bfloat16* X = Y + L * RS;  // im2col: NWARPS x 16 x XS
-  float* V = reinterpret_cast<float*>(
-      X + (VARIANT == IM2COL ? NWARPS * 16 * XS : 0));          // L x VS
+  float* V = reinterpret_cast<float*>(Y + L * RS);              // L x VS
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TILE - halo;  // time of buffer position 0
@@ -318,7 +267,8 @@ narrow_kernel(const S* __restrict__ x, S* __restrict__ out,
       const int ra = min(p0 + g, L - 1), rb = min(p0 + g + 8, L - 1);
       float acc[CP / 8][4];
       zero(acc);
-      if (VARIANT == DEFAULT || VARIANT == NOELU) {
+      if (VARIANT == DEFAULT || VARIANT == NOELU || VARIANT == IM2COL) {
+        // im2col's one sum over K = 7 * CP is this chain over (tap, k-step)
 #pragma unroll
         for (int j = 0; j < K; ++j)
           tap_product(acc, Y, RS, ra - (K - 1 - j) * d, rb - (K - 1 - j) * d,
@@ -339,7 +289,7 @@ narrow_kernel(const S* __restrict__ x, S* __restrict__ out,
           tap_product(acc, Y, RS, ba + ga, bb + gb, 0, W1 + j * CP * RS, t,
                       g);
         }
-      } else if (VARIANT == TREE) {
+      } else {  // TREE
         float s01[CP / 8][4], part[CP / 8][4], s45[CP / 8][4];
         zero(s01);
         tap_product(s01, Y, RS, ra - 6 * d, rb - 6 * d, 0, W1, t, g);
@@ -366,20 +316,6 @@ narrow_kernel(const S* __restrict__ x, S* __restrict__ out,
         zero(acc);
         add(acc, s01);
         add(acc, s45);
-      } else {  // IM2COL
-        __nv_bfloat16* xw = X + warp * 16 * XS;
-        __syncwarp();  // the previous positions' reads are done
-        for (int e = lane; e < 16 * K * (CP / 8); e += 32) {
-          const int r = e / (K * CP / 8), q = e % (K * CP / 8);
-          const int j = q / (CP / 8), c = q % (CP / 8);
-          const int p = min(p0 + r, L - 1) - (K - 1 - j) * d;
-          reinterpret_cast<uint4*>(xw + r * XS + j * CP)[c] =
-              reinterpret_cast<const uint4*>(Y + p * RS)[c];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          tap_product(acc, xw, XS, g, g + 8, j * CP, W1 + j * CP * RS, t, g);
       }
 
       // a2 = bf16(ELU(acc)) as the 1x1 conv's A fragments, in registers
@@ -434,10 +370,8 @@ int launch_narrow(const void* x, void* out, const __nv_bfloat16* w1,
                   Units units, cudaStream_t stream) {
   const int halo = units.look[0] + units.look[1] + units.look[2];
   const int L = TILE + halo;
-  const int smem =
-      (int)sizeof(__nv_bfloat16) *
-          ((K * CP + CP + L) * RS + (VARIANT == IM2COL ? NWARPS * 16 * XS : 0)) +
-      (int)sizeof(float) * L * VS;
+  const int smem = (int)sizeof(__nv_bfloat16) * (K * CP + CP + L) * RS +
+                   (int)sizeof(float) * L * VS;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       narrow_kernel<VARIANT, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -457,187 +391,377 @@ int launch_narrow(const void* x, void* out, const __nv_bfloat16* w1,
 struct Wide {
   int C, CP, T, d, fold, span, look;
   int in_bf16, out_bf16, round_res;  // storage of in and out; bf16 residual
+  int wm, wn, np;    // warps along time and channels; channel passes
+  int rows;          // output samples per block, 16 MTW wm
+  int L;             // staged rows of Y: rows + look
+  int yrows;         // rows of the Y region (L at the largest look)
+  int a2rows;        // rows of the separate a2 region (np > 1), else 0
+  int kc, nkc, nbuf; // input channels per stage, stages per tap, buffers
+  int vec;           // T % 4 == 0: the epilogue's 4-sample accesses align
+  // per phase p < fold of a row: bit 8 p + j, its partial goes into the
+  // sum after tap j (the next tap lands on another folded offset, or j is
+  // the last); bits 2 (7 p + j), noshift's row within the fold for tap j,
+  // pmod(p + (j - 6) d, fold)
+  unsigned int flush;
+  unsigned long long nsh;
 };
 
-__device__ __forceinline__ float load_any(const void* p, size_t i, int bf16) {
-  return bf16 ? load_f(static_cast<const __nv_bfloat16*>(p) + i)
-              : load_f(static_cast<const float*>(p) + i);
+template <int MTW>
+__device__ __forceinline__ void zero3(float (&c)[MTW][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt) zero(c[mt]);
 }
 
-template <int VARIANT>
-__global__ void __launch_bounds__(MAX_WIDE_WARPS * 32)
+template <int MTW>
+__device__ __forceinline__ void add3(float (&c)[MTW][4][4],
+                                     float (&b)[MTW][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt) {
+    add(c[mt], b[mt]);
+    zero(b[mt]);
+  }
+}
+
+// o = the 4 x 4 block of lanes g = 4a .. 4a + 3 (same t) transposed: lane
+// g = 4a + i gets element i of lanes 4a .. 4a + 3, in their order
+__device__ __forceinline__ void transpose4(const float (&v)[4], float (&o)[4],
+                                           int lane) {
+  const int i = (lane >> 2) & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o[q] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int si = (i - r) & 3, j = (i + r) & 3;
+    const float send = si == 0 ? v[0] : si == 1 ? v[1] : si == 2 ? v[2] : v[3];
+    const float got =
+        __shfl_sync(0xffffffffu, send, (lane & ~12) | (j << 2));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q] = q == j ? got : o[q];
+  }
+}
+
+// 4 consecutive samples at index i of in (f32 or bf16): a vector access
+// where `vec`, else the first n, zero past them
+__device__ __forceinline__ void load4(float (&v)[4], const void* p, size_t i,
+                                      int bf16, bool vec, int n) {
+  if (vec && bf16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p) + i);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    v[0] = __low2float(lo);
+    v[1] = __high2float(lo);
+    v[2] = __low2float(hi);
+    v[3] = __high2float(hi);
+  } else if (vec) {
+    const float4 f = *reinterpret_cast<const float4*>(
+        static_cast<const float*>(p) + i);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = q >= n ? 0.f
+             : bf16 ? load_f(static_cast<const __nv_bfloat16*>(p) + i + q)
+                    : load_f(static_cast<const float*>(p) + i + q);
+  }
+}
+
+__device__ __forceinline__ void store4(void* p, size_t i, const float (&v)[4],
+                                       int bf16, bool vec, int n) {
+  if (vec && bf16) {
+    uint2 u;
+    u.x = pack_bf16(v[0], v[1]);
+    u.y = pack_bf16(v[2], v[3]);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + i) = u;
+  } else if (vec) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= n) break;
+      if (bf16)
+        store_f(static_cast<__nv_bfloat16*>(p) + i + q, v[q]);
+      else
+        store_f(static_cast<float*>(p) + i + q, v[q]);
+    }
+  }
+}
+
+// a variant's register sets of MTW x 16 sums: im2col one, tree three,
+// the others two; a block of more than 64 sums a thread holds at most 8
+// warps (255 registers a thread), else 16 (128)
+constexpr int wide_sets(int variant) {
+  return variant == IM2COL ? 1 : variant == TREE ? 3 : 2;
+}
+constexpr int wide_max_warps(int variant, int mtw) {
+  return wide_sets(variant) * mtw > 4 ? MAX_WIDE_WARPS / 2 : MAX_WIDE_WARPS;
+}
+
+template <int VARIANT, int MTW>
+__global__ void __launch_bounds__(wide_max_warps(VARIANT, MTW) * 32, 1)
 wide_kernel(const void* __restrict__ in, void* __restrict__ out,
-            const __nv_bfloat16* __restrict__ w1,  // (K, cp, cp) [j][o][i]
-            const __nv_bfloat16* __restrict__ w2,  // (cp, cp) [o][i]
-            Wide a) {
+            const __nv_bfloat16* __restrict__ w1,  // (K, CP, CP) [j][o][i]
+            const __nv_bfloat16* __restrict__ w2,  // (CP, CP) [o][i]
+            const __grid_constant__ Wide P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nw = blockDim.x >> 5, bt = 16 * nw;
-  const int L = bt + a.look;     // staged rows: look-back, then the tile
-  const int rs = a.CP + 8;       // bf16 row stride (conflict-free frags)
-  const int xs = K * a.CP + 8;   // im2col row stride
-  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem);  // L x rs
-  __nv_bfloat16* A2 = Y + L * rs;                              // nw x 16 x rs
-  __nv_bfloat16* X = A2 + nw * 16 * rs;                        // nw x 16 x xs
-
-  const int b = blockIdx.y, t0 = blockIdx.x * bt;
-  const size_t base = (size_t)b * a.C * a.T;
-  for (int e = threadIdx.x; e < a.CP * L; e += blockDim.x) {
-    const int c = e / L, q = e - c * L, t = t0 - a.look + q;
-    const float v = (c < a.C && t >= 0 && t < a.T)
-                        ? load_any(in, base + (size_t)c * a.T + t, a.in_bf16)
-                        : 0.f;
-    Y[q * rs + c] = __float2bfloat16_rn(act<VARIANT>(v));
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int RSW = P.CP + 8, KS = P.kc + 8, PW = WIDE_N * P.wn;
+  __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem);  // yrows x RSW
+  __nv_bfloat16* A2 = P.np > 1 ? Y + P.yrows * RSW : Y;        // rows x RSW
+  __nv_bfloat16* wring = Y + (P.yrows + P.a2rows) * RSW;       // nbuf x PW x KS
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int d = a.d, cp = a.CP;
-  const int ra = a.look + warp * 16 + g, rb = ra + 8;  // rows in Y
-  __nv_bfloat16* a2 = A2 + warp * 16 * rs;
-  __nv_bfloat16* xw = X + warp * 16 * xs;
-  if (VARIANT == IM2COL) {
-    for (int e = lane; e < 16 * K * (cp / 8); e += 32) {
-      const int r = e / (K * cp / 8), q = e % (K * cp / 8);
-      const int j = q / (cp / 8), c = q % (cp / 8);
-      const int p = a.look + warp * 16 + r - (K - 1 - j) * d;
-      reinterpret_cast<uint4*>(xw + r * xs + j * cp)[c] =
-          reinterpret_cast<const uint4*>(Y + p * rs)[c];
-    }
-    __syncwarp();
-  }
-  // the rows' phases in the TPU's fold: which folded offset each tap lands
-  // on, and noshift's reads
-  const int pa = (t0 + warp * 16 + g) % a.fold;
-  const int pb = (t0 + warp * 16 + g + 8) % a.fold;
+  const int mbase = (warp / P.wn) * 16 * MTW, nloc = (warp % P.wn) * WIDE_N;
+  const int b = blockIdx.y, t0 = blockIdx.x * P.rows;
+  const size_t base = (size_t)b * P.C * P.T;
+  const int d = P.d, f = P.fold;
+  const int per1 = K * P.nkc;                     // conv1 stages per pass
+  const int n1 = P.np * per1, nsteps = n1 + P.np * P.nkc;
 
-  for (int og = 0; og < cp; og += WIDE_GROUP) {
-    float acc[WIDE_GROUP / 8][4];
-    zero(acc);
-    const __nv_bfloat16* wg = w1 + (size_t)og * cp;
-    const size_t tap = (size_t)cp * cp;
-    if (VARIANT == DEFAULT || VARIANT == NOELU || VARIANT == NOSHIFT) {
-      // each folded offset's taps summed apart, the offsets' partials added
-      // in order, as the plain version (and the TPU variant) sums: a row's
-      // partial goes into acc where its next tap lands on another offset
-      float part[WIDE_GROUP / 8][4];
-      zero(part);
-      const int ba = ra - pa - a.fold * a.span;
-      const int bb = rb - pb - a.fold * a.span;
-      for (int j = 0; j < K; ++j) {
-        const int sh = (j - (K - 1)) * d;
+  // stage s: conv1's pass p, tap j, input chunk kci (pass-major, then
+  // tap), then conv2's pass p, chunk kci; rows of the pass's output
+  // channels, kc input channels each
+  const auto ring = weight_ring(
+      wring, PW * KS, P.nbuf, nsteps, P.kc, P.CP,
+      [&](int s, int& rows) {
+        const bool c1 = s < n1;
+        const int p = c1 ? s / per1 : (s - n1) / P.nkc;
+        const int r = c1 ? s - p * per1 : s - n1 - p * P.nkc;
+        const int j = c1 ? r / P.nkc : 0, kci = c1 ? r - j * P.nkc : r;
+        const int o0 = p * PW;
+        rows = min(PW, P.CP - o0);
+        return (c1 ? w1 + (size_t)j * P.CP * P.CP : w2) +
+               (size_t)o0 * P.CP + kci * P.kc;
+      });
+  ring.start();
+
+  // Y = bf16(ELU(v)) over rows 0 .. L - 1 (time t0 - look + row)
+  auto y1 = [](float v) { return act<VARIANT>(v); };
+  if (P.in_bf16)
+    stage_act(Y, static_cast<const __nv_bfloat16*>(in) + base, t0 - P.look,
+              P.L, P.T, P.C, P.CP, y1);
+  else
+    stage_act(Y, static_cast<const float*>(in) + base, t0 - P.look, P.L,
+              P.T, P.C, P.CP, y1);
+
+  // acc: im2col's sum, the others' offset sum, the 1x1 conv; part: a tap's
+  // (an offset's) partial; s01: tree's left half
+  float acc[MTW][4][4], part[MTW][4][4], s01[MTW][4][4];
+  zero3(acc);
+  zero3(part);
+  zero3(s01);
+
+  // the lane's ldmatrix rows: A row (lane & 15) at column (lane >> 4) * 8;
+  // B rows (lane & 7) + 8 (lane >> 4) at column 8 ((lane >> 3) & 1)
+  const int arow = lane & 15, acol = (lane >> 4) * 8;
+  const int brow0 = nloc + (lane & 7) + ((lane >> 4) << 3);
+  const int bcol = ((lane >> 3) & 1) * 8;
+  // each tile's phases in the fold: of the lane's A row (noshift's reads)
+  // and, as flush bits j and 8 + j, of its accumulator rows g and g + 8
+  int aph[MTW];
+  unsigned int fl[MTW];
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt) {
+    const int q = t0 + mbase + mt * 16;
+    aph[mt] = (q + arow) % f;
+    fl[mt] = ((P.flush >> (8 * ((q + g) % f))) & 0xffu) |
+             (((P.flush >> (8 * ((q + g + 8) % f))) & 0xffu) << 8);
+  }
+
+  // the lane's B rows in stage s's buffer (WeightRing::next)
+  auto next = [&](int s) { return ring.next(s) + brow0 * KS + bcol; };
+
+  // conv1, pass by pass, tap by tap
+  for (int s = 0; s < n1; ++s) {
+    const __nv_bfloat16* bp = next(s);
+    const int p = s / per1, r = s - p * per1, j = r / P.nkc;
+    const int kci = r - j * P.nkc;
+    const bool tap_end = kci == P.nkc - 1;
+    const int oc = p * PW + nloc;         // the warp's first channel
+    const bool live = oc < P.CP;
+    if (live) {
+      const int sh = (j - (K - 1)) * d;
+      const __nv_bfloat16* ap[MTW];
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt) {
+        const int q = mbase + mt * 16 + arow;  // output row of the lane
+        int row = q + sh;
         if (VARIANT == NOSHIFT)
-          wide_product(part, Y, rs, ba + pmod(pa + sh, a.fold),
-                       bb + pmod(pb + sh, a.fold), 0, cp, wg + j * tap, cp,
-                       tq, g);
-        else
-          wide_product(part, Y, rs, ra + sh, rb + sh, 0, cp, wg + j * tap, cp,
-                       tq, g);
-        const bool last = j == K - 1;
-        flush(acc, part,
-              last || fdiv(pa + sh + d, a.fold) != fdiv(pa + sh, a.fold),
-              last || fdiv(pb + sh + d, a.fold) != fdiv(pb + sh, a.fold));
+          row = q - aph[mt] - f * P.span +
+                (int)((P.nsh >> (2 * (7 * aph[mt] + j))) & 3u);
+        ap[mt] = Y + (P.look + row) * RSW + kci * P.kc + acol;
       }
-    } else if (VARIANT == TREE) {
-      float s01[WIDE_GROUP / 8][4], part[WIDE_GROUP / 8][4];
-      float s45[WIDE_GROUP / 8][4];
-#define TAP(dst, j)                                                        \
-  wide_product(dst, Y, rs, ra - (K - 1 - (j)) * d, rb - (K - 1 - (j)) * d, \
-               0, cp, wg + (j) * tap, cp, tq, g)
-      zero(s01);
-      TAP(s01, 0);
-      zero(part);
-      TAP(part, 1);
-      add(s01, part);   // p0 + p1
-      TAP(acc, 2);
-      zero(part);
-      TAP(part, 3);
-      add(acc, part);   // p2 + p3
-      add(s01, acc);    // (p0 + p1) + (p2 + p3)
-      zero(s45);
-      TAP(s45, 4);
-      zero(part);
-      TAP(part, 5);
-      add(s45, part);   // p4 + p5
-      zero(part);
-      TAP(part, 6);
-      add(s45, part);   // (p4 + p5) + p6
-#undef TAP
-      zero(acc);
-      add(acc, s01);
-      add(acc, s45);
-    } else {  // IM2COL: one product over K = 7 * cp
-      for (int j = 0; j < K; ++j)
-        wide_product(acc, xw, xs, g, g + 8, j * cp, cp, wg + j * tap, cp, tq,
-                     g);
-    }
-    // a2 = bf16(ELU(acc)) into the warp's rows
+      if (VARIANT == IM2COL) {
+        product<MTW>(acc, ap, bp, KS, P.kc);
+      } else if (VARIANT == TREE) {
+        if (j == 0)
+          product<MTW>(s01, ap, bp, KS, P.kc);
+        else if (j == 2 || j == 4)
+          product<MTW>(acc, ap, bp, KS, P.kc);
+        else
+          product<MTW>(part, ap, bp, KS, P.kc);
+      } else {
+        product<MTW>(part, ap, bp, KS, P.kc);
+      }
+      if (tap_end && VARIANT == TREE) {
+        if (j == 1) add3(s01, part);        // p0 + p1
+        if (j == 3) {
+          add3(acc, part);                  // p2 + p3
+          add3(s01, acc);                   // (p0 + p1) + (p2 + p3)
+        }
+        if (j == 5 || j == 6) add3(acc, part);  // (p4 + p5) + p6
+        if (j == 6) add3(acc, s01);         // left + right
+      } else if (tap_end && VARIANT != IM2COL) {
+        // a row's partial goes into acc where its next tap lands on
+        // another folded offset (at every tap where f = 1)
 #pragma unroll
-    for (int n = 0; n < WIDE_GROUP / 8; ++n) {
-      const int c = og + n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(a2 + g * rs + c) =
-          pack_bf16(act<VARIANT>(acc[n][0]), act<VARIANT>(acc[n][1]));
-      *reinterpret_cast<uint32_t*>(a2 + (g + 8) * rs + c) =
-          pack_bf16(act<VARIANT>(acc[n][2]), act<VARIANT>(acc[n][3]));
+        for (int mt = 0; mt < MTW; ++mt) {
+          const bool fa = (fl[mt] >> j) & 1u, fb = (fl[mt] >> (8 + j)) & 1u;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (q < 2 ? fa : fb) {
+                acc[mt][n][q] += part[mt][n][q];
+                part[mt][n][q] = 0.f;
+              }
+        }
+      }
+    }
+    if (j == K - 1 && tap_end) {
+      // conv1 of pass p done: a2 = bf16(ELU(acc)), into Y once every warp
+      // is done reading it (one pass), or into its own rows; a later
+      // step's barrier orders the writes before conv2's reads
+      if (P.np == 1) __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = mbase + mt * 16 + g + 8 * h;
+              *reinterpret_cast<uint32_t*>(A2 + q * RSW + oc + n * 8 +
+                                           2 * tq) =
+                  pack_bf16(act<VARIANT>(acc[mt][n][2 * h]),
+                            act<VARIANT>(acc[mt][n][2 * h + 1]));
+            }
+        zero3(acc);
+      }
     }
   }
-  __syncwarp();
 
-  for (int og = 0; og < cp; og += WIDE_GROUP) {
-    float y2[WIDE_GROUP / 8][4];
-    zero(y2);
-    wide_product(y2, a2, rs, g, g + 8, 0, cp, w2 + (size_t)og * cp, cp, tq, g);
+  // conv2, the 1x1 conv over a2's rows, pass by pass, then the epilogue
+  for (int s = n1; s < nsteps; ++s) {
+    const __nv_bfloat16* bp = next(s);
+    const int p = (s - n1) / P.nkc, kci = s - n1 - p * P.nkc;
+    const int oc = p * PW + nloc;
+    if (oc >= P.CP) continue;
+    const __nv_bfloat16* ap[MTW];
 #pragma unroll
-    for (int n = 0; n < WIDE_GROUP / 8; ++n)
+    for (int mt = 0; mt < MTW; ++mt)
+      ap[mt] = A2 + (mbase + mt * 16 + arow) * RSW + kci * P.kc + acol;
+    product<MTW>(acc, ap, bp, KS, P.kc);
+    if (kci != P.nkc - 1) continue;
+    // out = residual(v, y2), a lane's 4 samples of one channel at a time
+    // (transpose4), the tile's residuals loaded before any output is stored
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = og + n * 8 + 2 * tq + (q & 1);
-        const int t = t0 + warp * 16 + g + 8 * (q >> 1);
-        if (c >= a.C || t >= a.T) continue;
-        const size_t i = base + (size_t)c * a.T + t;
-        const float s = residual(load_any(in, i, a.in_bf16), y2[n][q],
-                                 a.round_res);
-        if (a.out_bf16)
-          store_f(static_cast<__nv_bfloat16*>(out) + i, s);
-        else
-          store_f(static_cast<float*>(out) + i, s);
+    for (int mt = 0; mt < MTW; ++mt) {
+      const int i = g & 3;
+      const int q0 = mbase + mt * 16 + 4 * (g >> 2) + 8 * (i >> 1);
+      const int t = t0 + q0, nt = min(4, P.T - t);
+      float v[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float y[4];
+        transpose4(acc[mt][n], y, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = y[e];
+        const int c = oc + n * 8 + 2 * tq + (i & 1);
+        if (c < P.C && nt > 0)
+          load4(v[n], in, base + (size_t)c * P.T + t, P.in_bf16,
+                P.vec && nt == 4, nt);
       }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = oc + n * 8 + 2 * tq + (i & 1);
+        if (c >= P.C || nt <= 0) continue;
+        float r[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          r[e] = residual(v[n][e], acc[mt][n][e], P.round_res);
+        store4(out, base + (size_t)c * P.T + t, r, P.out_bf16,
+               P.vec && nt == 4, nt);
+      }
+    }
+    zero3(acc);
   }
 }
 
-// shared memory of a wide block of nw warps
-size_t wide_smem(int variant, int nw, int cp, int look) {
-  const size_t rows = (size_t)(16 * nw + look) * (cp + 8) +
-                      (size_t)nw * 16 * (cp + 8) +
-                      (variant == IM2COL ? (size_t)nw * 16 * (K * cp + 8) : 0);
-  return rows * sizeof(__nv_bfloat16);
+// floor division for a negative n too, on the host
+int host_fdiv(int n, int f) { return n >= 0 ? n / f : -((f - 1 - n) / f); }
+
+// shared memory of a wide block in bytes; ops/kernels/ablate_stack.py
+// ablate_wide_smem states the same sum: Y and a2's rows, and the ring of
+// nbuf stages of 32 wn output channels x kc input channels
+size_t wide_smem(int cp, int yrows, int a2rows, int wn, int kc, int nbuf) {
+  return 2 * ((size_t)(yrows + a2rows) * (cp + 8) +
+              (size_t)nbuf * WIDE_N * wn * (kc + 8));
 }
 
-template <int VARIANT>
+// the most m16 tiles a warp of the variant takes: tree's three register
+// sets hold two
+int wide_mtw_cap(int variant) { return variant == TREE ? 2 : 4; }
+
+template <int VARIANT, int MTW>
 int launch_wide(const void* in, void* out, const __nv_bfloat16* w1,
-                const __nv_bfloat16* w2, int B, const Wide& a,
+                const __nv_bfloat16* w2, int B, const Wide& a, size_t smem,
                 cudaStream_t stream) {
-  int nw = MAX_WIDE_WARPS;
-  while (nw > 1 && wide_smem(VARIANT, nw, a.CP, a.look) > SMEM_LIMIT) nw /= 2;
-  const size_t smem = wide_smem(VARIANT, nw, a.CP, a.look);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = wide_kernel<VARIANT, MTW>;
   cudaError_t err = cudaFuncSetAttribute(
-      wide_kernel<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // all of the SM's L1 as shared memory
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.T + 16 * nw - 1) / (16 * nw), B);
-  wide_kernel<VARIANT><<<grid, 32 * nw, smem, stream>>>(in, out, w1, w2, a);
+  const dim3 grid((a.T + a.rows - 1) / a.rows, B);
+  kernel<<<grid, 32 * a.wm * a.wn, smem, stream>>>(in, out, w1, w2, a);
   return (int)cudaGetLastError();
 }
 
-int wide_unit(int variant, const void* in, void* out, const __nv_bfloat16* w1,
-              const __nv_bfloat16* w2, int B, const Wide& a, cudaStream_t s) {
+template <int VARIANT>
+int wide_variant(int mtw, const void* in, void* out, const __nv_bfloat16* w1,
+                 const __nv_bfloat16* w2, int B, const Wide& a, size_t smem,
+                 cudaStream_t s) {
+  switch (mtw) {
+    case 1: return launch_wide<VARIANT, 1>(in, out, w1, w2, B, a, smem, s);
+    case 2: return launch_wide<VARIANT, 2>(in, out, w1, w2, B, a, smem, s);
+    case 4:
+      if (VARIANT != TREE)
+        return launch_wide<VARIANT, VARIANT == TREE ? 2 : 4>(
+            in, out, w1, w2, B, a, smem, s);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int wide_unit(int variant, int mtw, const void* in, void* out,
+              const __nv_bfloat16* w1, const __nv_bfloat16* w2, int B,
+              const Wide& a, size_t smem, cudaStream_t s) {
   switch (variant) {
-    case DEFAULT: return launch_wide<DEFAULT>(in, out, w1, w2, B, a, s);
-    case TREE: return launch_wide<TREE>(in, out, w1, w2, B, a, s);
-    case IM2COL: return launch_wide<IM2COL>(in, out, w1, w2, B, a, s);
-    case NOELU: return launch_wide<NOELU>(in, out, w1, w2, B, a, s);
-    case NOSHIFT: return launch_wide<NOSHIFT>(in, out, w1, w2, B, a, s);
+    case DEFAULT:
+      return wide_variant<DEFAULT>(mtw, in, out, w1, w2, B, a, smem, s);
+    case TREE: return wide_variant<TREE>(mtw, in, out, w1, w2, B, a, smem, s);
+    case IM2COL:
+      return wide_variant<IM2COL>(mtw, in, out, w1, w2, B, a, smem, s);
+    case NOELU:
+      return wide_variant<NOELU>(mtw, in, out, w1, w2, B, a, smem, s);
+    case NOSHIFT:
+      return wide_variant<NOSHIFT>(mtw, in, out, w1, w2, B, a, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -670,24 +794,31 @@ int narrow(int variant, const void* x, void* out, const __nv_bfloat16* w1,
 // [u][tap][c_out][c_in]; w2: (3, cp, cp) bf16 as [u][c_out][c_in], both
 // zero-padded from C to cp channels.  C > 32 runs one launch per unit
 // through `scratch`, two (B, C, T) float32 buffers, which carry the
-// residual between the units (unused at C <= 32).
+// residual between the units, with blocks of warps_m x warps_n warps of
+// mtw m16 tiles each, weight stages of kc input channels and nbuf ring
+// buffers (ops/kernels/ablate_stack.py ablate_wide_geometry); at C <= 32
+// scratch and the geometry are unused.
 extern "C" int ablate_stack_forward(const void* x, void* out, const void* w1,
                                     const void* w2, void* scratch, int B,
                                     int C, int T, int cp, int fold, int d0,
                                     int d1, int d2, int variant,
-                                    int storage_bf16, void* stream) {
+                                    int storage_bf16, int mtw, int warps_m,
+                                    int warps_n, int kc, int nbuf,
+                                    void* stream) {
   if (B < 1 || C < 1 || T < 1 || fold < 1 || d0 < 1 || d1 < 1 || d2 < 1 ||
       variant < DEFAULT || variant > NOSHIFT ||
       cp != (C <= CP ? CP : (C + 31) / 32 * 32))
     return (int)cudaErrorInvalidValue;
   Units units;
   const int dil[UNITS] = {d0, d1, d2};
+  int look_max = 0;
   for (int u = 0; u < UNITS; ++u) {
     const int d = dil[u], span = (6 * d + fold - 1) / fold;
     units.dil[u] = d;
     units.span[u] = span;
     // noshift reads up to fold * span + fold - 1 samples back
     units.look[u] = variant == NOSHIFT ? fold * span + fold - 1 : 6 * d;
+    look_max = max(look_max, units.look[u]);
   }
   const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(w1);
   const __nv_bfloat16* c = static_cast<const __nv_bfloat16*>(w2);
@@ -698,18 +829,59 @@ extern "C" int ablate_stack_forward(const void* x, void* out, const void* w1,
                                    units, s);
     return narrow<float>(variant, x, out, a, c, B, C, T, fold, units, s);
   }
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int groups = cp / WIDE_N;
+  // fold = 128 / C <= 3 above C = 32: the flush and noshift tables
+  if (scratch == nullptr || fold > 3 || mtw < 1 ||
+      mtw > wide_mtw_cap(variant) ||
+      (mtw & (mtw - 1)) || warps_m < 1 || warps_n < 1 || warps_n > groups ||
+      warps_m * warps_n > wide_max_warps(variant, mtw) ||
+      kc < 16 || kc % 16 || cp % kc || (nbuf != 2 && nbuf != 3))
+    return (int)cudaErrorInvalidValue;
+  Wide args;
+  args.C = C;
+  args.CP = cp;
+  args.T = T;
+  args.fold = fold;
+  args.round_res = storage_bf16;
+  args.wm = warps_m;
+  args.wn = warps_n;
+  args.np = (groups + warps_n - 1) / warps_n;
+  args.rows = 16 * mtw * warps_m;
+  args.yrows = args.rows + look_max;
+  args.a2rows = args.np > 1 ? args.rows : 0;
+  args.kc = kc;
+  args.nkc = cp / kc;
+  args.nbuf = nbuf;
+  args.vec = T % 4 == 0;
+  const size_t smem =
+      wide_smem(cp, args.yrows, args.a2rows, warps_n, kc, nbuf);
+  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   float* buf[2] = {static_cast<float*>(scratch),
                    static_cast<float*>(scratch) + (size_t)B * C * T};
   const void* src = x;
   for (int u = 0; u < UNITS; ++u) {
     const bool last = u == UNITS - 1;
     void* dst = last ? out : static_cast<void*>(buf[u % 2]);
-    const Wide args = {C, cp, T, units.dil[u], fold, units.span[u],
-                       units.look[u], u == 0 ? storage_bf16 : 0,
-                       last ? storage_bf16 : 0, storage_bf16};
-    const int err = wide_unit(variant, src, dst, a + (size_t)u * K * cp * cp,
-                              c + (size_t)u * cp * cp, B, args, s);
+    args.d = units.dil[u];
+    args.span = units.span[u];
+    args.flush = 0;
+    args.nsh = 0;
+    for (int p = 0; p < fold; ++p)
+      for (int j = 0; j < K; ++j) {
+        const int sh = (j - (K - 1)) * args.d;
+        if (j == K - 1 || host_fdiv(p + sh + args.d, fold) !=
+                              host_fdiv(p + sh, fold))
+          args.flush |= 1u << (8 * p + j);
+        args.nsh |= (unsigned long long)(p + sh - fold * host_fdiv(p + sh, fold))
+                    << (2 * (K * p + j));
+      }
+    args.look = units.look[u];
+    args.L = args.rows + args.look;
+    args.in_bf16 = u == 0 ? storage_bf16 : 0;
+    args.out_bf16 = last ? storage_bf16 : 0;
+    const int err = wide_unit(variant, mtw, src, dst,
+                              a + (size_t)u * K * cp * cp,
+                              c + (size_t)u * cp * cp, B, args, smem, s);
     if (err != 0) return err;
     src = dst;
   }

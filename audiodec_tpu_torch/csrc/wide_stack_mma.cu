@@ -49,7 +49,9 @@
 // §C).  Channels are padded to CP, a multiple of 32, with zero weights and
 // biases, so the padded channels stay zero.
 // ops/kernels/folded_stack.py wide_geometry picks wm, the stage width kc
-// and the buffers (this file's `smem_bytes` states the same sum).
+// and the buffers (this file's `smem_bytes` states the same sum).  The
+// staging, the weight ring and a warp's product over a stage are
+// wide_mma.cuh's, shared with csrc/ablate_stack.cu's wide route.
 //
 // Rounding points (the TPU kernel's and the plain version's,
 // ops/kernels/folded_stack.py folded_residual_stack_plain): act in f32, ELU
@@ -66,18 +68,16 @@
 // int, the slope as float; returns the first CUDA error of the launches, or
 // cudaErrorInvalidValue for arguments it does not take.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "wide_mma.cuh"
 
 namespace {
+
+using namespace wide_mma;
 
 constexpr int MTW = 4;               // m16 tiles per warp
 constexpr int WARP_N = 32;           // output channels per warp
 constexpr int MAX_WARPS = 16;
 constexpr int MAX_UNITS = 256;
-constexpr int SMEM_LIMIT = 232448;   // bytes a block may use on sm_90
 enum { ELU = 0, LEAKY = 1 };  // the C interface's act
 // the kernel's: ELU as expm1 (f32 storage) or exp(min(v, 0)) - 1 (bf16)
 enum { ACT_EXPM1 = 0, ACT_EXP = 1, ACT_LEAKY = 2 };
@@ -95,10 +95,6 @@ struct Unit {
   int kc, nkc, nbuf; // input channels per stage, stages per tap, buffers
   int in_bf16, out_bf16, bf16;  // storage of in and out; bf16 storage
 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // act in f32, without a branch: a divergent branch around exp keeps the
 // compiler from overlapping a thread's activations with each other
@@ -118,92 +114,15 @@ __device__ __forceinline__ void store_any(void* p, size_t i, float v,
     static_cast<float*>(p)[i] = v;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// c += a * b, the mma's 16 products summed from zero and added to c with
-// round-to-nearest f32 adds
-__device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  float d[4];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-#pragma unroll
-  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], d[q]);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // Y = bf16(act(v)) over rows 0 .. L - 1 (time tin + row), zero outside
-// [0, T) and past C.  A warp takes 8 rows x 4 channel pairs: 32-byte runs
-// of each channel from device memory, and 4-byte stores to 32 distinct
-// banks; a thread loads SU of its pairs before it stores any, so that
-// their round trips to device memory overlap
+// [0, T) and past C (wide_mma.cuh stage_act)
 template <int ACT, typename S>
-__device__ __forceinline__ void stage_act(__nv_bfloat16* Y, const void* in,
-                                          size_t base, int tin,
-                                          const Unit& P) {
-  constexpr int SU = 4;
-  const S* x = static_cast<const S*>(in) + base;
-  const int NT = blockDim.x, RS = P.CP + 8, pblocks = P.CP / 8;
-  const int total = (P.L + 7) / 8 * pblocks * 32;
-  for (int e0 = threadIdx.x; e0 < total; e0 += SU * NT) {
-    float v[SU][2];
-    int row[SU], col[SU];
-#pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int e = e0 + u * NT, gi = e >> 5, l = e & 31;
-      const int rb = gi / pblocks, pb = gi - rb * pblocks;
-      const int r = rb * 8 + (l & 7), c = (pb * 4 + (l >> 3)) * 2;
-      const int t = tin + r;
-      const bool live = e < total && r < P.L && t >= 0 && t < P.T;
-      row[u] = e < total && r < P.L ? r : -1;
-      col[u] = c;
-      v[u][0] = live && c < P.C ? to_f32(x[(size_t)c * P.T + t]) : 0.f;
-      v[u][1] =
-          live && c + 1 < P.C ? to_f32(x[(size_t)(c + 1) * P.T + t]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < SU; ++u)
-      if (row[u] >= 0)
-        *reinterpret_cast<uint32_t*>(Y + row[u] * RS + col[u]) =
-            pack_bf16(activate<ACT>(v[u][0], P.slope),
-                      activate<ACT>(v[u][1], P.slope));
-  }
+__device__ __forceinline__ void stage_unit(__nv_bfloat16* Y, const void* in,
+                                           size_t base, int tin,
+                                           const Unit& P) {
+  const float slope = P.slope;
+  stage_act(Y, static_cast<const S*>(in) + base, tin, P.L, P.T, P.C, P.CP,
+            [slope](float v) { return activate<ACT>(v, slope); });
 }
 
 // the residuals of one m16 tile's outputs in a warp's accumulator layout
@@ -236,10 +155,9 @@ wide_unit(const void* __restrict__ in, void* __restrict__ out,
   extern __shared__ __align__(16) unsigned char smem[];
   const int RS = P.CP + 8, KS = P.kc + 8;
   __nv_bfloat16* Y = reinterpret_cast<__nv_bfloat16*>(smem);  // yrows x RS
-  __nv_bfloat16* ring = Y + P.yrows * RS;          // nbuf x CP x KS
+  __nv_bfloat16* wring = Y + P.yrows * RS;         // nbuf x CP x KS
   const int stage = P.CP * KS;
-  const int NT = blockDim.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int mbase = (warp / P.wn) * 16 * MTW, nbase = (warp % P.wn) * WARP_N;
   const int b = blockIdx.y;
@@ -249,32 +167,24 @@ wide_unit(const void* __restrict__ in, void* __restrict__ out,
   const size_t base = (size_t)b * P.C * P.T;
   const int n1 = P.k * P.nkc, nsteps = n1 + P.k2 * P.nkc;
 
-  // stage s (conv1's tap j = s / nkc, then conv2's) into buffer s % nbuf:
-  // rows of CP output channels, kc input channels each; one commit group
-  // per call (empty past the last stage)
-  auto issue = [&](int s) {
-    if (s < nsteps) {
-      const bool c1 = s < n1;
-      const int r = c1 ? s : s - n1;
-      const int j = r / P.nkc, kci = r - j * P.nkc;
-      const __nv_bfloat16* src =
-          (c1 ? w1 : w2) + (size_t)j * P.CP * P.CP + kci * P.kc;
-      __nv_bfloat16* dst = ring + (s % P.nbuf) * stage;
-      const int vpr = P.kc / 8;  // 16-byte vectors per row
-      for (int e = tid; e < P.CP * vpr; e += NT) {
-        const int o = e / vpr, v = e - o * vpr;
-        cp_async16(dst + o * KS + v * 8, src + (size_t)o * P.CP + v * 8);
-      }
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < P.nbuf - 1; ++s) issue(s);
+  // stage s: conv1's tap j = s / nkc, then conv2's, rows of CP output
+  // channels, kc input channels each
+  const auto ring = weight_ring(
+      wring, stage, P.nbuf, nsteps, P.kc, P.CP,
+      [&](int s, int& rows) {
+        const bool c1 = s < n1;
+        const int r = c1 ? s : s - n1;
+        const int j = r / P.nkc, kci = r - j * P.nkc;
+        rows = P.CP;
+        return (c1 ? w1 : w2) + (size_t)j * P.CP * P.CP + kci * P.kc;
+      });
+  ring.start();
 
   // Y = bf16(act(v)) over rows 0 .. L - 1, zero outside [0, T) and past C
   if (P.in_bf16)
-    stage_act<ACT, __nv_bfloat16>(Y, in, base, tin, P);
+    stage_unit<ACT, __nv_bfloat16>(Y, in, base, tin, P);
   else
-    stage_act<ACT, float>(Y, in, base, tin, P);
+    stage_unit<ACT, float>(Y, in, base, tin, P);
 
   float acc[MTW][4][4];
 #pragma unroll
@@ -291,37 +201,18 @@ wide_unit(const void* __restrict__ in, void* __restrict__ out,
   const int bcol = ((lane >> 3) & 1) * 8;
 
   for (int s = 0; s < nsteps; ++s) {
-    // stage s has landed (nbuf - 2 later groups may be pending), and every
-    // warp is done with step s - 1, whose buffer the next issue refills
-    if (P.nbuf == 3)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    issue(s + P.nbuf - 1);
+    const __nv_bfloat16* Wb = ring.next(s);
     const bool c1 = s < n1;
     const int r = c1 ? s : s - n1;
     const int j = r / P.nkc, kci = r - j * P.nkc;
     // output row p of either conv reads operand row p + shift: Y at the
     // tap's dilated shift, or a2 at its tap
     const int shift = c1 ? j * P.d : j;
-    const __nv_bfloat16* Wb = ring + (s % P.nbuf) * stage;
-    const __nv_bfloat16* ap = Y + (arow0 + shift) * RS + kci * P.kc + acol;
-    const __nv_bfloat16* bp = Wb + brow0 * KS + bcol;
-    for (int kk = 0; kk < P.kc; kk += 16) {
-      uint32_t bf[2][4];
-      ldmatrix_x4(bf[0], bp + kk);
-      ldmatrix_x4(bf[1], bp + 16 * KS + kk);
+    const __nv_bfloat16* ap[MTW];
 #pragma unroll
-      for (int mt = 0; mt < MTW; ++mt) {
-        uint32_t af[4];
-        ldmatrix_x4(af, ap + mt * 16 * RS + kk);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          mma_add(acc[mt][n], af, bf[n >> 1][2 * (n & 1)],
-                  bf[n >> 1][2 * (n & 1) + 1]);
-      }
-    }
+    for (int mt = 0; mt < MTW; ++mt)
+      ap[mt] = Y + (arow0 + mt * 16 + shift) * RS + kci * P.kc + acol;
+    product<MTW>(acc, ap, Wb + brow0 * KS + bcol, KS, P.kc);
     if (s != n1 - 1) continue;
     // conv1 done: a2 = bf16(act(mask(acc + b1))) replaces Y, once every
     // warp is done reading Y; the next step's barrier orders the writes

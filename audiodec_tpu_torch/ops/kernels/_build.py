@@ -3,9 +3,10 @@
 `nvcc -gencode arch=compute_90a,code=sm_90a` compiles `csrc/<name>.cu`, a
 file with a plain C interface (no PyTorch headers, so the build takes
 seconds), into `build/audiodec_tpu_torch/lib<name>.so` beside the package.
-The library is rebuilt only when the SHA-256 of the source, the flags and
-`nvcc --version` changes; the hash is kept in `lib<name>.so.sha256`.  The
-build runs at first use, never at import.
+The library is rebuilt only when the SHA-256 of the source, the headers
+of `csrc/` (`*.cuh`), the flags and `nvcc --version` changes; the hash is
+kept in `lib<name>.so.sha256`.  The build runs at first use, never at
+import.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def build(name: str) -> Path:
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout
+    headers = [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(b"\0".join([
-        src.read_bytes(), " ".join(NVCC_FLAGS).encode(), version.encode(),
+        src.read_bytes(), *headers, " ".join(NVCC_FLAGS).encode(),
+        version.encode(),
     ])).hexdigest()
     lib = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.so.sha256"

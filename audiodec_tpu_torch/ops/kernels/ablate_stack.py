@@ -22,16 +22,17 @@ Layout (B, C, T), f32 or bf16, with torch weights (C_out, C_in, k), as
 f (the TPU probe's reshape fails otherwise).  A CPU tensor runs
 `ablate_stack_plain`; a CUDA tensor launches the kernel (C <= 32: one CUDA
 launch for the stack; above: one per unit, weights padded to a multiple
-of 32 channels), which takes C up to what one block's shared memory holds
-at one warp (`csrc/ablate_stack.cu`: 1312, im2col 576, at d <= 9), and
-raises above it.
+of 32 channels, in the geometry of `ablate_wide_geometry`), which takes C
+up to what one block's shared memory holds at one warp of one m16 tile
+(`csrc/ablate_stack.cu`: 1312 in every variant at d <= 9), and raises
+above it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +57,21 @@ UNITS = 3
 # wider stacks padded to a multiple of WIDE_ALIGN
 NARROW_CHANNELS = 32
 WIDE_ALIGN = 32
+# the wide route's blocks: 32 output channels per warp, at most
+# WIDE_MAX_WARPS warps (half as many where a thread holds more than 64
+# sums: its register sets of 16 sums per m16 tile, WIDE_SETS) and
+# WIDE_MAX_ROWS output samples, weight stages of one of WIDE_KC input
+# channels.  WIDE_MTW caps the m16 tiles per warp by variant: the fastest
+# at the symAD widths on the card (PERF.md §6)
+WIDE_WARP_N = 32
+WIDE_MAX_WARPS = 16
+WIDE_MAX_ROWS = 256
+WIDE_KC = (128, 64, 32, 16)
+WIDE_SETS = {"im2col": 1, "tree": 3}
+WIDE_SETS_DEFAULT = 2
+WIDE_MTW = {"im2col": 4, "noshift": 4, "tree": 1}
+WIDE_MTW_DEFAULT = 2
+BLOCK_SMEM = 232448   # bytes of shared memory a block may use on sm_90
 
 launches = 0
 
@@ -152,6 +168,96 @@ def padded_channels(c: int) -> int:
     return -(-c // WIDE_ALIGN) * WIDE_ALIGN
 
 
+class AblateWideGeometry(NamedTuple):
+    """A unit launch of the wide route (C > 32): channels padded to cp;
+    blocks of warps_m x warps_n warps, each warp mtw m16 tiles (16 mtw
+    samples) x 32 output channels, so `rows` = 16 mtw warps_m output
+    samples a block; the channels walked in `passes` of 32 warps_n; the
+    look-back `look` (the largest unit's); weight stages of kc input
+    channels in `buffers` ring buffers; `smem` bytes of shared memory."""
+    cp: int
+    mtw: int
+    warps_m: int
+    warps_n: int
+    passes: int
+    rows: int
+    look: int
+    kc: int
+    buffers: int
+    smem: int
+
+
+def ablate_wide_smem(cp: int, yrows: int, a2rows: int, warps_n: int,
+                     kc: int, buffers: int) -> int:
+    """Shared memory of a wide block (csrc/ablate_stack.cu `wide_smem`):
+    the staged ELU(v) as `yrows` bf16 rows of cp + 8, a2's own `a2rows`
+    rows where the channels take more than one pass (else a2 replaces the
+    staged rows), and the ring of weight stages, 32 warps_n bf16 rows of
+    kc + 8 each."""
+    return 2 * ((yrows + a2rows) * (cp + 8)
+                + buffers * WIDE_WARP_N * warps_n * (kc + 8))
+
+
+def unit_look(d: int, f: int, variant: str) -> int:
+    """The samples a unit at dilation d reads before its output: 6d, or
+    noshift's f * span + f - 1 (span = ceil(6d / f) folded rows)."""
+    if variant == "noshift":
+        return f * -(-(KERNEL_SIZE - 1) * d // f) + f - 1
+    return (KERNEL_SIZE - 1) * d
+
+
+def wide_max_warps(variant: str, mtw: int) -> int:
+    """The most warps a wide block of the variant holds at mtw m16 tiles a
+    warp (csrc/ablate_stack.cu `wide_max_warps`)."""
+    sets = WIDE_SETS.get(variant, WIDE_SETS_DEFAULT)
+    return WIDE_MAX_WARPS // 2 if sets * mtw > 4 else WIDE_MAX_WARPS
+
+
+def ablate_wide_geometry(c: int, variant: str = "default",
+                         dilations: Sequence[int] = (1, 3, 9)
+                         ) -> AblateWideGeometry:
+    """How csrc/ablate_stack.cu runs a unit above C = 32: the fewest passes
+    over the channels (warps_n = ceil(groups / passes) of the cp / 32
+    groups, at most WIDE_MAX_WARPS), then the most m16 tiles per warp (up
+    to the variant's WIDE_MTW), the most warp rows (up to wide_max_warps
+    warps and WIDE_MAX_ROWS samples), the widest weight stage (WIDE_KC,
+    dividing cp) and the most buffers (3, then 2) that fit a block's
+    shared memory.  Raises ValueError where nothing fits."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if c <= NARROW_CHANNELS:
+        raise ValueError(f"C={c}: the wide route takes C > "
+                         f"{NARROW_CHANNELS}")
+    cp = padded_channels(c)
+    f = fold_factor(c)
+    look = max(unit_look(d, f, variant) for d in dilations)
+    groups = cp // WIDE_WARP_N
+    cap = WIDE_MTW.get(variant, WIDE_MTW_DEFAULT)
+    for passes in range(1, groups + 1):
+        wn = -(-groups // passes)
+        if wn > WIDE_MAX_WARPS or -(-groups // wn) != passes:
+            continue
+        mtw = cap
+        while mtw >= 1:
+            for wm in range(min(wide_max_warps(variant, mtw) // wn,
+                                WIDE_MAX_ROWS // (16 * mtw)), 0, -1):
+                rows = 16 * mtw * wm
+                a2rows = rows if passes > 1 else 0
+                for kc in (v for v in WIDE_KC if cp % v == 0):
+                    for buffers in (3, 2):
+                        smem = ablate_wide_smem(cp, rows + look, a2rows, wn,
+                                                kc, buffers)
+                        if smem <= BLOCK_SMEM:
+                            return AblateWideGeometry(
+                                cp, mtw, wm, wn, passes, rows, look, kc,
+                                buffers, smem)
+            mtw //= 2
+    raise ValueError(
+        f"csrc/ablate_stack.cu ({variant}): a look-back of {look} samples "
+        f"(dilations={tuple(dilations)}) leaves no tile in a block's "
+        f"{BLOCK_SMEM} bytes of shared memory at C={c}")
+
+
 def _pack(unit_params, c: int, cp: int, _rounded: bool) -> tuple:
     """(3, 7, cp, cp) and (3, cp, cp) bf16 weights as [u][tap][c_out][c_in]
     and [u][c_out][c_in], zero-padded from C to cp channels."""
@@ -174,7 +280,7 @@ def packed_weights(unit_params, c: int) -> tuple:
 @functools.cache
 def _kernel():
     fn = _build.load("ablate_stack").ablate_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -199,6 +305,10 @@ def ablate_stack(x: torch.Tensor, unit_params: Sequence,
         raise ValueError("weights must be on the device of x")
     x = x.contiguous()
     cp = padded_channels(c)
+    geo = (0,) * 5  # the wide route's geometry, unused at C <= 32
+    if c > NARROW_CHANNELS:
+        g = ablate_wide_geometry(c, variant, dilations)
+        geo = (g.mtw, g.warps_m, g.warps_n, g.kc, g.buffers)
     w1, w2 = packed_weights(unit_params, c)
     out = torch.empty_like(x)
     # the residual carried between the wide route's per-unit launches
@@ -210,7 +320,7 @@ def ablate_stack(x: torch.Tensor, unit_params: Sequence,
                         w2.data_ptr(),
                         None if scratch is None else scratch.data_ptr(),
                         b, c, t, cp, f, *dilations, VARIANTS.index(variant),
-                        int(x.dtype == torch.bfloat16),
+                        int(x.dtype == torch.bfloat16), *geo,
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ablate stack kernel ({variant}, C={c}): CUDA "

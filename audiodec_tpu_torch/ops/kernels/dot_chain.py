@@ -13,9 +13,11 @@ Every row of x (M, 128) runs through n_dots products with w (n_dots, 128,
     (the low byte for int8).
 
 The TPU's tiles of `rows` rows are a layout only: rows are independent.
-bf16 and int8 run on the tensor cores (`mma.sync`), f32 in true f32 on the
-FMA units.  A CPU tensor runs `dot_chain_plain`; a CUDA tensor launches
-the kernel or raises.
+bf16 and int8 run on the tensor cores through `wgmma`, with w packed once
+(`wgmma_pack`, cached on what the tensor holds) in the order its
+shared-memory descriptor reads; f32 runs in true f32 on the FMA units.  A
+CPU tensor runs `dot_chain_plain`; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -26,10 +28,14 @@ import functools
 import torch
 
 from audiodec_tpu_torch.ops.kernels import _build
+from audiodec_tpu_torch.ops.kernels.folded_stack import cached_pack
 
 WIDTH = 128
 DTYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 INT8_SHIFT = 4096   # the chained int8 step's divisor
+# wgmma's 128-byte swizzle: rows of 128-byte atoms, 16-byte chunks, the
+# chunk index XORed with the row's phase in its group of 8 rows
+SWIZZLE_ATOM, SWIZZLE_CHUNK, SWIZZLE_ROWS = 128, 16, 8
 
 launches = 0
 
@@ -110,6 +116,54 @@ def dot_chain_library(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _swizzle_index(device) -> torch.Tensor:
+    """(128, 8): chunk p of row r of a swizzled atom holds chunk
+    p ^ (r % 8) of the row (an involution)."""
+    rows = torch.arange(WIDTH, device=device) % SWIZZLE_ROWS
+    return torch.arange(SWIZZLE_ATOM // SWIZZLE_CHUNK,
+                        device=device)[None, :] ^ rows[:, None]
+
+
+def _swizzle(b: torch.Tensor) -> torch.Tensor:
+    """(n, atoms, 128 rows, 8 chunks, 16) bytes -> the same with each row's
+    chunks permuted by the swizzle."""
+    idx = _swizzle_index(b.device)[None, None, :, :, None].expand(b.shape)
+    return torch.gather(b, 3, idx)
+
+
+def wgmma_pack(w: torch.Tensor) -> torch.Tensor:
+    """w (n_dots, 128, 128) bf16 or int8, [i][k][n] -> (n_dots, 128 * 128
+    * itemsize) bytes in the order csrc/dot_chain.cu's wgmma reads B: w[i]
+    transposed to [n][k] (K-major, the only B layout of s8 wgmma), cut into
+    128-byte atoms along k, atom-major (all 128 rows of an atom, then the
+    next), each row's 16-byte chunks swizzled.  A permutation of w's bytes;
+    one 1-D copy lands it in shared memory as the descriptor expects."""
+    n = w.shape[0]
+    b = w.transpose(1, 2).contiguous().view(torch.uint8)
+    b = b.reshape(n, WIDTH, -1, SWIZZLE_ATOM // SWIZZLE_CHUNK, SWIZZLE_CHUNK)
+    return _swizzle(b.permute(0, 2, 1, 3, 4)).reshape(n, -1)
+
+
+def wgmma_unpack(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of `wgmma_pack`: (n_dots, bytes) -> (n_dots, 128, 128)
+    of `dtype` as [i][k][n]."""
+    n = packed.shape[0]
+    b = _swizzle(packed.reshape(n, -1, WIDTH, SWIZZLE_ATOM // SWIZZLE_CHUNK,
+                                SWIZZLE_CHUNK))
+    b = b.permute(0, 2, 1, 3, 4).reshape(n, WIDTH, -1).contiguous()
+    return b.view(dtype).transpose(1, 2)
+
+
+def _pack_wgmma(w, _c, _cp, _rounded):
+    return wgmma_pack(w)
+
+
+def packed_weights(w: torch.Tensor) -> torch.Tensor:
+    """`wgmma_pack(w)`, cached on what the tensor holds (an in-place update
+    repacks)."""
+    return cached_pack(_pack_wgmma, (w,), 0, 0, False, w)
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("dot_chain").dot_chain_forward
@@ -132,8 +186,7 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor,
     if w.device != x.device:
         raise ValueError("w must be on the device of x")
     x = x.contiguous()
-    # the tensor-core kernel reads w[i] as B fragments, [n][k]
-    wk = (w.transpose(1, 2) if x.dtype != torch.float32 else w).contiguous()
+    wk = w.contiguous() if x.dtype == torch.float32 else packed_weights(w)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), wk.data_ptr(), out.data_ptr(),

@@ -127,6 +127,18 @@ units at k = 11 (the narrow FMA kernels' shapes), held bit-equal; the true
 f32 cases of `kernel_vs_plain`, `voc_kernel_vs_plain`, `golden_parity` and
 `voc_golden` take csrc/resunit_stack.cu.
 
+The checks of slice 12: `ablate_kernel_vs_plain` gains the redesigned
+wide route (csrc/ablate_stack.cu on csrc/wide_stack_mma.cu's design, its
+geometry from ablate_wide_geometry) at C = 264 and 1312, the route's
+widest, beside C = 33-256, every variant in both storages, at B = 2,
+T = 3996 and 60, with the same bars; the narrow im2col reads its operand
+from the staged rows.  `dot_chain_vs_plain` holds the wgmma route (bf16
+and int8) also at a ragged M (700 rows, 8 dots), with the same bars;
+`ablate_path` prints beside each timed default-variant call its bound and
+csrc/wide_stack_mma.cu's time at the same shape and storage
+(`folded_residual_stack(bf16_dots=True)`, timed after the path's launch
+counts are read).
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -331,13 +343,15 @@ FUSED_FLIP_SHARE, FUSED_DECODE_REL = 1e-3, 1e-3
 # the chained bar grows with the number of dots)
 DOT_F32_REL, DOT_BF16_RL2, DOT_BF16_RL2_PER_DOT = 5e-5, 1e-3, 3e-4
 DOT_FULL = (1024, 64, 120)          # the probe's rows, dots, tiles
+# slice 12: a ragged M for the wgmma route, 700 rows (192-row tiles)
+DOT_RAGGED = (100, 8, 7)
 # the ablation stack against its plain version: bf16 operand flips, see
 # tests/test_torch_folded_ablate.py
 ABLATE_RL2, ABLATE_MAX_REL = 5e-4, 1e-2
 # slice 7.  The ablation stack's wide route (C > 32) checked at these
-# widths, and the default variant timed at the symAD stacks' (C, T) and at
+# widths (slice 12: up to its widest, 1312), and the default variant timed at the symAD stacks' (C, T) and at
 # C = 32 in bf16 storage (B = 16)
-ABLATE_WIDE = (33, 48, 64, 96, 128, 256)
+ABLATE_WIDE = (33, 48, 64, 96, 128, 256, 264, 1312)
 # The wide route sums in the plain version's association, but each
 # product in 16-term groups on the tensor cores, where the plain version's
 # BLAS chains fmas.  From C = 64 the bf16 flips of f32 summation error put
@@ -346,7 +360,7 @@ ABLATE_WIDE = (33, 48, 64, 96, 128, 256)
 # in f32 storage, 1.8e-3 in bf16 (PERF.md §6, PR 10).  So at C > 32 a
 # case's relative L2 bar is the larger of ABLATE_RL2 and this factor times
 # the plain version's own distance from exact sums, on the case or on its
-# T = 3996 sibling (at T = 60 a few flips make the case's own distance
+# T = 3996 sibling (at T = 66 a few flips make the case's own distance
 # erratic), and it holds the kernel both to the plain version and to the
 # exact sums; the max bar stays ABLATE_MAX_REL.
 ABLATE_FLOOR_FACTOR = 1.5
@@ -1440,8 +1454,9 @@ def phase_wide_c_kernel_vs_plain(device):
     check_wide's bar, each case alone); the int8 "row" and "tile" modes in
     both storages (bit equality expected, INT8_REL); the archived stack
     (archive/resunit_kernel.py, bit-equal).  Then one call of each mode
-    timed at WIDE_C_TIMED with random autoencoder units, beside its bound
-    (speed above C = 256 is not judged yet)."""
+    timed at WIDE_C_TIMED with random autoencoder units, beside its bound,
+    its plain version's time and the F.elu / F.conv1d chain's in the
+    working dtype (speed above C = 256 is not judged yet)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     cases = []
@@ -1488,27 +1503,41 @@ def phase_wide_c_kernel_vs_plain(device):
     unitsb = tuple((w1.to(torch.bfloat16), w2.to(torch.bfloat16))
                    for w1, w2 in units)
     stack = folded_stack.folded_residual_stack
+    plain = folded_stack.folded_residual_stack_plain
+    int8_plain = folded_stack.folded_residual_stack_int8_plain
+    tile_plain = folded_stack.folded_residual_stack_int8_tile_plain
+    # name: (the kernel's call, its plain version's, the chain's in the
+    # working dtype, the bound)
     timed = {
         "true f32 (csrc/resunit_stack.cu)": (
             lambda: stack(x, units, bf16_dots=False),
-            kernel_bounds.resunit_stack(b, t, c)),
+            lambda: plain(x, units, DILATIONS, False),
+            lambda: chain(x, units), kernel_bounds.resunit_stack(b, t, c)),
         "bf16 dots, f32 storage (csrc/wide_stack_mma.cu)": (
-            lambda: stack(x, units), kernel_bounds.mma_stack(b, t, c)),
+            lambda: stack(x, units), lambda: plain(x, units, DILATIONS),
+            lambda: chain(x, units), kernel_bounds.mma_stack(b, t, c)),
         "bf16 storage (csrc/wide_stack_mma.cu)": (
-            lambda: stack(xb, unitsb),
+            lambda: stack(xb, unitsb), lambda: plain(xb, unitsb, DILATIONS),
+            lambda: chain(xb, unitsb),
             kernel_bounds.mma_stack(b, t, c, storage=2)),
         "int8 row (csrc/int8_mma_stack.cu)": (
             lambda: stack(x, units, int8_dots=True),
-            kernel_bounds.int8_stack(b, t, c)),
+            lambda: int8_plain(x, units, DILATIONS),
+            lambda: chain(x, units), kernel_bounds.int8_stack(b, t, c)),
         "int8 tile (csrc/int8_tile_mma.cu)": (
             lambda: stack(x, units, int8_dots=True, int8_scale="tile"),
-            kernel_bounds.int8_stack(b, t, c)),
+            lambda: tile_plain(x, units, DILATIONS),
+            lambda: chain(x, units), kernel_bounds.int8_stack(b, t, c)),
         "archived stack (csrc/resunit_stack.cu)": (
             lambda: resunit_kernel.fused_residual_stack_bct(x, units),
-            kernel_bounds.resunit_stack(b, t, c)),
+            lambda: resunit_kernel.fused_residual_stack_plain(x, units,
+                                                              DILATIONS),
+            lambda: chain(x, units), kernel_bounds.resunit_stack(b, t, c)),
     }
-    times = {name: {"shape": [b, c, t], "ms": cuda_ms(fn, reps=2), **bound}
-             for name, (fn, bound) in timed.items()}
+    times = {name: {"shape": [b, c, t], "ms": cuda_ms(fn, reps=2),
+                    "plain_ms": cuda_ms(plain_fn, reps=1),
+                    "chain_ms": cuda_ms(chain_fn, reps=2), **bound}
+             for name, (fn, plain_fn, chain_fn, bound) in timed.items()}
     emit("wide_c_kernel_vs_plain", t0,
          tolerance={"true f32, archived stack": "bit-equal",
                     "bf16 operands": f"check_wide: rel_l2 <= max({WIDE_RL2},"
@@ -2042,11 +2071,12 @@ def dot_inputs(rng, dtype, m: int, n_dots: int, device):
 
 def phase_dot_chain_vs_plain(device):
     """csrc/dot_chain.cu against its plain version in the 6 dtype x mode
-    cases, at (64 rows, 4 dots, 3 tiles) and at the probe's full
-    (1024, 64, 120) on its own inputs (the int8 wrap row added)."""
+    cases, at (64 rows, 4 dots, 3 tiles), at DOT_RAGGED and at the probe's
+    full (1024, 64, 120) on its own inputs (the int8 wrap row added)."""
     t0 = time.perf_counter()
     cases, rows = [], []
     for (rows_, dots, tiles), seed in (((64, 4, 3), SEED + 7),
+                                       (DOT_RAGGED, SEED + 13),
                                        (DOT_FULL, SEED)):
         rng = np.random.default_rng(seed)
         m = rows_ * tiles
@@ -2160,11 +2190,12 @@ def phase_ablate_kernel_vs_plain(device):
     """csrc/ablate_stack.cu against its plain version: the five variants
     at C = 32 and 16 (f = 4 and 8) with B = 2, T = 4000 (13 of the narrow
     kernel's 320-sample tiles, the last one ragged) and B = 1, T = 64
-    (shorter than the halo); at C = 33, 48, 64, 96, 128 and 256 (the wide
-    route, f = 3, 2, 2, 1, 1, 1) with B = 2, T = 3996 (a multiple of every
-    fold, ragged in every tile) and T = 60 (shorter than the halo), which
-    takes its T = 3996 sibling's floor (check_ablate); all of them in f32
-    and in bf16 storage.  At full size: the five variants at
+    (shorter than the halo); at C = 33, 48, 64, 96, 128, 256, 264 and 1312
+    (the wide route, f = 3, 2, 2, 1, 1, 1, 1, 1) with B = 2, T = 3996 (a
+    multiple of every fold, ragged in every tile; the epilogue's 4-sample
+    accesses) and T = 66 (shorter than the halo, and not a multiple of 4:
+    the epilogue's single samples), which takes its T = 3996 sibling's
+    floor (check_ablate); all of them in f32 and in bf16 storage.  At full size: the five variants at
     (16, 32, 480000) f32 on bin/folded_ablate.py's inputs, and the default
     variant at ABLATE_TIMED's shapes, each with its plain version's and
     the chain's ms.  Returns the `kernels` line's rows, their `ms` still
@@ -2173,7 +2204,7 @@ def phase_ablate_kernel_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     cases, rows = [], []
     shapes = ([(c, b, t) for c in (32, 16) for b, t in ((2, 4000), (1, 64))]
-              + [(c, 2, t) for c in ABLATE_WIDE for t in (3996, 60)])
+              + [(c, 2, t) for c in ABLATE_WIDE for t in (3996, 66)])
     floors = {}  # (C, storage, variant): the plain version's distance
     # from exact sums at T = 3996
     for c, b, t in shapes:
@@ -2227,7 +2258,11 @@ def phase_ablate_path(rows, device):
     """bin/folded_ablate.py's main at (16, 32, 480000): the five variants,
     one F.elu pass and the autoencoder-mode kernel with bf16 dots, each
     once to warm up and ITERS times timed; then the default variant at
-    ABLATE_TIMED's shapes, once to warm up and ITERS times timed."""
+    ABLATE_TIMED's shapes, once to warm up and ITERS times timed.  After
+    the launch counts are read, the wide shapes are timed once more
+    through csrc/wide_stack_mma.cu (the folded stack's autoencoder mode
+    with bf16 dots, the same units and storage), the yardstick of the
+    ablation stack's wide route."""
     t0 = time.perf_counter()
     probe = [r for r in rows if r["shape"][1] == folded_ablate.CHANNELS
              and r["storage"] == "float32"]
@@ -2250,9 +2285,23 @@ def phase_ablate_path(rows, device):
     by_name = {r["ablate"]: r for r in records}
     for row in probe:
         row["ms"] = by_name[row["variant"]]["ms"]
+    default = {}
+    for c, t, dtype in ABLATE_TIMED:
+        row = next(r for r in rows if r["shape"] == [BATCH, c, t]
+                   and r["storage"] == str(dtype)[6:])
+        rec = default[f"{row['shape']} {row['storage']}"] = {
+            "ms": row["ms"], "bound_ms": row["bound_ms"]}
+        if c > ablate_stack.NARROW_CHANNELS:
+            units, x = ablate_inputs(c, t, dtype, device)
+            rec["wide_stack_ms"] = cuda_ms(
+                lambda: folded_stack.folded_residual_stack(
+                    x, units, dilations=DILATIONS, bf16_dots=True),
+                reps=folded_ablate.ITERS)
+            rec["ratio"] = row["ms"] / rec["wide_stack_ms"]
+            del x
     emit("ablate_path", t0, launches=launches, records=records,
-         default_variant_ms={f"{r['shape']} {r['storage']}": r["ms"]
-                             for r in rows if r not in probe})
+         default_variant=default,
+         timed_calls_ms=sum(r["ms"] for r in rows))
     return launches, rows
 
 

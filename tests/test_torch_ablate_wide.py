@@ -100,3 +100,50 @@ def test_packed_weights_are_cached_until_changed():
     assert all(a is b for a, b in zip(first, port.packed_weights(units, 64)))
     units[0][0].mul_(2.0)  # an in-place update must repack
     assert not torch.equal(port.packed_weights(units, 64)[0], first[0])
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("variant", port.VARIANTS)
+def test_wide_geometry_fits_every_width(variant, dilation):
+    """csrc/ablate_stack.cu's wide route takes every C from 33 to 1312 in
+    every variant: the geometry's blocks fit a block's shared memory, its
+    passes cover the channels, its warps and tiles stay within the
+    variant's register sets, and its sum is `ablate_wide_smem`'s."""
+    cap = port.WIDE_MTW.get(variant, port.WIDE_MTW_DEFAULT)
+    for c in range(33, 1313):
+        g = port.ablate_wide_geometry(c, variant, (1, dilation, dilation))
+        groups = g.cp // port.WIDE_WARP_N
+        assert g.cp == port.padded_channels(c)
+        assert g.passes == -(-groups // g.warps_n)
+        assert g.warps_m * g.warps_n <= port.wide_max_warps(variant, g.mtw)
+        assert g.mtw in (1, 2, 4) and g.mtw <= cap
+        assert g.rows == 16 * g.mtw * g.warps_m <= port.WIDE_MAX_ROWS
+        assert g.cp % g.kc == 0 and g.kc % 16 == 0 and g.buffers in (2, 3)
+        f = port.fold_factor(c)
+        assert g.look == port.unit_look(dilation, f, variant) >= 6 * dilation
+        assert g.smem == port.ablate_wide_smem(
+            g.cp, g.rows + g.look, g.rows if g.passes > 1 else 0, g.warps_n,
+            g.kc, g.buffers) <= port.BLOCK_SMEM
+
+
+@pytest.mark.parametrize("c,variant,dil", [(1313, "default", (1, 3, 9)),
+                                           (2048, "im2col", (1, 3, 9)),
+                                           (256, "tree", (1, 3, 400)),
+                                           (64, "noshift", (1, 3, 2000))])
+def test_wide_geometry_raises_where_nothing_fits(c, variant, dil):
+    with pytest.raises(ValueError, match=f"C={c}"):
+        port.ablate_wide_geometry(c, variant, dil)
+
+
+def test_wide_geometry_at_the_symad_stacks():
+    """One pass over the channels at the symAD stacks' widths: in the
+    default variant two m16 tiles a warp and 16 warps; noshift four tiles
+    and 8 warps (its two register sets of four tiles); im2col four and up
+    to 16 warps."""
+    for c, rows in ((64, 256), (128, 128), (256, 64)):
+        g = port.ablate_wide_geometry(c)
+        assert (g.passes, g.mtw, g.rows) == (1, 2, rows)
+        assert g.warps_m * g.warps_n == 16
+        g = port.ablate_wide_geometry(c, "noshift")
+        assert (g.passes, g.mtw, g.warps_m * g.warps_n) == (1, 4, 8)
+        assert port.ablate_wide_geometry(c, "im2col").mtw == 4

@@ -192,3 +192,36 @@ def test_bad_calls_raise(x, w, exc):
     with pytest.raises(exc):
         port.dot_chain(x, w)
     assert port.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_wgmma_pack_is_a_permutation(dtype):
+    """csrc/dot_chain.cu's wgmma reads B from the pack: unpacking gives w
+    back, the bytes are w's permuted, and byte (n, k) of w[i] sits at the
+    swizzled address the kernel's descriptor reads (atom k // 128 bytes,
+    row n, 16-byte chunk XORed with n % 8)."""
+    gen = torch.Generator().manual_seed(5)
+    w = (torch.randn(3, 128, 128, generator=gen) * 40).to(dtype)
+    packed = port.wgmma_pack(w)
+    size = w.element_size()
+    assert packed.dtype == torch.uint8
+    assert packed.shape == (3, 128 * 128 * size)
+    assert torch.equal(port.wgmma_unpack(packed, dtype), w)
+    raw = w.contiguous().view(torch.uint8).reshape(3, -1)
+    assert torch.equal(packed.sort(dim=1).values, raw.sort(dim=1).values)
+    nk = w.transpose(1, 2).contiguous().view(torch.uint8)  # [i][n][k bytes]
+    for i, n, kb in ((0, 0, 0), (1, 9, 70 * size), (2, 127, 128 * size - 1)):
+        atom, byte = divmod(kb, 128)
+        addr = (atom * 128 * 128 + n * 128
+                + (((byte // 16) ^ (n % 8)) * 16) + byte % 16)
+        assert packed[i, addr] == nk[i, n, kb]
+
+
+def test_wgmma_pack_is_cached_until_changed():
+    w = torch.ones(2, 128, 128, dtype=torch.bfloat16)
+    first = port.packed_weights(w)
+    assert port.packed_weights(w) is first
+    w[1, 3, 5] = 2.0  # an in-place update must repack
+    again = port.packed_weights(w)
+    assert again is not first
+    assert torch.equal(port.wgmma_unpack(again, torch.bfloat16), w)
