@@ -1,7 +1,7 @@
 """Time the residual-stack kernels above the narrow ones on the card:
 `python -m audiodec_tpu_torch.bin.stack_timing [--reps 5] [--loops 3]`.
 
-Three measurements, each call held against its plain version on the same
+Four measurements, each call held against its plain version on the same
 inputs (max error relative to the peak):
 
   - the archived stack (`archive/resunit_kernel.py fused_residual_stack_bct`,
@@ -15,7 +15,14 @@ inputs (max error relative to the peak):
     160000), (16, 128, 40000), (16, 256, 8000), on the probe's seeded
     inputs, in f32 and in bf16 storage;
   - the fused transcode (`bin/fused_probe.py fused_path`) of a seeded
-    0.3 * N(0, 1) batch of 16 x 10 s at 48 kHz.
+    0.3 * N(0, 1) batch of 16 x 10 s at 48 kHz;
+  - the fused RVQ encode (`archive/vq_kernel.py rvq_encode_pallas`,
+    csrc/rvq_encode.cu) of that batch's z from the true-f32 encoder
+    (`archive/fast_experiments.py encoder_apply_fused`, then the
+    projector), (16, 1600, 64), against the trained golden's 8 x 1024
+    codebooks, with SHA-256 checksums of idx and zq so that two packages'
+    outputs can be compared bit for bit (the index flips against the
+    plain version, which sums in another order, are printed beside).
 
 Times are CUDA events, the best of --loops runs of --reps calls after a
 warm-up call.  It prints the card's name and power limit as nvidia-smi
@@ -32,6 +39,7 @@ kernels under its own build/).  Run old and new in turns in one call.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import time
@@ -40,11 +48,15 @@ from pathlib import Path
 import torch
 
 import audiodec_tpu_torch
-from audiodec_tpu_torch.archive import resunit_kernel
+from audiodec_tpu_torch.archive import resunit_kernel, vq_kernel
+from audiodec_tpu_torch.archive.fast_experiments import encoder_apply_fused
 from audiodec_tpu_torch.bin import folded_probe, fused_probe
 from audiodec_tpu_torch.bin.codec_test import require_device
 from audiodec_tpu_torch.bin.int8_timing import best_ms, load_params
-from audiodec_tpu_torch.models.autoencoder import GeneratorConfig
+from audiodec_tpu_torch.models.autoencoder import (
+    GeneratorConfig,
+    projector_apply,
+)
 from audiodec_tpu_torch.ops.kernels import folded_stack
 from audiodec_tpu_torch.utils.bridge import tree_map
 
@@ -57,6 +69,10 @@ BATCH, SECONDS, SR = 16, 10, 48000
 def rel_err(out, ref) -> float:
     out, ref = out.float(), ref.float()
     return float((out - ref).abs().max() / ref.abs().max())
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def main(argv=None) -> dict:
@@ -120,12 +136,22 @@ def main(argv=None) -> dict:
                           device=device)
     transcode_ms = best_ms(lambda: fused_probe.fused_path(p, x, cfg),
                            max(1, args.reps // 2), args.loops)
+    z = projector_apply(p["projector"], encoder_apply_fused(p["encoder"], x,
+                                                            cfg), cfg)
+    embed = p["quantizer"]["embed"]
+    zq, idx = vq_kernel.rvq_encode_pallas(z, embed)
+    _, idx_p = vq_kernel.rvq_encode_plain(z, embed)
+    rvq = {"shape": list(z.shape), "codebooks": list(embed.shape),
+           "idx_sha256": sha256(idx), "zq_sha256": sha256(zq),
+           "flips_vs_plain": int((idx != idx_p).sum()),
+           "ms": best_ms(lambda: vq_kernel.rvq_encode_pallas(z, embed),
+                         args.reps * 4, args.loops)}
     rec = {"package": str(root), "device": torch.cuda.get_device_name(0),
            "nvidia_smi": card, "archived_stacks": archived,
            "archived_stacks_ms": sum(r["ms"] for r in archived),
            "wide": wide, "fused_transcode_ms": transcode_ms,
            "fused_rtf": BATCH * SECONDS / (transcode_ms / 1e3),
-           "seconds": time.perf_counter() - t0}
+           "rvq_encode": rvq, "seconds": time.perf_counter() - t0}
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int N = 128;        // the dot's width and depth
@@ -78,9 +80,13 @@ constexpr int ATOM = 128;     // bytes of a row in one swizzle atom
 
 enum { BF16 = 0, INT8 = 1, F32 = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using bulk_ring::bulk_copy;
+using bulk_ring::mbar_arrive;
+using bulk_ring::mbar_expect_tx;
+using bulk_ring::mbar_fence_init;
+using bulk_ring::mbar_init;
+using bulk_ring::mbar_wait;
+using bulk_ring::smem_u32;
 
 // wgmma's shared-memory descriptor of a K-major operand with the 128-byte
 // swizzle: start address >> 4, leading byte offset 16 (unused by this
@@ -97,39 +103,6 @@ __device__ __forceinline__ int swizzled(int r, int c, int rows) {
   return (c >> 3) * rows * ATOM + r * ATOM + (((c & 7) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-// wait until the phase of parity `parity` has completed; a wait that has
-// not completed in 2^34 cycles (several seconds) traps rather than hangs
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
@@ -385,7 +358,7 @@ wgmma_chain_kernel(const T* __restrict__ x, const unsigned char* __restrict__ wp
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 4 * CWG);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 

@@ -635,17 +635,18 @@ def _pack_int8_tile(unit_params, biases, c: int, cp: int, _rounded: bool):
 
 
 # packed weights by what the weight tensors hold (device, dtype, address,
-# shape, strides, version) and the rounding: two views of one storage at
-# one offset hold the same values, so the per-group weight slices of a
-# grouped resblock, made anew on every call, hit the cache.  An entry holds
-# its tensors, so their storage cannot be freed and its address reused
-# while it lives, and an in-place update bumps the version and misses.
+# shape, strides, version), the widths and the rounding: two views of one
+# storage at one offset hold the same values, so the per-group weight
+# slices of a grouped resblock, made anew on every call, hit the cache.  An
+# entry holds its tensors, so their storage cannot be freed and its address
+# reused while it lives, and an in-place update bumps the version and
+# misses.
 _packed = {}
 _PACKED_MAX = 16
 
 
 def cached_pack(pack, tensors, c: int, cp: int, rounded: bool, *args):
-    key = (pack.__name__, rounded,
+    key = (pack.__name__, c, cp, rounded,
            tuple((w.device, w.dtype, w.data_ptr(), tuple(w.shape), w.stride(),
                   w._version) for w in tensors))
     hit = _packed.get(key)

@@ -139,6 +139,14 @@ csrc/wide_stack_mma.cu's time at the same shape and storage
 (`folded_residual_stack(bf16_dots=True)`, timed after the path's launch
 counts are read).
 
+The checks of slice 13: `rvq_kernel_vs_plain` gains csrc/rvq_encode.cu
+(redesigned: register tiles, a bulk-copy codebook ring, its geometry
+from rvq_geometry) at D = 512 (refused by the card before) and 12, Q = 16,
+NE = 1000, 7 frames (below a tile) and a frame count one past whole tiles,
+with the same bars, and at a codebook whose upper half repeats its lower
+half, where every index must lie in the lower half; `rvq_timing` prints
+the geometry beside the ms.
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -399,9 +407,19 @@ MMA_OTHER_SHAPES = {
 # the tensor-core kernel's launch counts, by unit shape
 MMA_COUNTERS = {"autoencoder": "mma", "vocoder": "mma_voc",
                 "other": "mma_other"}
-# RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T))
+# RVQ shapes of tests/test_pallas_vq.py: ((Q, N, D), (B, T)); slice 13:
+# D = 512 (the card refused D > 256 before) and D = 12 (not a multiple of
+# 4), Q = 16 (hop-320's codebooks), NE = 1000 (not a multiple of a
+# chunk), and 7 frames (below any tile of csrc/rvq_encode.cu)
 RVQ_SHAPES = (((4, 32, 16), (2, 10)), ((8, 1024, 64), (1, 300)),
-              ((2, 16, 8), (1, 3)))
+              ((2, 16, 8), (1, 3)), ((8, 1024, 512), (4, 700)),
+              ((8, 1024, 12), (2, 333)), ((16, 1024, 64), (4, 500)),
+              ((8, 1000, 64), (2, 1000)), ((8, 1024, 64), (1, 7)))
+# slice 13: the frames of the case one frame past whole tiles are the
+# first count from RVQ_PAST_FROM up whose tile, as rvq_geometry picks it,
+# leaves one frame over; the duplicated codebook's shape ((Q, N, D), (B, T))
+RVQ_PAST_FROM = 2000
+RVQ_DUPLICATED = ((8, 1024, 64), (2, 1000))
 
 # generator_params of configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_
 # clean.yaml, as it stands (the card has no PyYAML; a test holds the two
@@ -1836,32 +1854,54 @@ def on_device(params, device):
 
 def phase_rvq_kernel_vs_plain(params, device):
     """csrc/rvq_encode.cu against its plain version: seeded random
-    codebooks and z at tests/test_pallas_vq.py's shapes, and the trained
-    golden's codebooks on the true-f32 encoder's z of main_path's input
+    codebooks and z at RVQ_SHAPES (tests/test_pallas_vq.py's shapes, and
+    slice 13's wider, ragged and smaller ones), at a frame count one past
+    whole tiles, at a duplicated-row codebook, and the trained golden's
+    codebooks on the true-f32 encoder's z of main_path's input
     (16, 1600, 64)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     cases = []
-    for (q, n, d), bt in RVQ_SHAPES:
+
+    def case(embed, z, codebooks):
+        q, n, d = embed.shape
+        flips, worst, err = check_rvq(z, embed)
+        frames = z.shape[0] * z.shape[1]
+        cases.append({"Q": q, "N": n, "D": d, "frames": frames,
+                      "codebooks": codebooks, "flipped_frames": flips,
+                      "worst_flip_vs_bound": worst, "zq_max_abs_err": err,
+                      "tile": vq_kernel.rvq_geometry(frames, d, q,
+                                                     n).frames})
+
+    # slice 13: frames one past whole tiles of the geometry's own choice
+    past = next(f for f in range(RVQ_PAST_FROM, 2 * RVQ_PAST_FROM)
+                if f % vq_kernel.rvq_geometry(f, 64, 8, 1024).frames == 1)
+    for (q, n, d), bt in RVQ_SHAPES + (((8, 1024, 64), (1, past)),):
         embed = torch.randn(q, n, d, generator=gen, device=device)
         z = torch.randn(*bt, d, generator=gen, device=device)
-        flips, worst, err = check_rvq(z, embed)
-        cases.append({"Q": q, "N": n, "D": d, "frames": bt[0] * bt[1],
-                      "codebooks": "random", "flipped_frames": flips,
-                      "worst_flip_vs_bound": worst, "zq_max_abs_err": err})
+        case(embed, z, "random")
+    # slice 13: every code of the upper half repeats one of the lower half,
+    # so every minimum is an exact tie and the lower index must win, as
+    # the plain version's argmin takes it
+    (q, n, d), bt = RVQ_DUPLICATED
+    low = torch.randn(q, n // 2, d, generator=gen, device=device)
+    perm = torch.randperm(n // 2, generator=gen, device=device)
+    embed = torch.cat([low, low[:, perm]], dim=1)
+    z = torch.randn(*bt, d, generator=gen, device=device)
+    case(embed, z, "duplicated rows")
+    _, idx = vq_kernel.rvq_encode_pallas(z, embed)
+    if int(idx.max()) >= n // 2:
+        raise AssertionError("rvq kernel: an exact tie took the higher "
+                             "index")
     cfg = GeneratorConfig()
     p = on_device(params, device)
     h = encoder_apply(p["encoder"], main_input(device), cfg)
     z = projector_apply(p["projector"], h, cfg).contiguous()
-    embed = p["quantizer"]["embed"]
-    flips, worst, err = check_rvq(z, embed)
-    cases.append({"Q": embed.shape[0], "N": embed.shape[1], "D": z.shape[-1],
-                  "frames": z.shape[0] * z.shape[1],
-                  "codebooks": "gen_symad_trained", "flipped_frames": flips,
-                  "worst_flip_vs_bound": worst, "zq_max_abs_err": err})
+    case(p["quantizer"]["embed"], z, "gen_symad_trained")
     emit("rvq_kernel_vs_plain", t0,
          tolerance=f"flips only at near ties (f64 gap <= {RVQ_TIE_REL} x "
-                   f"(|r|^2 + |E|^2)), zq bit-equal on agreeing frames",
+                   f"(|r|^2 + |E|^2)), zq bit-equal on agreeing frames; "
+                   f"duplicated rows: every index in the lower half",
          cases=cases)
     return z
 
@@ -1926,12 +1966,15 @@ def resunit_timing(params, device, gen):
 
 def rvq_timing(z, embed):
     """csrc/rvq_encode.cu's, the plain version's and ops/vq.py
-    rvq_forward_index's (cuBLAS, TF32 off) ms on (16, 1600, 64) frames, and
-    the bound."""
+    rvq_forward_index's (cuBLAS, TF32 off) ms on (16, 1600, 64) frames, the
+    bound, and rvq_geometry's tile, blocks and residency."""
     flips, _, err = check_rvq(z, embed)
+    geometry = vq_kernel.rvq_geometry(z.shape[0] * z.shape[1], z.shape[2],
+                                      embed.shape[0], embed.shape[1])
     row = {
         "shape": list(z.shape), "codebooks": list(embed.shape),
         "max_abs_err": err, "flipped_frames": flips,
+        "geometry": geometry._asdict(),
         "ms": cuda_ms(lambda: vq_kernel.rvq_encode_pallas(z, embed), reps=5),
         "plain_ms": cuda_ms(lambda: vq_kernel.rvq_encode_plain(z, embed),
                             reps=3),
