@@ -202,6 +202,10 @@ class BatchTranscoder:
     the decoder's params and activations stay f32 whatever dec_dtype is.
     A vocoder or a config that is not causal audiodec cannot take it: it
     warns, as JAX does, and decodes in dec_dtype instead.
+    stack="folded" sends the causal audiodec codec's residual stacks to
+    the kernels and a vocoder's resblocks to the kernel's vocoder mode; a
+    noncausal or activate_audiodec config runs the plain encoder and
+    decoder, as in JAX.
     pcm16: decode returns int16 PCM, quantized on the device.
     exact_k: the RVQ argmin runs `vq_nearest_2pass` with this shortlist.
     An int16 batch is read as PCM16 and normalized by 1/32768 on the
@@ -229,15 +233,20 @@ class BatchTranscoder:
                 + "; running the non-int8 decoder instead")
             int8_decode = False
         self.int8_decode = int8_decode
-        if stack == "folded":
+        # the folded stacks take the causal audiodec codec only; any other
+        # config runs the plain encoder and decoder, as in JAX
+        # (codec_test.py:226-227)
+        use_folded = (stack == "folded" and cfg.mode == "causal"
+                      and cfg.codec == "audiodec")
+        if use_folded:
             self.enc_apply = partial(encoder_apply_folded,
                                      bf16_dots=bf16_dots)
             self.dec_apply = partial(decoder_apply_folded,
                                      bf16_dots=bf16_dots)
-            voc_apply = partial(vocoder_apply_folded, bf16_dots=bf16_dots)
         else:
             self.enc_apply, self.dec_apply = encoder_apply, decoder_apply
-            voc_apply = vocoder_apply
+        voc_apply = (partial(vocoder_apply_folded, bf16_dots=bf16_dots)
+                     if stack == "folded" else vocoder_apply)
         if int8_decode:
             # the int8 quantization rounds from f32 (JAX codec_test.py:256-265)
             self.dec_apply = partial(decoder_apply_folded, int8=True)

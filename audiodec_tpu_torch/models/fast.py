@@ -72,8 +72,16 @@ def res_stack_auto(x, block_params, cfg: GeneratorConfig,
     return res_stack_plain(x, block_params, cfg)
 
 
+def _require_folded(cfg: GeneratorConfig):
+    # JAX asserts the same (models/fast.py:82, :97)
+    if cfg.mode != "causal" or cfg.codec != "audiodec":
+        raise ValueError(f"the folded path takes the causal audiodec codec, "
+                         f"not mode={cfg.mode}, codec={cfg.codec}")
+
+
 def encoder_apply_folded(p, x, cfg: GeneratorConfig, bf16_dots: bool = True):
     """Batch causal encoder.  x: (B, T, C_in) -> (B, T', C_enc)."""
+    _require_folded(cfg)
     stack = partial(res_stack_auto, bf16_dots=bf16_dots)
     return encoder_bct(p, x.transpose(1, 2), cfg, stack).transpose(1, 2)
 
@@ -83,6 +91,7 @@ def decoder_apply_folded(p, z, cfg: GeneratorConfig, bf16_dots: bool = True,
     """Batch causal decoder.  z: (B, T', D) -> (B, T, C_out).  int8=True:
     every residual stack in the kernel's int8 mode; the transposed and the
     plain convs keep their input dtype."""
+    _require_folded(cfg)
     stack = partial(res_stack_auto, bf16_dots=bf16_dots, int8=int8)
     return decoder_bct(p, z.transpose(1, 2), cfg, stack).transpose(1, 2)
 

@@ -13,7 +13,13 @@ Params are nested dicts of tensors with the JAX tree's structure and
 torch's weight orientation (see utils/bridge.py).  `vocoder_bct` works in
 the package's (B, C, T) layout and takes the fusion-block function, so the
 plain and the kernel paths (models/fast.py) share one structure; the public
-functions take JAX's (B, T, C).  Streaming state waits for a later slice.
+functions take JAX's (B, T, C).
+
+Streaming: `vocoder_stream_bct` and `vocoder_apply(..., state=)` return
+(y, new_state); the state is a nested dict of (B, C, L) tensors with the
+JAX state tree's structure (`vocoder_state_init`).  The grouped fusion
+block streams as the JAX package does: the input tiled `groups` times and
+one grouped conv per layer, so its state has channels * groups channels.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from audiodec_tpu_torch.ops.activations import get_activation
 from audiodec_tpu_torch.ops.conv import (
     causal_conv1d,
     causal_conv_transpose1d,
+    causal_state_init,
+    causal_transpose_state_init,
     conv1d_init,
     conv_transpose1d_init,
 )
@@ -94,14 +102,41 @@ def config_from_yaml(d: dict, stats: bool = False) -> VocoderConfig:
 # residual block (ref: models/vocoder/modules/residual_block.py:23-106)
 # ---------------------------------------------------------------------------
 
-def _resblock_apply(p, x, *, dilations, groups, use_additional, act):
-    """x: (B, C, T)."""
+def _resblock_apply(p, x, *, dilations, groups, use_additional, act,
+                    state=None):
+    """x: (B, C, T); with `state`, (y, new state)."""
+    if state is None:
+        for j, d in enumerate(dilations):
+            xt = causal_conv1d(act(x), p["convs1"][j], dilation=d,
+                               groups=groups)
+            if use_additional:
+                xt = causal_conv1d(act(xt), p["convs2"][j], groups=groups)
+            x = xt + x
+        return x
+    ns = {"convs1": [], "convs2": []}
     for j, d in enumerate(dilations):
-        xt = causal_conv1d(act(x), p["convs1"][j], dilation=d, groups=groups)
+        xt, s1 = causal_conv1d(act(x), p["convs1"][j], dilation=d,
+                               groups=groups, state=state["convs1"][j])
+        ns["convs1"].append(s1)
         if use_additional:
-            xt = causal_conv1d(act(xt), p["convs2"][j], groups=groups)
+            xt, s2 = causal_conv1d(act(xt), p["convs2"][j], groups=groups,
+                                   state=state["convs2"][j])
+            ns["convs2"].append(s2)
         x = xt + x
-    return x
+    return x, ns
+
+
+def _resblock_state(batch, channels, kernel_size, dilations, use_additional,
+                    dtype, device):
+    s = {"convs1": [], "convs2": []}
+    for d in dilations:
+        s["convs1"].append(causal_state_init(batch, channels, kernel_size, d,
+                                             dtype, device))
+        if use_additional:
+            s["convs2"].append(causal_state_init(batch, channels,
+                                                 kernel_size, 1, dtype,
+                                                 device))
+    return s
 
 
 def slice_group(conv_p: dict, g: int, c: int) -> dict:
@@ -156,6 +191,43 @@ def _fusion_apply(p, x, cfg: VocoderConfig):
                                act=cfg.act)
 
     return fusion_bct(p, x, cfg, resblock)
+
+
+def _fusion_stream(p, x, cfg: VocoderConfig, state):
+    """Fusion block in streaming mode, x: (B, C, T) -> (y, new state).  The
+    grouped block tiles x `groups` times and runs the grouped convs (the
+    JAX package's streaming form), not the batch form's weight slices."""
+    act = cfg.act
+    if cfg.grouped:
+        xg = x.repeat(1, cfg.groups, 1)   # (B, G*C, T) channel repeat
+        xg, ns = _resblock_apply(p, xg, dilations=cfg.resblock_dilations[0],
+                                 groups=cfg.groups,
+                                 use_additional=cfg.use_additional_convs,
+                                 act=act, state=state)
+        return causal_conv1d(xg, p["conv_out"]), ns
+    n = len(cfg.resblock_kernel_sizes)
+    cs, ns = 0.0, {"blocks": []}
+    for i in range(n):
+        y, s = _resblock_apply(
+            p["blocks"][i], x, dilations=cfg.resblock_dilations[i],
+            groups=cfg.groups, use_additional=cfg.use_additional_convs,
+            act=act, state=state["blocks"][i])
+        cs = cs + y
+        ns["blocks"].append(s)
+    return cs / n, ns
+
+
+def _fusion_state(batch, cfg: VocoderConfig, channels, dtype, device):
+    if cfg.grouped:
+        return _resblock_state(batch, channels * cfg.groups,
+                               cfg.resblock_kernel_sizes[0],
+                               cfg.resblock_dilations[0],
+                               cfg.use_additional_convs, dtype, device)
+    return {"blocks": [
+        _resblock_state(batch, channels, cfg.resblock_kernel_sizes[i],
+                        cfg.resblock_dilations[i], cfg.use_additional_convs,
+                        dtype, device)
+        for i in range(len(cfg.resblock_kernel_sizes))]}
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +307,52 @@ def vocoder_bct(p, c, cfg: VocoderConfig, fusion: Fusion):
     return torch.tanh(c)
 
 
-def vocoder_apply(p, c, cfg: VocoderConfig):
-    """c: (B, T, in_channels) codes -> (B, T * hop, out_channels)."""
-    return vocoder_bct(p, c.transpose(1, 2), cfg,
-                       _fusion_apply).transpose(1, 2)
+def vocoder_stream_bct(p, c, cfg: VocoderConfig, state):
+    """One streaming step, c: (B, in_channels, k) codes ->
+    ((B, out_channels, k * hop), new state)."""
+    act = cfg.act
+    lrelu = get_activation("LeakyReLU")  # output act is default-slope
+    if cfg.stats and "mean" in p:
+        c = (c - p["mean"][:, None]) / p["scale"][:, None]
+    c, s_in = causal_conv1d(c, p["input_conv"], state=state["input_conv"])
+    ups, blocks = [], []
+    for i, s in enumerate(cfg.upsample_scales):
+        c, su = causal_conv_transpose1d(act(c), p["upsamples"][i], stride=s,
+                                        state=state["upsamples"][i])
+        c, sb = _fusion_stream(p["blocks"][i], c, cfg, state["blocks"][i])
+        ups.append(su)
+        blocks.append(sb)
+    c, s_out = causal_conv1d(lrelu(c), p["output_conv"],
+                             state=state["output_conv"])
+    return torch.tanh(c), {"input_conv": s_in, "upsamples": ups,
+                           "blocks": blocks, "output_conv": s_out}
+
+
+def vocoder_state_init(batch: int, cfg: VocoderConfig, dtype=torch.float32,
+                       device=None) -> dict:
+    n_up = len(cfg.upsample_scales)
+    state = {"input_conv": causal_state_init(batch, cfg.in_channels,
+                                             cfg.kernel_size, 1, dtype,
+                                             device),
+             "upsamples": [], "blocks": [],
+             "output_conv": causal_state_init(
+                 batch, cfg.stage_channels(n_up - 1), cfg.kernel_size, 1,
+                 dtype, device)}
+    for i in range(n_up):
+        state["upsamples"].append(causal_transpose_state_init(
+            batch, cfg.channels // (2 ** i), cfg.upsample_kernel_sizes[i],
+            cfg.upsample_scales[i], dtype, device))
+        state["blocks"].append(_fusion_state(batch, cfg,
+                                             cfg.stage_channels(i), dtype,
+                                             device))
+    return state
+
+
+def vocoder_apply(p, c, cfg: VocoderConfig, state=None):
+    """c: (B, T, in_channels) codes -> (B, T * hop, out_channels); with
+    `state`, (y, new state)."""
+    if state is None:
+        return vocoder_bct(p, c.transpose(1, 2), cfg,
+                           _fusion_apply).transpose(1, 2)
+    y, ns = vocoder_stream_bct(p, c.transpose(1, 2), cfg, state)
+    return y.transpose(1, 2), ns

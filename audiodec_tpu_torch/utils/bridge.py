@@ -13,6 +13,10 @@ orientation, as CPU float32 tensors; the JAX tree holds numpy arrays.
                        (w[k, i, o] = W_torch[i, o, K-1-k])
     reference conv     (O, I, K), reference transposed (I, O, K): as is
     reference embed    (D, N) per quantizer -> (N, D)
+
+Streaming states (`state_from_jax`, `state_to_jax`): the JAX package keeps
+each layer's past inputs as (B, L, C), the port as (B, C, L); the trees
+have the same structure.
 """
 
 from __future__ import annotations
@@ -217,6 +221,19 @@ def vocoder_params_to_jax(params: dict) -> dict:
     return out
 
 
+def state_from_jax(tree):
+    """A JAX streaming state (numpy leaves, (B, L, C)) -> the port's
+    ((B, C, L) CPU float32 tensors)."""
+    return tree_map(lambda a: _tensor(np.transpose(a, (0, 2, 1))), tree)
+
+
+def state_to_jax(tree):
+    """The port's streaming state -> the JAX layout (numpy, (B, L, C))."""
+    return tree_map(
+        lambda t: np.ascontiguousarray(np.transpose(_array(t), (0, 2, 1))),
+        tree)
+
+
 # ---------------------------------------------------------------------------
 # from the reference state dict (as in tests/golden/*.npz `sd__*` keys)
 # ---------------------------------------------------------------------------
@@ -265,6 +282,13 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
                        "bias": _tensor(sd[bn + "bias"]),
                        "mean": _tensor(sd[bn + "running_mean"]),
                        "var": _tensor(sd[bn + "running_var"])}}
+
+    def dec_block(i):
+        # ActivateDecoder wraps each block in Sequential(act, DecoderBlock)
+        return (f"decoder.conv_blocks.{i}.1"
+                if cfg.codec == "activate_audiodec"
+                else f"decoder.conv_blocks.{i}")
+
     def codebooks(name, transpose):
         return _tensor(np.stack([
             np.asarray(sd[f"quantizer.codebook.layers.{q}.{name}"]).T
@@ -285,8 +309,8 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
                       "embed_avg": codebooks("embed_avg", True)},
         "decoder": {
             "conv1": conv("decoder.conv1.conv"),
-            "blocks": [{"conv": conv(f"decoder.conv_blocks.{i}.conv.deconv"),
-                        "res": res(f"decoder.conv_blocks.{i}")}
+            "blocks": [{"conv": conv(f"{dec_block(i)}.conv.deconv"),
+                        "res": res(dec_block(i))}
                        for i in range(len(cfg.dec_strides))],
             "conv2": conv("decoder.conv2.conv"),
         },

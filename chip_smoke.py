@@ -222,6 +222,41 @@ for the RVQ `ops/vq.py rvq_forward_index` on cuBLAS with TF32 off; the
 rate probe has none.  Peaks are the H100 SXM data sheet's,
 at 700 W.
 
+The phases of slice 14, which run no kernel of the port (JAX streams on
+XLA convs and runs its plain path for every config but causal audiodec,
+with no pallas_call; each asserts that every launch count stays 0 but
+where named):
+
+  - stream_golden: gen_symad_trained streamed on the card from the zero
+    state (idx_stream 0 flips, z_stream and zq_stream within rtol 1e-4,
+    atol 1e-4, y_stream and y_hops, one hop per call, within rtol 1e-3,
+    atol 1e-4) and the three vocoder goldens' y_stream and y_hops (rtol
+    1e-3, atol 1e-5);
+  - stream_path: symAD with the trained golden's weights through
+    `streaming.StreamingCodec`, B = 1, 10 s of seeded noise, one hop (300
+    samples) per encode and per decode call, each timed with CUDA events;
+    a line `stream_path {...}` with the card's name and power limit, the
+    encode and decode ms p50 / p99, the hop's 6.25 ms of audio, the
+    real-time factor and the CUDA kernels per hop (torch.profiler over 16
+    hops); the indices against the plain batch encode and against 8-hop
+    chunks (flips at most 0.1%), the waveform against 8-hop chunks' decode
+    of the same indices (rtol 1e-3, atol 1e-4); then B = 16 streams of 2 s,
+    each row's indices against that stream alone at B = 1 (flips at most
+    0.1%);
+  - stream_ad_v1_path: the AD v1 receiver's vocoder at 512 channels
+    (seeded weights, as ad_v1_path) decoding 2 s of the stream's indices
+    one hop per call, a line `stream_ad_v1_path {...}` as above, against
+    4-hop chunks (rtol 1e-3, atol 1e-5, and within 1e-3 of its peak);
+  - variants_path: `BatchTranscoder(stack="folded")`, B = 16 x 10 s,
+    mixed, seeded weights: symAAD (plain, 0 launches), the hop-320
+    16-codebook config (2 tensor-core launches) and symAD's widths in
+    noncausal mode (plain, 0 launches), each with its transcode ms and RTF;
+  - demo_file_path: `bin/demo_file.py main` on the trained golden written
+    as a JAX-format checkpoint under build/chip_smoke_demo_file/ (removed
+    afterwards): a 10 s seeded PCM16 wav to a wav of the same length with
+    --codes-out, then --codes-in; the .adtc's indices equal a
+    StreamingCodec's on the same wav; its bitrate.
+
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
@@ -243,6 +278,7 @@ from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
 from audiodec_tpu_torch.bin import (
     codec_test,
+    demo_file,
     folded_ablate,
     folded_probe,
     fused_probe,
@@ -254,14 +290,21 @@ from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
 from audiodec_tpu_torch.models import fast
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
+    codec_state_init,
+    decoder_stream_bct,
     encoder_apply,
+    encoder_stream_bct,
+    generator_init,
     projector_apply,
+    projector_stream_bct,
 )
 from audiodec_tpu_torch.models.vocoder import (
     VocoderConfig,
     config_from_yaml,
     group_params,
     vocoder_init,
+    vocoder_state_init,
+    vocoder_stream_bct,
 )
 from audiodec_tpu_torch.ops.kernels import (
     _build,
@@ -269,8 +312,10 @@ from audiodec_tpu_torch.ops.kernels import (
     dot_chain,
     folded_stack,
 )
-from audiodec_tpu_torch.data.wav import read_wav_pcm16, write_wav
+from audiodec_tpu_torch.data.wav import read_wav, read_wav_pcm16, write_wav
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
+from audiodec_tpu_torch.streaming import StreamingCodec
+from audiodec_tpu_torch.utils.bitstream import unpack_codes
 from audiodec_tpu_torch.utils.bridge import (
     params_from_reference_sd,
     params_to_jax,
@@ -278,11 +323,16 @@ from audiodec_tpu_torch.utils.bridge import (
     vocoder_params_from_reference_sd,
 )
 from audiodec_tpu_torch.utils.checkpoint import save_checkpoint
+from audiodec_tpu_torch.utils.config import generator_config, load_config
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 SYMAD_YAML = ROOT / "configs" / "autoencoder" / "symAD_vctk_48000_hop300.yaml"
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+DEMO_DIR = ROOT / "build" / "chip_smoke_demo_file"
+SYMAAD_YAML = ROOT / "configs" / "autoencoder" / "symAAD_vctk_48000_hop300.yaml"
+C16_YAML = ROOT / "configs" / "autoencoder" / "symAD_c16_vctk_48000_hop320.yaml"
+STREAM_SECONDS, STREAM_BATCH = 10, 16
 CLI_SECONDS = (10.0, 8.5, 7.0, 5.5, 4.0, 2.0)
 SR = 48000
 BATCH, SECONDS = 16, 10
@@ -2542,6 +2592,410 @@ def phase_profile(path: str, tc, x):
               for e in kernels[:PROFILE_TOP]])
 
 
+# ---------------------------------------------------------------------------
+# slice 14: streaming, demo_file and the batch autoencoder's variants
+# ---------------------------------------------------------------------------
+
+def no_kernel_launches(phase: str):
+    """Streaming and the variants' plain path run no kernel of the port,
+    as JAX's streaming path and plain path run no pallas_call."""
+    launches = read_launches()
+    if launches != launch_counts():
+        raise AssertionError(f"{phase}: kernel launches {launches}, "
+                             f"expected none")
+    return launches
+
+
+def percentiles(ms: list) -> dict:
+    a = np.asarray(ms)
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)),
+            "mean": float(a.mean())}
+
+
+def stream_hops(codec, x, hop: int, chunk: int = 1, decode_only=None):
+    """Stream x (B, n * hop, 1) through `codec`, `chunk` hops per encode
+    and per decode call (or decode the indices `decode_only`), timing each
+    call with CUDA events.  -> (indices, waveform, encode ms per call,
+    decode ms per call, wall seconds)."""
+    n = (x.shape[1] if decode_only is None
+         else decode_only.shape[1] * hop) // (hop * chunk)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+             for _ in range(n)]
+    idxs, ys = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (e0, e1, e2) in enumerate(marks):
+        e0.record()
+        if decode_only is None:
+            idx = codec.encode(x[:, i * chunk * hop:(i + 1) * chunk * hop])
+        else:
+            idx = decode_only[:, i * chunk:(i + 1) * chunk]
+        e1.record()
+        ys.append(codec.decode(idx))
+        e2.record()
+        idxs.append(idx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.cat(idxs, dim=1), torch.cat(ys, dim=1),
+            [e0.elapsed_time(e1) for e0, e1, _ in marks],
+            [e1.elapsed_time(e2) for _, e1, e2 in marks], wall)
+
+
+def launches_per_call(fn, calls: int = 16) -> dict:
+    """Device kernels and copies per call of fn, from torch.profiler over
+    `calls` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+    if kernels == 0:
+        raise AssertionError("the profiler saw no kernel")
+    return {"kernels": kernels / calls, "copies": copies / calls}
+
+
+def flat_offsets(cfg: GeneratorConfig, device):
+    return (torch.arange(cfg.codebook_num, device=device, dtype=torch.int32)
+            * cfg.codebook_size)
+
+
+def phase_stream_golden(device):
+    """gen_symad_trained streamed on the card from the zero state, the
+    whole signal in one call: z_stream and zq_stream within rtol 1e-4,
+    atol 1e-4, idx_stream with 0 flips, y_stream within rtol 1e-3, atol
+    1e-4; y_hops with one hop per StreamingCodec call (same bars); the
+    vocoder goldens' y_stream and y_hops within rtol 1e-3, atol 1e-5."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    data, params = load_golden("gen_symad_trained")
+    p = on_device(params, device)
+    reset_launches()
+    x = torch.from_numpy(data["x"]).to(device)          # (1, 1, T)
+    state = codec_state_init(1, cfg, device=device)
+    with torch.inference_mode():
+        h, _ = encoder_stream_bct(p["encoder"], x, cfg, state["encoder"])
+        z, _ = projector_stream_bct(p["projector"], h, cfg,
+                                    state["projector"])
+        _, idx = rvq_forward_index(z.transpose(1, 2), p["quantizer"],
+                                   flatten=True)
+        zq = rvq_lookup(idx, p["quantizer"], flattened=True)
+        y, _ = decoder_stream_bct(p["decoder"], zq.transpose(1, 2), cfg,
+                                  state["decoder"])
+    flips = int((idx[0].cpu().numpy().T != data["idx_stream"]).sum())
+    if flips:
+        raise AssertionError(f"{flips} index flips against idx_stream")
+    np.testing.assert_allclose(z.cpu().numpy(), data["z_stream"], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(zq.cpu().numpy(), data["zq_stream"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y.cpu().numpy(), data["y_stream"], rtol=1e-3,
+                               atol=1e-4)
+    codec = StreamingCodec(params, cfg, device=device)
+    hop = cfg.hop_length
+    x_hops = x.transpose(1, 2)
+    y_hops = torch.cat([codec.decode(codec.encode(
+        x_hops[:, i * hop:(i + 1) * hop]))
+        for i in range(int(data["n_hops"]))], dim=1)
+    np.testing.assert_allclose(y_hops.cpu().numpy().transpose(0, 2, 1),
+                               data["y_hops"], rtol=1e-3, atol=1e-4)
+    results = {"gen_symad_trained": {
+        "frames": int(idx.shape[1]), "index_flips": flips,
+        "y_stream_max_abs_err": float(np.abs(y.cpu().numpy()
+                                             - data["y_stream"]).max()),
+        "y_hops_max_abs_err": float(np.abs(
+            y_hops.cpu().numpy().transpose(0, 2, 1)
+            - data["y_hops"]).max())}}
+    for name, kw in VOC_GOLDENS.items():
+        vdata = np.load(GOLDEN / f"{name}.npz")
+        sd = {k[len("sd__"):]: vdata[k] for k in vdata.files
+              if k.startswith("sd__")}
+        vcfg = VocoderConfig(**kw)
+        vp = on_device(vocoder_params_from_reference_sd(sd, vcfg), device)
+        c = vdata["zq"] if "zq" in vdata.files else vdata["c"]
+        c = torch.from_numpy(c).to(device)                # (1, C, T')
+        with torch.inference_mode():
+            ys, _ = vocoder_stream_bct(vp, c, vcfg,
+                                       vocoder_state_init(1, vcfg,
+                                                          device=device))
+            st, outs = vocoder_state_init(1, vcfg, device=device), []
+            for i in range(vdata["y_hops"].shape[-1] // vcfg.hop_length):
+                yh, st = vocoder_stream_bct(vp, c[..., i:i + 1], vcfg, st)
+                outs.append(yh)
+        yh = torch.cat(outs, dim=-1).cpu().numpy()
+        np.testing.assert_allclose(ys.cpu().numpy(), vdata["y_stream"],
+                                   rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(yh, vdata["y_hops"], rtol=1e-3,
+                                   atol=1e-5)
+        results[name] = {
+            "y_stream_max_abs_err": float(np.abs(ys.cpu().numpy()
+                                                 - vdata["y_stream"]).max()),
+            "y_hops_max_abs_err": float(np.abs(yh - vdata["y_hops"]).max()),
+            "hops": len(outs)}
+    torch.cuda.synchronize()
+    emit("stream_golden", t0, goldens=results,
+         launches=no_kernel_launches("stream_golden"))
+
+
+def phase_stream_path(device, params, card: str):
+    """symAD with the trained golden's weights through StreamingCodec on the
+    card: B = 1, 10 s of seeded noise, one hop (300 samples) per encode and
+    per decode call; then B = 16 concurrent streams of 2 s."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    hop = cfg.hop_length
+    hop_ms = 1e3 * hop / SR
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    x = 0.3 * torch.randn(1, STREAM_SECONDS * SR, 1, generator=gen,
+                          device=device)
+    reset_launches()
+    codec = StreamingCodec(params, cfg, device=device)
+    codec.warmup()
+    codec.reset()
+    t1 = time.perf_counter()
+    idx, y, enc_ms, dec_ms, wall = stream_hops(codec, x, hop)
+    launches = no_kernel_launches("stream_path")
+    steps = {"b1_stream": time.perf_counter() - t1}
+    t1 = time.perf_counter()
+    hops = idx.shape[1]
+    if (tuple(idx.shape) != (1, STREAM_SECONDS * SR // hop, cfg.codebook_num)
+            or tuple(y.shape) != tuple(x.shape)
+            or not torch.isfinite(y).all()):
+        raise AssertionError(f"stream shapes {tuple(idx.shape)}, "
+                             f"{tuple(y.shape)}")
+
+    # the indices against the port's plain batch encode of the signal
+    batch = BatchTranscoder(params, cfg, stack="plain", device=device)
+    idx_batch = batch.encode(x) + flat_offsets(cfg, device)
+    batch_flips = int((idx_batch != idx).sum())
+    # the hop-by-hop stream against 8-hop chunks, the same indices decoded
+    chunked = StreamingCodec(params, cfg, device=device)
+    idx8, _, enc8_ms, _, _ = stream_hops(chunked, x, hop, chunk=8)
+    chunked.reset()
+    _, y8, _, dec8_ms, _ = stream_hops(chunked, None, hop, chunk=8,
+                                       decode_only=idx)
+    chunk_flips = int((idx8 != idx).sum())
+    np.testing.assert_allclose(y8.cpu().numpy(), y.cpu().numpy(), rtol=1e-3,
+                               atol=1e-4)
+    bar = 1e-3 * idx.numel()
+    if batch_flips > bar or chunk_flips > bar:
+        raise AssertionError(f"stream index flips: {batch_flips} against "
+                             f"the batch encode, {chunk_flips} against 8-hop "
+                             f"chunks, bar {bar:.0f}")
+
+    codec.reset()
+    x1 = x[:, :hop]
+
+    def one_hop():
+        codec.decode(codec.encode(x1))
+
+    t2 = time.perf_counter()
+    per_hop = launches_per_call(one_hop)
+    codec.reset()
+    enc_launches = launches_per_call(lambda: codec.encode(x1))
+    steps["profiles"] = time.perf_counter() - t2
+
+    steps["b1_checks"] = time.perf_counter() - t1
+
+    # B = 16 concurrent streams of 2 s, one hop per call, each row against
+    # that stream alone at B = 1 (in 8-hop chunks, which the B = 1 stream
+    # above equals)
+    t1 = time.perf_counter()
+    xb = 0.3 * torch.randn(STREAM_BATCH, 2 * SR, 1, generator=gen,
+                           device=device)
+    many = StreamingCodec(params, cfg, batch=STREAM_BATCH, device=device)
+    idx_b, _, enc_b_ms, dec_b_ms, wall_b = stream_hops(many, xb, hop)
+    row_flips = []
+    solo = StreamingCodec(params, cfg, device=device)
+    for r in range(STREAM_BATCH):
+        solo.reset()
+        idx_r = torch.cat([solo.encode(xb[r:r + 1, i * 8 * hop:
+                                          (i + 1) * 8 * hop])
+                           for i in range(idx_b.shape[1] // 8)], dim=1)
+        row_flips.append(int((idx_r[0] != idx_b[r]).sum()))
+    if sum(row_flips) > 1e-3 * idx_b.numel():
+        raise AssertionError(f"B = {STREAM_BATCH} rows against their solo "
+                             f"streams: {row_flips} flips")
+    torch.cuda.synchronize()
+    no_kernel_launches("stream_path")
+    steps["b16"] = time.perf_counter() - t1
+
+    enc_p, dec_p = percentiles(enc_ms), percentiles(dec_ms)
+    hop_p = percentiles([a + b for a, b in zip(enc_ms, dec_ms)])
+    summary = {"card": card, "hop_audio_ms": hop_ms,
+               "encode_ms_p50": enc_p["p50"], "encode_ms_p99": enc_p["p99"],
+               "decode_ms_p50": dec_p["p50"], "decode_ms_p99": dec_p["p99"],
+               "rtf": STREAM_SECONDS / wall,
+               "launches_per_hop": per_hop["kernels"],
+               "copies_per_hop": per_hop["copies"]}
+    print("stream_path " + json.dumps(summary), flush=True)
+    emit("stream_path", t0, batch=1, seconds_of_audio=STREAM_SECONDS,
+         hops=hops, hop_audio_ms=hop_ms, encode_ms=enc_p, decode_ms=dec_p,
+         hop_ms=hop_p, wall_seconds=wall, rtf=STREAM_SECONDS / wall,
+         launches_per_hop=per_hop, launches_per_encode=enc_launches,
+         index_flips_vs_batch=batch_flips, index_flips_vs_8_hop_chunks=
+         chunk_flips, indices=int(idx.numel()),
+         chunk8_encode_ms=percentiles(enc8_ms),
+         chunk8_decode_ms=percentiles(dec8_ms),
+         y_vs_8_hop_chunks_max_abs_err=float((y8 - y).abs().max()),
+         batch16={"streams": STREAM_BATCH, "seconds": 2,
+                  "encode_ms": percentiles(enc_b_ms),
+                  "decode_ms": percentiles(dec_b_ms),
+                  "rtf": STREAM_BATCH * 2 / wall_b,
+                  "row_flips_vs_solo": row_flips,
+                  "indices": int(idx_b.numel())},
+         host_seconds=steps, launches=launches)
+    return idx
+
+
+def phase_stream_ad_v1_path(device, params, idx, card: str):
+    """The AD v1 receiver's vocoder at 512 channels (seeded weights, as
+    ad_v1_path) decoding the symAD stream's first 2 s of indices on the
+    card, one hop per call; against 4-hop chunks."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    vcfg = config_from_yaml(AD_V1_VOCODER, stats=True)
+    voc = vocoder_init(vcfg, torch.Generator(device=device).manual_seed(SEED))
+    hop = vcfg.hop_length
+    idx = idx[:, :2 * SR // hop]
+    reset_launches()
+    codec = StreamingCodec(dict(params, vocoder=voc), cfg, voc_cfg=vcfg,
+                           device=device)
+    codec.decode(idx[:, :1])    # warm-up
+    codec.reset()
+    _, y, _, dec_ms, wall = stream_hops(codec, None, hop, decode_only=idx)
+    codec.reset()
+    _, y4, _, dec4_ms, _ = stream_hops(codec, None, hop, chunk=4,
+                                       decode_only=idx)
+    np.testing.assert_allclose(y4.cpu().numpy(), y.cpu().numpy(), rtol=1e-3,
+                               atol=1e-5)
+    # the seeded weights' output is small: hold it to its peak as well
+    if not float((y4 - y).abs().max()) <= 1e-3 * float(y.abs().max()):
+        raise AssertionError("4-hop chunks off the hop-by-hop decode by "
+                             "more than 1e-3 of its peak")
+    if tuple(y.shape) != (1, idx.shape[1] * hop, 1) or not torch.isfinite(
+            y).all():
+        raise AssertionError(f"vocoder stream {tuple(y.shape)}")
+    codec.reset()
+    per_hop = launches_per_call(lambda: codec.decode(idx[:, :1]))
+    torch.cuda.synchronize()
+    launches = no_kernel_launches("stream_ad_v1_path")
+    dec_p = percentiles(dec_ms)
+    summary = {"card": card, "hop_audio_ms": 1e3 * hop / SR,
+               "decode_ms_p50": dec_p["p50"], "decode_ms_p99": dec_p["p99"],
+               "rtf": idx.shape[1] * hop / SR / wall,
+               "launches_per_hop": per_hop["kernels"],
+               "copies_per_hop": per_hop["copies"]}
+    print("stream_ad_v1_path " + json.dumps(summary), flush=True)
+    emit("stream_ad_v1_path", t0, batch=1, hops=int(idx.shape[1]),
+         decode_ms=dec_p, chunk4_decode_ms=percentiles(dec4_ms),
+         wall_seconds=wall, rtf=summary["rtf"], launches_per_hop=per_hop,
+         peak_abs_y=float(y.abs().max()),
+         y_vs_4_hop_chunks_max_abs_err=float((y4 - y).abs().max()),
+         y_vs_4_hop_chunks_rel_err=float((y4 - y).abs().max()
+                                         / y.abs().max()),
+         launches=launches)
+
+
+def phase_variants_path(device):
+    """BatchTranscoder(stack="folded") at B = 16 x 10 s, mixed mode, seeded
+    weights, on configs other than symAD's: symAAD (plain: 0 kernel
+    launches, as in JAX), the hop-320 16-codebook config (its two C = 32
+    stacks through the tensor-core kernel) and symAD's widths in noncausal
+    mode (plain)."""
+    t0 = time.perf_counter()
+    cases = {
+        "symAAD": (generator_config(load_config(str(SYMAAD_YAML))), {}),
+        "c16_hop320": (generator_config(load_config(str(C16_YAML))),
+                       {"mma": 2}),
+        "noncausal": (GeneratorConfig(mode="noncausal"), {}),
+    }
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = 0.3 * torch.randn(BATCH, SECONDS * SR, 1, generator=gen,
+                          device=device)
+    results = {}
+    for name, (cfg, want) in cases.items():
+        params = generator_init(cfg, torch.Generator(
+            device=device).manual_seed(SEED))
+        tc = BatchTranscoder(params, cfg, dtype=torch.float32,
+                             dec_dtype=torch.bfloat16, stack="folded",
+                             device=device)
+        reset_launches()
+        idx, y = tc(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != launch_counts(**want):
+            raise AssertionError(f"{name}: kernel launches {launches}, "
+                                 f"expected {want or 'none'}")
+        check_transcode(idx, y, x, cfg)
+        times = time_transcoder(tc, x, idx)
+        results[name] = {"codec": cfg.codec, "mode": cfg.mode,
+                         "hop": cfg.hop_length,
+                         "codebooks": cfg.codebook_num, **times,
+                         "launches": launches}
+        del tc
+    emit("variants_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
+         configs=results)
+
+
+def phase_demo_file_path(device, params):
+    """bin/demo_file.py on the card: the trained golden as a JAX-format
+    checkpoint beside the symAD config, a 10 s seeded PCM16 wav to a wav of
+    the same length, then --codes-out and --codes-in: the .adtc's indices
+    equal those of a StreamingCodec on the same wav."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    DEMO_DIR.mkdir(parents=True)
+    shutil.copyfile(SYMAD_YAML, DEMO_DIR / "config.yml")
+    ckpt = DEMO_DIR / "checkpoint-golden.ckpt"
+    save_checkpoint(str(ckpt), {"gen": params_to_jax(params)}, 0)
+    n = STREAM_SECONDS * SR
+    rng = np.random.default_rng(SEED)
+    write_wav(str(DEMO_DIR / "in.wav"),
+              np.clip(0.3 * rng.standard_normal((n, 1)), -1, 1)
+              .astype(np.float32), SR)
+    common = ["--encoder", str(ckpt), "--decoder", str(ckpt)]
+    reset_launches()
+    t1 = time.perf_counter()
+    res = demo_file.main(common + ["-i", str(DEMO_DIR / "in.wav"),
+                                   "-o", str(DEMO_DIR / "out.wav"),
+                                   "--codes-out", str(DEMO_DIR / "c.adtc")])
+    wav_seconds = time.perf_counter() - t1
+    res_in = demo_file.main(common + ["--codes-in", str(DEMO_DIR / "c.adtc"),
+                                      "-o", str(DEMO_DIR / "decoded.wav")])
+    launches = no_kernel_launches("demo_file_path")
+    for name, want in (("out.wav", n), ("decoded.wav", n)):
+        got = read_wav_pcm16(str(DEMO_DIR / name))
+        if got is None or got[0].shape != (want, 1) or got[1] != SR:
+            raise AssertionError(f"{name} is not a {want}-sample PCM16 wav")
+        if not np.abs(got[0]).max() > 0:
+            raise AssertionError(f"{name} is silent")
+    raw, info = unpack_codes((DEMO_DIR / "c.adtc").read_bytes())
+    x, _ = read_wav(str(DEMO_DIR / "in.wav"))
+    ref = StreamingCodec(params, cfg, device=device).encode(x[None])
+    streamed = (ref[0] - flat_offsets(cfg, device)).cpu().numpy()
+    if not np.array_equal(raw, streamed):
+        raise AssertionError(f"{int((raw != streamed).sum())} indices of "
+                             f"the .adtc differ from the stream's")
+    size = (DEMO_DIR / "c.adtc").stat().st_size
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    emit("demo_file_path", t0, seconds_of_audio=STREAM_SECONDS,
+         wav_to_wav_seconds=wav_seconds, frames=info["n_frames"],
+         adtc_bytes=size, kbps=res["kbps"], payload_kbps=info["kbps"],
+         codes_in_samples=res_in["samples"], launches=launches)
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -2648,6 +3102,11 @@ def main():
     emit("probe_kernel_rows", t1, int8_tile_mma=tile_rows,
          wide_autoencoder=wide_rows, true_f32_autoencoder=f32_rows,
          int8_stack_at_folds=fold_rows)
+    phase_stream_golden(device)
+    stream_idx = phase_stream_path(device, params, card)
+    phase_stream_ad_v1_path(device, params, stream_idx, card)
+    phase_variants_path(device)
+    phase_demo_file_path(device, params)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
