@@ -132,30 +132,21 @@ def causal_conv_transpose1d(x: torch.Tensor, params: dict, *, stride: int,
 
 
 def noncausal_conv1d(x: torch.Tensor, params: dict, *, stride: int = 1,
-                     dilation: int = 1, groups: int = 1,
-                     padding: int = -1) -> torch.Tensor:
-    """Symmetric-pad conv of x (B, C_in, T); padding (K-1)//2 * d by
-    default, as torch's Conv1d in the reference."""
+                     dilation: int = 1) -> torch.Tensor:
+    """Symmetric-pad conv of x (B, C_in, T), padding (K-1)//2 * d, as
+    torch's Conv1d in the reference."""
     w = params["w"]
-    if padding < 0:
-        padding = (w.shape[-1] - 1) // 2 * dilation
-    return F.conv1d(x, w, params.get("b"), stride=stride, padding=padding,
-                    dilation=dilation, groups=groups)
+    return F.conv1d(x, w, params.get("b"), stride=stride,
+                    padding=(w.shape[-1] - 1) // 2 * dilation,
+                    dilation=dilation)
 
 
 def noncausal_conv_transpose1d(x: torch.Tensor, params: dict, *,
-                               stride: int, padding: int = -1,
-                               output_padding: int = -1) -> torch.Tensor:
-    """Symmetric transposed conv of x (B, C_in, T): the full transposed
-    conv's outputs [padding, len - padding + output_padding), with
-    padding=(s+1)//2 and output_padding=s%2 by default."""
-    if padding < 0:
-        padding = (stride + 1) // 2
-    if output_padding < 0:
-        output_padding = stride % 2
-    # torch's own output_padding must stay below the stride; trimming
-    # padding - output_padding at both ends, then output_padding more on
-    # the left, gives the same outputs at any stride
-    y = F.conv_transpose1d(x, params["w"], params.get("b"), stride=stride,
-                           padding=padding - output_padding)
-    return y[..., output_padding:]
+                               stride: int) -> torch.Tensor:
+    """Symmetric transposed conv of x (B, C_in, T), with the JAX package's
+    padding (s+1)//2 and output_padding s % 2: the full transposed conv's
+    outputs from s//2 + s % 2 up to s//2 before its end."""
+    s = stride
+    y = F.conv_transpose1d(x, params["w"], params.get("b"), stride=s,
+                           padding=s // 2)
+    return y[..., s % 2:]

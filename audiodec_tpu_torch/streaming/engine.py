@@ -8,7 +8,9 @@ JAX package's state pytree; each call replaces the state it holds, with no
 host round trip.  The convs are plain cuDNN convs and the RVQ the plain
 `ops/vq.py`, as JAX streams on XLA convs and its plain RVQ.  A symAD hop
 at B = 1 is about 325 small launches (`chip_smoke.py` stream_path on an
-H100 80GB HBM3 at 700 W), so it is bound by the host's launch rate.
+H100 80GB HBM3 at 700 W); the same hop at B = 16 costs about the same,
+and the device is busy for about a fifth of it, so the host bounds it
+(`chip_smoke.py` stream_path's device_busy_share).
 
 The wire format matches the reference: flattened RVQ indices per hop, layer
 q offset by q * codebook_size (ref: utils/audiodec.py:100-106).
@@ -39,20 +41,13 @@ from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
 from audiodec_tpu_torch.utils.bridge import tree_map
 
 
-def _on_device(params: dict, voc_cfg, dtype, device) -> dict:
-    """The params a stream reads, on `device`: the encoder, projector and
-    decoder or vocoder in `dtype`, the codebooks in float32."""
-    def cast(tree, dt):
-        return tree_map(lambda a: torch.as_tensor(a).to(device, dt), tree)
-
-    out = {"encoder": cast(params["encoder"], dtype),
-           "projector": cast(params["projector"], dtype),
-           "quantizer": cast(params["quantizer"], torch.float32)}
-    if voc_cfg is None:
-        out["decoder"] = cast(params["decoder"], dtype)
-    else:
-        out["vocoder"] = cast(params["vocoder"], dtype)
-    return out
+def _on_device(params: dict, voc_cfg, device) -> dict:
+    """The params a stream reads, in float32 on `device`."""
+    keys = ["encoder", "projector", "quantizer",
+            "decoder" if voc_cfg is None else "vocoder"]
+    return {k: tree_map(lambda a: torch.as_tensor(a).to(device,
+                                                        torch.float32),
+                        params[k]) for k in keys}
 
 
 def _enc_state(batch, cfg, dtype, device) -> dict:
@@ -74,17 +69,16 @@ def _enc_step(params, cfg: GeneratorConfig, state, x, exact_k=None):
                                state["encoder"])
     z, sp = projector_stream_bct(params["projector"], h, cfg,
                                  state["projector"])
-    _, idx = rvq_forward_index(z.transpose(1, 2).float(),
+    _, idx = rvq_forward_index(z.transpose(1, 2),
                                params["quantizer"], flatten=True,
                                exact_k=exact_k)
     return idx, {"encoder": se, "projector": sp}
 
 
-def _dec_step(params, cfg: GeneratorConfig, voc_cfg, state, idx, dtype):
+def _dec_step(params, cfg: GeneratorConfig, voc_cfg, state, idx):
     """One streaming decode step: flattened indices (B, k, Q) ->
     (waveform (B, k * hop, C), new state)."""
-    zq = rvq_lookup(idx, params["quantizer"], flattened=True)
-    zq = zq.to(dtype).transpose(1, 2)
+    zq = rvq_lookup(idx, params["quantizer"], flattened=True).transpose(1, 2)
     if voc_cfg is None:
         y, sd = decoder_stream_bct(params["decoder"], zq, cfg,
                                    state["decoder"])
@@ -99,8 +93,10 @@ class StreamingCodec:
 
     params: generator params (the port's tree), with a "vocoder" entry when
     the receiving side is a HiFiGAN vocoder (voc_cfg given: the AD v1/v2
-    pairing).  dtype: the convs' and the states' dtype (the RVQ runs in
-    float32 whatever it is).
+    pairing).  dtype: the zero states' dtype only, as in the JAX package.
+    The params and the input are float32, so each state is promoted to
+    float32 where the first hop joins it to its input, and the stream
+    computes in float32 whatever dtype is.
 
     precision: "default", or "exact": the RVQ argmin runs the two-pass
     shortlist re-score with `exact_k` candidates (`ops/vq.py
@@ -120,15 +116,15 @@ class StreamingCodec:
             raise ValueError(f"precision must be default|exact, "
                              f"got {precision!r}")
         if precision == "exact" and dtype != torch.float32:
-            raise ValueError("precision='exact' needs dtype=float32 "
-                             "(the encoder must run in f32)")
+            raise ValueError("precision='exact' needs dtype=float32, "
+                             "as in the JAX package")
         self.device = require_device(device)
         self.cfg = cfg
         self.voc_cfg = voc_cfg
         self.batch = batch
         self.dtype = dtype
         self.exact_k = exact_k if precision == "exact" else None
-        self.params = _on_device(params, voc_cfg, dtype, self.device)
+        self.params = _on_device(params, voc_cfg, self.device)
         self.reset()
 
     def reset(self):
@@ -145,41 +141,39 @@ class StreamingCodec:
         hop = self.cfg.hop_length
         for n in (max(1, receptive_length // hop) * hop, hop):
             z = torch.zeros(self.batch, n, self.cfg.input_channels,
-                            dtype=self.dtype, device=self.device)
+                            device=self.device)
             self.decode(self.encode(z))
 
     def encode(self, x) -> torch.Tensor:
         """x: (B, k * hop, C) tensor or array -> flattened indices
         (B, k, Q) int32 on the device."""
-        x = torch.as_tensor(x).to(self.device, self.dtype)
+        x = torch.as_tensor(x).to(self.device, torch.float32)
         with torch.inference_mode():
             idx, self.enc_state = _enc_step(self.params, self.cfg,
                                             self.enc_state, x, self.exact_k)
         return idx
 
     def decode(self, idx) -> torch.Tensor:
-        """Flattened indices (B, k, Q) -> waveform (B, k * hop, C) on the
-        device, in the stream's dtype."""
+        """Flattened indices (B, k, Q) -> float32 waveform (B, k * hop, C)
+        on the device."""
         idx = torch.as_tensor(idx).to(self.device)
         with torch.inference_mode():
             y, self.dec_state = _dec_step(self.params, self.cfg,
-                                          self.voc_cfg, self.dec_state, idx,
-                                          self.dtype)
+                                          self.voc_cfg, self.dec_state, idx)
         return y
 
 
 def scan_streaming_encode(params, cfg: GeneratorConfig, x, exact_k=None,
                           device=None) -> torch.Tensor:
-    """Whole-signal streaming encode, one hop per step from a zero state.
-    x: (B, n_hops * hop, C) -> flattened indices (B, n_hops, Q), on the
-    card unless device="cpu"."""
+    """Whole-signal streaming encode in float32, one hop per step from a
+    zero state.  x: (B, n_hops * hop, C) -> flattened indices
+    (B, n_hops, Q), on the card unless device="cpu"."""
     device = require_device(device)
-    x = torch.as_tensor(x)
+    x = torch.as_tensor(x).to(device, torch.float32)
     b, t, _ = x.shape
     hop = cfg.hop_length
-    p = _on_device(params, None, x.dtype, device)
-    state = _enc_state(b, cfg, x.dtype, device)
-    x = x.to(device)
+    p = _on_device(params, None, device)
+    state = _enc_state(b, cfg, torch.float32, device)
     idxs = []
     with torch.inference_mode():
         for i in range(t // hop):
@@ -197,12 +191,11 @@ def scan_streaming_decode(params, cfg: GeneratorConfig, idx,
     device="cpu"."""
     device = require_device(device)
     idx = torch.as_tensor(idx).to(device)
-    p = _on_device(params, voc_cfg, torch.float32, device)
+    p = _on_device(params, voc_cfg, device)
     state = _dec_state(idx.shape[0], cfg, voc_cfg, torch.float32, device)
     ys = []
     with torch.inference_mode():
         for i in range(idx.shape[1]):
-            y, state = _dec_step(p, cfg, voc_cfg, state, idx[:, i:i + 1],
-                                 torch.float32)
+            y, state = _dec_step(p, cfg, voc_cfg, state, idx[:, i:i + 1])
             ys.append(y)
     return torch.cat(ys, dim=1)

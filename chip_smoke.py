@@ -237,8 +237,9 @@ where named):
     samples) per encode and per decode call, each timed with CUDA events;
     a line `stream_path {...}` with the card's name and power limit, the
     encode and decode ms p50 / p99, the hop's 6.25 ms of audio, the
-    real-time factor and the CUDA kernels per hop (torch.profiler over 16
-    hops); the indices against the plain batch encode and against 8-hop
+    real-time factor, the CUDA kernels per hop and their device ms per hop
+    (torch.profiler over 16 hops), and the device's busy share of a hop
+    (that device ms over the hop's p50); the indices against the plain batch encode and against 8-hop
     chunks (flips at most 0.1%), the waveform against 8-hop chunks' decode
     of the same indices (rtol 1e-3, atol 1e-4); then B = 16 streams of 2 s,
     each row's indices against that stream alone at B = 1 (flips at most
@@ -2643,8 +2644,10 @@ def stream_hops(codec, x, hop: int, chunk: int = 1, decode_only=None):
 
 
 def launches_per_call(fn, calls: int = 16) -> dict:
-    """Device kernels and copies per call of fn, from torch.profiler over
-    `calls` calls after one warm-up call."""
+    """Device kernels and copies per call of fn, and the device time they
+    take per call (summed over kernels and copies, one stream, so nothing
+    overlaps), from torch.profiler over `calls` calls after one warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2653,16 +2656,19 @@ def launches_per_call(fn, calls: int = 16) -> dict:
             fn()
         torch.cuda.synchronize()
     kernels = copies = 0
+    device_us = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        device_us += e.self_device_time_total
         if e.key.startswith(("Memcpy", "Memset")):
             copies += e.count
         else:
             kernels += e.count
-    if kernels == 0:
+    if kernels == 0 or device_us <= 0:
         raise AssertionError("the profiler saw no kernel")
-    return {"kernels": kernels / calls, "copies": copies / calls}
+    return {"kernels": kernels / calls, "copies": copies / calls,
+            "device_ms": device_us / 1e3 / calls}
 
 
 def flat_offsets(cfg: GeneratorConfig, device):
@@ -2837,7 +2843,9 @@ def phase_stream_path(device, params, card: str):
                "decode_ms_p50": dec_p["p50"], "decode_ms_p99": dec_p["p99"],
                "rtf": STREAM_SECONDS / wall,
                "launches_per_hop": per_hop["kernels"],
-               "copies_per_hop": per_hop["copies"]}
+               "copies_per_hop": per_hop["copies"],
+               "device_ms_per_hop": per_hop["device_ms"],
+               "device_busy_share": per_hop["device_ms"] / hop_p["p50"]}
     print("stream_path " + json.dumps(summary), flush=True)
     emit("stream_path", t0, batch=1, seconds_of_audio=STREAM_SECONDS,
          hops=hops, hop_audio_ms=hop_ms, encode_ms=enc_p, decode_ms=dec_p,
@@ -2895,7 +2903,9 @@ def phase_stream_ad_v1_path(device, params, idx, card: str):
                "decode_ms_p50": dec_p["p50"], "decode_ms_p99": dec_p["p99"],
                "rtf": idx.shape[1] * hop / SR / wall,
                "launches_per_hop": per_hop["kernels"],
-               "copies_per_hop": per_hop["copies"]}
+               "copies_per_hop": per_hop["copies"],
+               "device_ms_per_hop": per_hop["device_ms"],
+               "device_busy_share": per_hop["device_ms"] / dec_p["p50"]}
     print("stream_ad_v1_path " + json.dumps(summary), flush=True)
     emit("stream_ad_v1_path", t0, batch=1, hops=int(idx.shape[1]),
          decode_ms=dec_p, chunk4_decode_ms=percentiles(dec4_ms),

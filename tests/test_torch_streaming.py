@@ -338,6 +338,33 @@ def test_stream_conv_matches_jax(k, d, s):
             assert state is before
 
 
+def test_bf16_stream_matches_jax(small):
+    """StreamingCodec(dtype=bfloat16) at gen_small width against JAX's:
+    dtype sets only the zero states, which the first hop promotes to
+    float32, so over three hops the indices equal, the waveforms agree
+    within rtol 1e-4, atol 1e-6, and every state ends in float32."""
+    from audiodec_tpu.streaming import StreamingCodec as JaxStreamingCodec
+
+    jcfg, jparams, cfg, params = small
+    hop = cfg.hop_length
+    x = _noise(4, (1, 3 * hop, 1))
+    jcodec = JaxStreamingCodec(jparams, jcfg, dtype=jnp.bfloat16)
+    codec = StreamingCodec(params, cfg, dtype=torch.bfloat16, device="cpu")
+    assert all(s.dtype == torch.bfloat16 for s in _leaves(codec.enc_state))
+    for i in range(3):
+        chunk = x[:, i * hop:(i + 1) * hop]
+        jidx = jcodec.encode(jnp.asarray(chunk))
+        jy = jcodec.decode(jidx)
+        idx = codec.encode(chunk)
+        y = codec.decode(idx)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        assert y.dtype == torch.float32
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4,
+                                   atol=1e-6)
+    for s in (*_leaves(codec.enc_state), *_leaves(codec.dec_state)):
+        assert s.dtype == torch.float32
+
+
 # ---------------------------------------------------------------------------
 # the engine's identities (tests/test_streaming.py on the port)
 # ---------------------------------------------------------------------------
