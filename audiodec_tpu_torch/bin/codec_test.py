@@ -18,9 +18,10 @@ The last line printed is the JAX CLI's JSON summary (`utterances`,
 `audio_seconds`, `wall_seconds`, `rtf`, `hosts`).
 
 `--stack folded` (the default) equals JAX `--stack folded`; `--stack
-plain` equals JAX `--stack xla --encode-fold off --decode-fold off`.  The
-mesh and multi-host options, the batch folds and `--profile` are not
-ported.
+plain` equals JAX `--stack xla`, with the batch folds (`--encode-fold`,
+`--decode-fold`, models/fast.py) on by the same rules.  `--profile DIR`
+writes a torch.profiler trace of the transcode loop.  The mesh and
+multi-host options are not ported.
 """
 
 from __future__ import annotations
@@ -54,8 +55,11 @@ from audiodec_tpu_torch.models.autoencoder import (
     projector_apply,
 )
 from audiodec_tpu_torch.models.fast import (
+    decoder_apply_batchfold,
     decoder_apply_folded,
+    encoder_apply_batchfold,
     encoder_apply_folded,
+    vocoder_apply_batchfold,
     vocoder_apply_folded,
 )
 from audiodec_tpu_torch.models.vocoder import vocoder_apply
@@ -70,6 +74,7 @@ from audiodec_tpu_torch.utils.config import (
     generator_config,
     load_config_near_checkpoint,
 )
+from audiodec_tpu_torch.utils.profiling import device_trace
 
 
 def require_device(device=None) -> torch.device:
@@ -181,6 +186,12 @@ def bucket_batches(dataset, batch_size: int, chunk: int, prefetch: int = 2,
 # the transcoder
 # ---------------------------------------------------------------------------
 
+def _fold_arg(v):
+    """A fold flag as models/fast.py's fold= argument.  Identity checks:
+    an explicit factor of 1 (== True) means "direct", not auto."""
+    return None if (v is None or v is True) else v
+
+
 def _pcm16(y: torch.Tensor) -> torch.Tensor:
     """PCM16 on the device, as write_wav quantizes on the host: scale 2^15,
     round half away from zero (exact in f32), clip."""
@@ -209,12 +220,20 @@ class BatchTranscoder:
     pcm16: decode returns int16 PCM, quantized on the device.
     exact_k: the RVQ argmin runs `vq_nearest_2pass` with this shortlist.
     An int16 batch is read as PCM16 and normalized by 1/32768 on the
-    device, which equals the float read exactly."""
+    device, which equals the float read exactly.
+    encode_fold / decode_fold: the batch folds of models/fast.py, as JAX's
+    (None = auto, False = off, an int = that fold).  Off unless the stack
+    is "plain"; the decode folds only a bf16 decoder or vocoder; the
+    encode fold takes the causal audiodec codec.  The JAX package turns
+    the encode fold off under a raised encoder precision; the port's
+    encoder is always true f32, so its exact and highest CLIs pass
+    encode_fold=False.  `fold_policy` says what was taken."""
 
     def __init__(self, params: dict, cfg: GeneratorConfig, *, voc=None,
                  dtype=torch.float32, dec_dtype=None, stack: str = "folded",
                  bf16_dots: bool = True, pcm16: bool = False,
-                 int8_decode: bool = False, exact_k=None, device=None):
+                 int8_decode: bool = False, exact_k=None,
+                 encode_fold=None, decode_fold=None, device=None):
         if stack not in ("folded", "plain"):
             raise ValueError(f"stack must be 'folded' or 'plain', got "
                              f"{stack!r}")
@@ -233,18 +252,34 @@ class BatchTranscoder:
                 + "; running the non-int8 decoder instead")
             int8_decode = False
         self.int8_decode = int8_decode
+        # the fold rules of JAX's codec_test.py:210-246, after the int8
+        # downgrade above, so that a downgraded decode folds when it may
+        causal_ad = cfg.mode == "causal" and cfg.codec == "audiodec"
+        bf16_dec = self.dec_dtype == torch.bfloat16
+        dec_fold = (decode_fold is not False and voc is None
+                    and not int8_decode and stack != "folded" and bf16_dec
+                    and causal_ad)
+        voc_fold = (decode_fold is not False and voc is not None
+                    and not int8_decode and stack != "folded" and bf16_dec
+                    and getattr(voc[1], "mode", "causal") == "causal")
+        enc_fold = (encode_fold is not False and stack != "folded"
+                    and causal_ad)
+        self.fold_policy = {"enc_fold": enc_fold,
+                            "dec_fold": dec_fold or voc_fold,
+                            "int8_decode": int8_decode}
         # the folded stacks take the causal audiodec codec only; any other
         # config runs the plain encoder and decoder, as in JAX
         # (codec_test.py:226-227)
-        use_folded = (stack == "folded" and cfg.mode == "causal"
-                      and cfg.codec == "audiodec")
-        if use_folded:
+        if stack == "folded" and causal_ad:
             self.enc_apply = partial(encoder_apply_folded,
                                      bf16_dots=bf16_dots)
             self.dec_apply = partial(decoder_apply_folded,
                                      bf16_dots=bf16_dots)
         else:
             self.enc_apply, self.dec_apply = encoder_apply, decoder_apply
+        if enc_fold:
+            self.enc_apply = partial(encoder_apply_batchfold,
+                                     fold=_fold_arg(encode_fold))
         voc_apply = (partial(vocoder_apply_folded, bf16_dots=bf16_dots)
                      if stack == "folded" else vocoder_apply)
         if int8_decode:
@@ -255,6 +290,13 @@ class BatchTranscoder:
         self.dec_cfg = cfg if voc is None else voc[1]
         if voc is not None:
             self.dec_apply = voc_apply
+        if dec_fold:
+            # decode_batchfold, whose RVQ lookup decode() makes
+            self.dec_apply = partial(decoder_apply_batchfold,
+                                     fold=_fold_arg(decode_fold))
+        elif voc_fold:
+            self.dec_apply = partial(vocoder_apply_batchfold,
+                                     fold=_fold_arg(decode_fold))
 
         def on_device(tree, dt):
             return tree_map(lambda a: a.to(self.device, dt), tree)
@@ -344,14 +386,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--stack", default="folded", choices=["folded", "plain"],
                    help="folded: residual stacks in the CUDA kernels where "
                         "the JAX package uses its folded kernel (JAX "
-                        "--stack folded); plain: cuDNN convs throughout "
-                        "(JAX --stack xla with the batch folds off)")
+                        "--stack folded); plain: cuDNN convs throughout, "
+                        "with the batch folds (JAX --stack xla)")
     p.add_argument("--precision", default="default",
                    choices=["default", "exact", "highest"],
                    help="exact: the RVQ argmin runs the two-pass shortlist "
                         "re-score (--exact-k); highest: --stack plain.  "
+                        "Both run the direct encoder (--encode-fold off).  "
                         "TF32 is off either way, so every f32 product is "
                         "true f32")
+    p.add_argument("--encode-fold", default="auto",
+                   help="with --stack plain: the encoder with the time axis "
+                        "folded into the batch (models/fast.py): 'auto' "
+                        "(default), 'off', or a fold factor")
+    p.add_argument("--decode-fold", default="auto",
+                   help="with --stack plain and a bf16 decoder or vocoder "
+                        "(--dtype mixed or bfloat16): the decode folded the "
+                        "same way: 'auto' (default), 'off', or a factor")
     p.add_argument("--exact-k", type=int, default=16,
                    help="two-pass argmin shortlist size for --precision "
                         "exact")
@@ -364,9 +415,45 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--inflight", type=int, default=2,
                    help="batches queued on the device before the oldest is "
                         "fetched; 1 = synchronous")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace of the transcode loop "
+                        "into this directory")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p
+
+
+def _parse_fold(v: str):
+    """A --encode-fold / --decode-fold value: 'auto' -> None, 'off' ->
+    False, else the int."""
+    return None if v == "auto" else False if v == "off" else int(v)
+
+
+def transcoder_options(args, parser) -> dict:
+    """BatchTranscoder's keyword arguments from the codec flags that
+    codec_test and codec_serve share (--dtype, --stack, --precision,
+    --exact-k, --encode-fold, --decode-fold).  exact and highest run the
+    direct encoder (JAX turns the encode fold off with its raised encoder
+    precision; the port's encoder is always true f32)."""
+    stack, exact_k = args.stack, None
+    encode_fold = _parse_fold(args.encode_fold)
+    if args.precision == "highest":
+        stack = "plain"
+    elif args.precision == "exact":
+        if args.dtype == "bfloat16":
+            parser.error("--precision exact needs an f32 encoder (not "
+                         "--dtype bfloat16)")
+        exact_k = args.exact_k
+    if args.precision != "default":
+        encode_fold = False
+    return {"dtype": (torch.bfloat16 if args.dtype == "bfloat16"
+                      else torch.float32),
+            "dec_dtype": (torch.bfloat16
+                          if args.dtype in ("mixed", "int8-decode")
+                          else None),
+            "stack": stack, "int8_decode": args.dtype == "int8-decode",
+            "exact_k": exact_k, "encode_fold": encode_fold,
+            "decode_fold": _parse_fold(args.decode_fold)}
 
 
 def main(argv=None) -> dict:
@@ -375,22 +462,9 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    stack, exact_k = args.stack, None
-    if args.precision == "highest":
-        stack = "plain"
-    elif args.precision == "exact":
-        if args.dtype == "bfloat16":
-            parser.error("--precision exact needs an f32 encoder "
-                         "(--dtype float32, mixed, or int8-decode)")
-        exact_k = args.exact_k
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    dec_dtype = (torch.bfloat16 if args.dtype in ("mixed", "int8-decode")
-                 else None)
     transcoder, config = load_codec(
-        args.encoder, args.decoder, dtype=dtype, stack=stack,
-        dec_dtype=dec_dtype, pcm16=not args.float_out,
-        int8_decode=args.dtype == "int8-decode", exact_k=exact_k,
-        device=args.device)
+        args.encoder, args.decoder, pcm16=not args.float_out,
+        device=args.device, **transcoder_options(args, parser))
     sr = config.get("sampling_rate", 48000)
 
     data_path = args.data_path or os.path.join(
@@ -408,7 +482,8 @@ def main(argv=None) -> dict:
     inflight: deque = deque()
     writes = []
     total_audio, n_utts = 0.0, 0
-    with ThreadPoolExecutor(max_workers=2) as writer:
+    with ThreadPoolExecutor(max_workers=2) as writer, \
+            device_trace(args.profile, transcoder.device):
         def drain_one():
             uids, lens, batch_t, t_disp, y = inflight.popleft()
             y_np = y.cpu().numpy()

@@ -3,22 +3,36 @@ audiodec_tpu/models/fast.py: `_use_folded`, `res_stack_auto` with its int8
 branch, `encoder_apply_folded`, `decoder_apply_folded`, and the vocoder fast
 path
 `_voc_resblock_params`, `_voc_use_folded`, `_voc_resblock_folded`,
-`_voc_fusion_auto`, `vocoder_apply_folded`).
+`_voc_fusion_auto`, `vocoder_apply_folded`; and the batch folds
+`batchfold_auto`, `_apply_batchfold_frames`, `decoder_apply_batchfold`,
+`vocoder_fold_from_auto`, `vocoder_apply_batchfold`, `encoder_unfold_auto`,
+`decoder_fold_from_auto`, `encoder_apply_batchfold`, `decode_batchfold`,
+`_decoder_direct`).
 
 The stacks and resblocks that the JAX package sends to its folded kernel go
 to the CUDA kernels; the rest stay plain cuDNN convs.  With int8=True every
-decoder stack, of any width, goes to the kernel's int8 mode.  The batch-fold
-paths wait for a later slice.
+decoder stack, of any width, goes to the kernel's int8 mode.
+
+The batch folds cut each utterance's time axis into F chunks, each with a
+left halo of real context (parallel/codec.py), and run them as F times the
+batch on the plain convs: JAX's default `stack="xla"` route, which launches
+no kernel of the port.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from functools import partial
 
+import torch
+import torch.nn.functional as F
+
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
+    decoder_apply,
     decoder_bct,
+    encoder_apply,
     encoder_bct,
     res_stack_plain,
 )
@@ -26,11 +40,20 @@ from audiodec_tpu_torch.models.vocoder import (
     VocoderConfig,
     _fusion_apply,
     fusion_bct,
+    vocoder_apply,
     vocoder_bct,
 )
+from audiodec_tpu_torch.ops.activations import get_activation
+from audiodec_tpu_torch.ops.conv import causal_conv1d, causal_conv_transpose1d
 from audiodec_tpu_torch.ops.kernels.folded_stack import (
     folded_residual_stack,
     res_stack_params,
+)
+from audiodec_tpu_torch.ops.vq import rvq_lookup
+from audiodec_tpu_torch.parallel.codec import (
+    decoder_halo_frames,
+    encoder_halo_samples,
+    vocoder_halo_frames,
 )
 
 
@@ -155,3 +178,244 @@ def vocoder_apply_folded(p, c, cfg: VocoderConfig, bf16_dots: bool = True):
     the kernel.  c: (B, T, D) codes -> (B, T * hop, out_channels)."""
     fusion = partial(_voc_fusion_auto, bf16_dots=bf16_dots)
     return vocoder_bct(p, c.transpose(1, 2), cfg, fusion).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# batch folds: the time axis folded into the batch (plain convs)
+# ---------------------------------------------------------------------------
+
+def batchfold_auto(n_frames: int, target_chunk: int = 200,
+                   max_fold: int = 8) -> int:
+    """The fold factor for an n_frames-long code sequence, as JAX picks it:
+    the largest power of two up to max_fold that keeps chunks of at least
+    target_chunk frames."""
+    f = 1
+    while f * 2 <= max_fold and n_frames // (f * 2) >= target_chunk:
+        f *= 2
+    return f
+
+
+def _fold(x, h: int, f: int, unit: int = 1):
+    """(B, C, T) -> (B*F, C, T'/F + h) chunks, T' = T zero-padded at the
+    end to a multiple of f * unit; each chunk carries the h steps before it
+    (zeros before the first)."""
+    b, c, t = x.shape
+    pad = (-t) % (f * unit)
+    xp = F.pad(x, (h, pad))
+    tc = (t + pad) // f
+    chunks = torch.stack([xp[..., i * tc:i * tc + tc + h] for i in range(f)],
+                         dim=1)
+    return chunks.reshape(b * f, c, tc + h)
+
+
+def _unfold(y, b: int, h: int):
+    """(B*F, C, h + L) chunks -> (B, C, F*L): each chunk's first h steps
+    dropped, the chunks joined in time."""
+    y = y[..., h:]
+    bf, c, n = y.shape
+    return (y.reshape(b, bf // b, c, n).permute(0, 2, 1, 3)
+            .reshape(b, c, bf // b * n))
+
+
+def _apply_batchfold_frames(apply_fn, z, h: int, hop: int, f: int,
+                            head_patch: bool = True):
+    """Frame-level fold of an upsampling decoder or vocoder, in the
+    package's layout: z (B, D, n) -> chunks (B*F, D, n/F + h) with an
+    h-frame halo of real context, one apply_fn at the folded batch, the
+    halo's h*hop output samples dropped and the chunks joined, trimmed to
+    n*hop.
+
+    The batch transposed conv left-pads by replicating the first frame,
+    which a zero halo cannot reproduce, so the first h*hop samples are
+    decoded again directly from the first min(2h, n) frames and written
+    over the head of a new tensor (head_patch=False leaves them as the
+    zero halo decodes them)."""
+    b, _, n = z.shape
+    y = _unfold(apply_fn(_fold(z, h, f)), b, h * hop)[..., :n * hop]
+    if not head_patch:
+        return y
+    head = apply_fn(z[..., :min(2 * h, n)])[..., :h * hop]
+    return torch.cat([head, y[..., head.shape[-1]:]], dim=-1)
+
+
+def decoder_apply_batchfold(p, zq, cfg: GeneratorConfig, *, fold=None,
+                            head_patch: bool = True, fold_from="auto"):
+    """Decoder with the code-frame axis folded into the batch.
+    zq (B, n, D) -> (B, n * hop, C_out).
+
+    fold: None picks `batchfold_auto(n)`; 1 or less runs the direct
+    decoder.  fold_from: run conv1 and the first `fold_from` blocks
+    directly and fold only the rest, with the halo of those stages
+    (`decoder_halo_frames(from_stage=)`); "auto" is
+    `decoder_fold_from_auto`, None or 0 folds the whole decoder.  The fold
+    changes the conv shapes, so in bf16 its output differs from the direct
+    decoder's within bf16 rounding (JAX: for bf16-class decoders only)."""
+    f = batchfold_auto(zq.shape[1]) if fold is None else fold
+    if f <= 1:
+        return _decoder_direct(p, zq, cfg)
+    if fold_from == "auto":
+        fold_from = decoder_fold_from_auto(cfg)
+    z = zq.transpose(1, 2)
+    if not fold_from:
+        def whole(zc):
+            return decoder_apply(p, zc.transpose(1, 2), cfg).transpose(1, 2)
+
+        return _apply_batchfold_frames(
+            whole, z, decoder_halo_frames(cfg), cfg.hop_length, f,
+            head_patch=head_patch).transpose(1, 2)
+
+    x = causal_conv1d(z, p["conv1"])
+    for i in range(fold_from):
+        bp = p["blocks"][i]
+        x = causal_conv_transpose1d(x, bp["conv"],
+                                    stride=cfg.dec_strides[i])
+        x = res_stack_plain(x, bp, cfg)
+
+    def tail(y):
+        for i in range(fold_from, len(cfg.dec_strides)):
+            bp = p["blocks"][i]
+            y = causal_conv_transpose1d(y, bp["conv"],
+                                        stride=cfg.dec_strides[i])
+            y = res_stack_plain(y, bp, cfg)
+        return causal_conv1d(y, p["conv2"])
+
+    tail_hop = math.prod(cfg.dec_strides[fold_from:])
+    h = decoder_halo_frames(cfg, from_stage=fold_from)
+    return _apply_batchfold_frames(tail, x, h, tail_hop, f,
+                                   head_patch=head_patch).transpose(1, 2)
+
+
+def vocoder_fold_from_auto(cfg: VocoderConfig) -> int:
+    """First upsample stage whose output channels drop below 128."""
+    for i in range(len(cfg.upsample_scales)):
+        if cfg.stage_channels(i) < 128:
+            return i
+    return 0
+
+
+def vocoder_apply_batchfold(p, zq, voc_cfg: VocoderConfig, *, fold=None,
+                            head_patch: bool = True, fold_from="auto"):
+    """HiFiGAN vocoder with the code-frame axis folded into the batch, the
+    AD v1/v2 receiver's counterpart of `decoder_apply_batchfold`.
+    zq (B, n, D) -> (B, n * hop, out_channels).  fold_from: the early
+    stages (input normalization, input conv, the first `fold_from`
+    upsample stages) run directly, the rest folded with their own halo;
+    "auto" is `vocoder_fold_from_auto`, None or 0 folds the whole
+    vocoder."""
+    f = batchfold_auto(zq.shape[1]) if fold is None else fold
+    if f <= 1:
+        return vocoder_apply(p, zq, voc_cfg)
+    if fold_from == "auto":
+        fold_from = vocoder_fold_from_auto(voc_cfg)
+    z = zq.transpose(1, 2)
+    if not fold_from:
+        def whole(zc):
+            return vocoder_apply(p, zc.transpose(1, 2),
+                                 voc_cfg).transpose(1, 2)
+
+        return _apply_batchfold_frames(
+            whole, z, vocoder_halo_frames(voc_cfg), voc_cfg.hop_length, f,
+            head_patch=head_patch).transpose(1, 2)
+
+    act = voc_cfg.act
+    lrelu = get_activation("LeakyReLU")  # the output act is default-slope
+    c = z
+    if voc_cfg.stats and "mean" in p:
+        c = (c - p["mean"][:, None]) / p["scale"][:, None]
+    c = causal_conv1d(c, p["input_conv"])
+    for i in range(fold_from):
+        c = causal_conv_transpose1d(act(c), p["upsamples"][i],
+                                    stride=voc_cfg.upsample_scales[i])
+        c = _fusion_apply(p["blocks"][i], c, voc_cfg)
+
+    def tail(y):
+        for i in range(fold_from, len(voc_cfg.upsample_scales)):
+            y = causal_conv_transpose1d(act(y), p["upsamples"][i],
+                                        stride=voc_cfg.upsample_scales[i])
+            y = _fusion_apply(p["blocks"][i], y, voc_cfg)
+        return torch.tanh(causal_conv1d(lrelu(y), p["output_conv"]))
+
+    tail_hop = math.prod(voc_cfg.upsample_scales[fold_from:])
+    h = vocoder_halo_frames(voc_cfg, from_stage=fold_from)
+    return _apply_batchfold_frames(tail, c, h, tail_hop, f,
+                                   head_patch=head_patch).transpose(1, 2)
+
+
+def encoder_unfold_auto(cfg: GeneratorConfig) -> int:
+    """First encoder block whose residual stack reaches C >= 128; a partial
+    encoder fold unfolds before it."""
+    c = cfg.encode_channels
+    for i in range(len(cfg.enc_strides)):
+        if c >= 128:
+            return i
+        c = cfg.encode_channels * cfg.enc_ratios[i]
+    return len(cfg.enc_strides)
+
+
+def decoder_fold_from_auto(cfg: GeneratorConfig) -> int:
+    """First decoder block whose residual stack drops below C = 128; the
+    late fold starts there."""
+    n = len(cfg.dec_strides)
+    for i in range(n):
+        c = (cfg.decode_channels * cfg.dec_ratios[i + 1]
+             if i + 1 < len(cfg.dec_ratios) else cfg.decode_channels)
+        if c < 128:
+            return i
+    return 0
+
+
+def encoder_apply_batchfold(p, x, cfg: GeneratorConfig, *, fold=None,
+                            unfold_after="auto"):
+    """Encoder with the waveform's time axis folded into the batch.
+    x (B, T, C) -> (B, T / hop, C_enc); run the projector and RVQ on it.
+
+    Each chunk carries an `encoder_halo_samples` left halo (hop-aligned, so
+    every frame keeps its stride phase).  The encoder has no transposed
+    conv, so chunk 0's zero halo is the batch path's zero padding and no
+    head patch is needed.  fold: None picks `batchfold_auto(T / hop)`; 1
+    or less runs the direct encoder.  unfold_after: run conv0 and the first
+    `unfold_after` blocks folded, then drop each chunk's halo at that rate,
+    join the chunks and run the deeper blocks directly; "auto" is
+    `encoder_unfold_auto`, None folds the whole encoder."""
+    b, t, _ = x.shape
+    hop = cfg.hop_length
+    n = t // hop
+    f = batchfold_auto(n) if fold is None else fold
+    if f <= 1:
+        return encoder_apply(p, x, cfg)
+    if unfold_after == "auto":
+        unfold_after = encoder_unfold_auto(cfg)
+    n_blocks = len(cfg.enc_strides)
+    u = n_blocks if unfold_after is None else min(unfold_after, n_blocks)
+    h = (encoder_halo_samples(cfg) if u == n_blocks
+         else encoder_halo_samples(cfg, through_blocks=u))
+    chunks = _fold(x.transpose(1, 2), h, f, hop)
+    if u == n_blocks:
+        hh = encoder_apply(p, chunks.transpose(1, 2), cfg).transpose(1, 2)
+        return _unfold(hh, b, h // hop)[..., :n].transpose(1, 2)
+
+    y = causal_conv1d(chunks, p["conv"])
+    h_rate = h
+    for i in range(u):
+        bp = p["blocks"][i]
+        y = causal_conv1d(res_stack_plain(y, bp, cfg), bp["conv"],
+                          stride=cfg.enc_strides[i])
+        h_rate //= cfg.enc_strides[i]
+    y = _unfold(y, b, h_rate)
+    for i in range(u, n_blocks):
+        bp = p["blocks"][i]
+        y = causal_conv1d(res_stack_plain(y, bp, cfg), bp["conv"],
+                          stride=cfg.enc_strides[i])
+    return y[..., :n].transpose(1, 2)
+
+
+def decode_batchfold(dec_params, q_params, idx, cfg: GeneratorConfig, *,
+                     dec_dtype=torch.bfloat16, fold=None):
+    """Indices (B, n, Q) -> waveform: one RVQ lookup, cast to dec_dtype,
+    then `decoder_apply_batchfold`."""
+    zq = rvq_lookup(idx, q_params).to(dec_dtype)
+    return decoder_apply_batchfold(dec_params, zq, cfg, fold=fold)
+
+
+def _decoder_direct(p, zq, cfg: GeneratorConfig):
+    return decoder_apply(p, zq, cfg)

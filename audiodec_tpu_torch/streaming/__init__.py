@@ -3,3 +3,7 @@ from audiodec_tpu_torch.streaming.engine import (  # noqa: F401
     scan_streaming_decode,
     scan_streaming_encode,
 )
+from audiodec_tpu_torch.streaming.streamer import (  # noqa: F401
+    DeviceStreamer,
+    SimulatedStreamer,
+)

@@ -258,14 +258,53 @@ where named):
     --codes-out, then --codes-in; the .adtc's indices equal a
     StreamingCodec's on the same wav; its bitrate.
 
+The phases of slice 15, the serving surface, each with a line
+`<phase> {...}` that carries the card's name and power limit:
+
+  - batchfold_path: `bench.py`'s workload (symAD with the trained golden's
+    weights, B = 16 x 10 s, mixed) on `stack="plain"`, JAX's `--stack
+    xla` route, with the batch folds at auto (fold 8, unfold_after and
+    fold_from 2) against the folds off, in turns (fold, off, off, fold):
+    the medians of encode, decode and transcode; at most 20 of 204800
+    index flips and the bf16 decode fold within a relative L2 of 1e-2 of
+    the direct bf16 decode (and its PCM16 difference); the same for the
+    AD v1 receiver through vocoder_apply_batchfold; `--precision exact`
+    turns the encode fold off; no kernel launched;
+  - serve_path: `bin/codec_serve.py main` on the trained golden as a
+    JAX-format checkpoint under build/chip_smoke_serve/ (removed
+    afterwards), 24 seeded PCM16 wavs of 2-10 s and three bad inputs
+    (unreadable, 16 kHz, stereo in a mono batch) on stdin, `--dtype mixed
+    --batch-size 8`, the default stack and warmup: an output of each good
+    file's length, one JSON error line per bad input, 2 launches of the
+    tensor-core kernel per transcode (warmup included) and no other;
+    against `codec_test.main` on the same files (which pads each batch to
+    its longest file, not to 10 s: cuDNN picks the bf16 decoder's
+    algorithms by shape, so relative L2 1e-2 there) and, fed codec_test's
+    batches in its order with `--warmup-seconds 0` (the same shapes),
+    within 1 LSB, each with the count of byte-identical files; the warmup
+    time, `batch_rtf`, files
+    per second and the time from the first job to the last line; then
+    `--watch` with a `.stop` file on 4 of the files;
+  - stream_tools_path: `SimulatedStreamer` on 10 s in 8-hop frames,
+    bit-equal to a StreamingCodec fed the same frames; at real-time pace
+    in 1-hop frames for 3 s (drops and latency, no bar);
+    `CodecTransmitter` and `CodecReceiver` over a socketpair in two
+    threads, bit-equal to a direct decode of the same indices;
+    `DeviceStreamer` on a stand-in audio driver for 1 s; no kernel
+    launched.
+
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
 
+import contextlib
+import io
 import json
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -278,6 +317,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
 from audiodec_tpu_torch.bin import (
+    codec_serve,
     codec_test,
     demo_file,
     folded_ablate,
@@ -313,9 +353,15 @@ from audiodec_tpu_torch.ops.kernels import (
     dot_chain,
     folded_stack,
 )
+from audiodec_tpu_torch.data.dataset import SingleDataset
 from audiodec_tpu_torch.data.wav import read_wav, read_wav_pcm16, write_wav
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
-from audiodec_tpu_torch.streaming import StreamingCodec
+from audiodec_tpu_torch.streaming import (
+    DeviceStreamer,
+    SimulatedStreamer,
+    StreamingCodec,
+)
+from audiodec_tpu_torch.streaming.net import CodecReceiver, CodecTransmitter
 from audiodec_tpu_torch.utils.bitstream import unpack_codes
 from audiodec_tpu_torch.utils.bridge import (
     params_from_reference_sd,
@@ -331,9 +377,16 @@ GOLDEN = ROOT / "tests" / "golden"
 SYMAD_YAML = ROOT / "configs" / "autoencoder" / "symAD_vctk_48000_hop300.yaml"
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 DEMO_DIR = ROOT / "build" / "chip_smoke_demo_file"
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
 SYMAAD_YAML = ROOT / "configs" / "autoencoder" / "symAAD_vctk_48000_hop300.yaml"
 C16_YAML = ROOT / "configs" / "autoencoder" / "symAD_c16_vctk_48000_hop320.yaml"
 STREAM_SECONDS, STREAM_BATCH = 10, 16
+# slice 15: the batch folds' bars (JAX measured 0 flips at fold 8,
+# audiodec_tpu/models/fast.py:325-327, and 5.2e-3 for the bf16 decode
+# fold, :160-163), and the server's jobs
+FOLD_FLIPS = 20              # of B x 1600 frames x 8 codebooks = 204800
+FOLD_REL_L2 = 1e-2
+SERVE_JOBS, SERVE_BATCH = 24, 8
 CLI_SECONDS = (10.0, 8.5, 7.0, 5.5, 4.0, 2.0)
 SR = 48000
 BATCH, SECONDS = 16, 10
@@ -3006,6 +3059,446 @@ def phase_demo_file_path(device, params):
          codes_in_samples=res_in["samples"], launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the batch folds, the transcode server and the streaming tools
+# ---------------------------------------------------------------------------
+
+def pcm16_max_diff(a, b) -> int:
+    return int((codec_test._pcm16(a).int() - codec_test._pcm16(b).int())
+               .abs().max())
+
+
+def fold_ab(fold, off, x, idx, reps: int) -> dict:
+    """The folds against the direct route in one process, fold, off, off,
+    fold: per run and median encode, decode (of the direct route's
+    indices) and transcode ms."""
+    runs = {"fold": [], "off": []}
+    for name, tc in (("fold", fold), ("off", off), ("off", off),
+                     ("fold", fold)):
+        runs[name].append({
+            "encode_ms": cuda_ms(lambda: tc.encode(x), reps),
+            "decode_ms": cuda_ms(lambda: tc.decode(idx), reps),
+            "transcode_ms": cuda_ms(lambda: tc(x), reps)})
+    return {name: {**{k: float(np.median([r[k] for r in rs]))
+                      for k in rs[0]}, "runs": rs}
+            for name, rs in runs.items()}
+
+
+def check_folds(fold, off, x, cfg, what: str) -> dict:
+    """One transcode through the folds and one direct, no kernel launched:
+    the encode fold's index flips and the bf16 decode fold against the
+    direct bf16 decode of the same (direct) indices."""
+    want = {"enc_fold": True, "dec_fold": True, "int8_decode": False}
+    if (fold.fold_policy != want or off.fold_policy
+            != dict.fromkeys(want, False)):
+        raise AssertionError(f"{what}: fold policies {fold.fold_policy}, "
+                             f"{off.fold_policy}")
+    reset_launches()
+    idx_f, y_f = fold(x)
+    idx_o, y_o = off(x)
+    torch.cuda.synchronize()
+    launches = no_kernel_launches(f"batchfold_path {what}")
+    check_transcode(idx_f, y_f, x, cfg)
+    flips = int((idx_f != idx_o).sum())
+    y_fd = fold.decode(idx_o)
+    rel = rel_l2(y_fd, y_o)
+    if flips > FOLD_FLIPS or not rel <= FOLD_REL_L2:
+        raise AssertionError(f"{what}: {flips} index flips (bar "
+                             f"{FOLD_FLIPS}), decode fold relative L2 "
+                             f"{rel:.3g} (bar {FOLD_REL_L2})")
+    return {"index_flips": flips, "indices": int(idx_o.numel()),
+            "decode_rel_l2": rel, "decode_pcm16_max_diff":
+            pcm16_max_diff(y_fd, y_o), "peak_abs_y": float(y_o.abs().max()),
+            "launches": launches, "idx": idx_o}
+
+
+def phase_batchfold_path(device, params, x, card: str):
+    """`bench.py`'s workload on the port's JAX `--stack xla` route: symAD
+    with the trained golden's weights, B = 16 x 10 s, mixed, stack="plain"
+    with the batch folds at auto (fold 8, unfold_after and fold_from auto)
+    against the folds off; then the AD v1 receiver (seeded vocoder, as
+    ad_v1_path) through vocoder_apply_batchfold.  No kernel launches."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    n = x.shape[1] // cfg.hop_length
+    if (fast.batchfold_auto(n), fast.encoder_unfold_auto(cfg),
+            fast.decoder_fold_from_auto(cfg)) != (8, 2, 2):
+        raise AssertionError("the auto policy at the bench shape")
+    mixed = dict(dtype=torch.float32, dec_dtype=torch.bfloat16,
+                 stack="plain", device=device)
+    off_kw = dict(encode_fold=False, decode_fold=False, **mixed)
+    args = codec_test._parser().parse_args([
+        "--encoder", "-", "--decoder", "-", "--stack", "plain", "--dtype",
+        "mixed", "--precision", "exact"])
+    exact = BatchTranscoder(params, cfg, device=device,
+                            **codec_test.transcoder_options(args, None))
+    if exact.fold_policy["enc_fold"] or not exact.fold_policy["dec_fold"]:
+        raise AssertionError(f"--precision exact: {exact.fold_policy}")
+
+    fold = BatchTranscoder(params, cfg, **mixed)
+    off = BatchTranscoder(params, cfg, **off_kw)
+    symad = check_folds(fold, off, x, cfg, "symAD")
+    symad["ab"] = fold_ab(fold, off, x, symad.pop("idx"), reps=3)
+    del fold, off
+
+    vcfg = config_from_yaml(AD_V1_VOCODER, stats=True)
+    voc = (vocoder_init(vcfg, torch.Generator(device=device)
+                        .manual_seed(SEED)), vcfg)
+    fold = BatchTranscoder(params, cfg, voc=voc, **mixed)
+    off = BatchTranscoder(params, cfg, voc=voc, **off_kw)
+    ad_v1 = check_folds(fold, off, x, cfg, "AD v1")
+    ad_v1["ab"] = fold_ab(fold, off, x, ad_v1.pop("idx"), reps=2)
+    summary = {"card": card}
+    for name, r in (("symad", symad), ("ad_v1", ad_v1)):
+        summary[name] = {f"{side}_{k}": r["ab"][side][k]
+                         for side in ("fold", "off")
+                         for k in ("encode_ms", "decode_ms", "transcode_ms")}
+        summary[name]["index_flips"] = r["index_flips"]
+        summary[name]["decode_rel_l2"] = r["decode_rel_l2"]
+    print("batchfold_path " + json.dumps(summary), flush=True)
+    emit("batchfold_path", t0, batch=BATCH, seconds_of_audio=BATCH * SECONDS,
+         precision_exact_policy=exact.fold_policy, symad=symad,
+         ad_v1=ad_v1)
+    return symad["launches"]
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout that keeps each line with the time it was written."""
+
+    def __init__(self):
+        self.buf, self.lines = "", []
+
+    def write(self, s):
+        self.buf += s
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+    def json(self):
+        return [(t, json.loads(line)) for t, line in self.lines
+                if line.startswith("{")]
+
+
+@contextlib.contextmanager
+def counted_transcodes():
+    """Record each BatchTranscoder call: its start, its end after the
+    device is done (the server waits for it right after anyway) and its
+    batch shape."""
+    calls, orig = [], BatchTranscoder.__call__
+
+    def counted(self, x):
+        t = time.perf_counter()
+        out = orig(self, x)
+        torch.cuda.synchronize()
+        calls.append({"start": t, "end": time.perf_counter(),
+                      "shape": list(x.shape)})
+        return out
+
+    BatchTranscoder.__call__ = counted
+    try:
+        yield calls
+    finally:
+        BatchTranscoder.__call__ = orig
+
+
+def compare_outputs(outputs: dict, ref_dir: Path) -> dict:
+    """{input wav: output wav} against the wavs of the same names under
+    ref_dir: the largest PCM16 difference, the largest relative L2 and the
+    byte-identical files."""
+    worst, rel, identical = 0, 0.0, 0
+    for out in outputs.values():
+        ref = ref_dir / Path(out).name
+        a = read_wav_pcm16(out)[0].astype(np.int64)
+        b = read_wav_pcm16(str(ref))[0].astype(np.int64)
+        worst = max(worst, int(np.abs(a - b).max()))
+        rel = max(rel, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        identical += Path(out).read_bytes() == ref.read_bytes()
+    return {"files": len(outputs), "max_lsb": worst, "max_rel_l2": rel,
+            "byte_identical_files": identical}
+
+
+def serve(argv, stdin_text=None):
+    """codec_serve.main on argv -> (JSON lines with their times, transcoder
+    calls, launch counts, start time)."""
+    out = TimedLines()
+    old_stdin = sys.stdin
+    if stdin_text is not None:
+        sys.stdin = io.StringIO(stdin_text)
+    reset_launches()
+    try:
+        with counted_transcodes() as calls, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            codec_serve.main(argv)
+    finally:
+        sys.stdin = old_stdin
+    launches = read_launches()
+    if launches != launch_counts(mma=2 * len(calls)):
+        raise AssertionError(f"codec_serve: kernel launches {launches} for "
+                             f"{len(calls)} transcodes, expected 2 mma each")
+    return out.json(), calls, launches, t0
+
+
+def phase_serve_path(device, params, card: str):
+    """bin/codec_serve.py on the card: the trained golden as a JAX-format
+    checkpoint beside the symAD config, 24 seeded PCM16 wavs of 2-10 s and
+    three bad inputs (unreadable, 16 kHz, stereo in a mono batch) on stdin,
+    --dtype mixed --batch-size 8, the default stack (folded) and warmup
+    (10 s); against codec_test.main on the same wavs, which pads each
+    batch to its longest file where the server pads to 10 s: cuDNN picks
+    the bf16 decoder's algorithms by shape, so the bar there is the bf16
+    class (relative L2 1e-2), and at codec_test's own batches and shapes
+    (the jobs in its order, --warmup-seconds 0) 1 LSB; then --watch with
+    a .stop file on 4 of them."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    exp, wavs, bad = SERVE_DIR / "exp", SERVE_DIR / "wavs", SERVE_DIR / "bad"
+    for d in (exp, wavs, bad):
+        d.mkdir(parents=True)
+    shutil.copyfile(SYMAD_YAML, exp / "config.yml")
+    ckpt = str(exp / "checkpoint-golden.ckpt")
+    save_checkpoint(ckpt, {"gen": params_to_jax(params)}, 0)
+    rng = np.random.default_rng(SEED + 15)
+    lengths = {}
+    for i, n in enumerate(rng.integers(2 * SR, 10 * SR + 1, SERVE_JOBS)):
+        path = str(wavs / f"job{i:02d}.wav")
+        write_wav(path, np.clip(0.3 * rng.standard_normal((int(n), 1)), -1,
+                                1).astype(np.float32), SR)
+        lengths[path] = int(n)
+    tone = np.clip(0.3 * rng.standard_normal((SR, 1)), -1, 1).astype(
+        np.float32)
+    bad_inputs = {str(bad / "unreadable.wav"): "read failed",
+                  str(bad / "rate16k.wav"): "sample rate",
+                  str(bad / "stereo.wav"): "channel count"}
+    (bad / "unreadable.wav").write_bytes(b"not a RIFF file")
+    write_wav(str(bad / "rate16k.wav"), tone, 16000)
+    write_wav(str(bad / "stereo.wav"), np.repeat(tone, 2, axis=1), SR)
+    feed = list(lengths)
+    for pos, path in zip((3, 12, 21), bad_inputs):   # one per full batch
+        feed.insert(pos, path)
+    common = ["--encoder", ckpt, "--decoder", ckpt, "--dtype", "mixed",
+              "--batch-size", str(SERVE_BATCH)]
+
+    lines, calls, launches, t_main = serve(
+        common + ["--stdin", "--outdir", str(SERVE_DIR / "out")],
+        "\n".join(feed) + "\n")
+    by_input = {}
+    for _, line in lines:
+        by_input.setdefault(line["input"], []).append(line)
+    if sorted(by_input) != sorted(feed) or any(
+            len(v) != 1 for v in by_input.values()):
+        raise AssertionError(f"{len(lines)} JSON lines for {len(feed)} jobs")
+    for path, text in bad_inputs.items():
+        if text not in by_input[path][0].get("error", ""):
+            raise AssertionError(f"{path}: {by_input[path][0]}")
+    for path, n in lengths.items():
+        line = by_input[path][0]
+        got = read_wav_pcm16(line.get("output", ""))
+        if got is None or got[0].shape != (n, 1) or got[1] != SR:
+            raise AssertionError(f"{path}: {line}")
+    if any(c["shape"] != [SERVE_BATCH, 10 * SR, 1] for c in calls):
+        raise AssertionError(f"transcode shapes {calls}")
+    warm = calls[0]
+    t_last = lines[-1][0]
+    rtfs = sorted({line["batch_rtf"] for _, line in lines
+                   if "batch_rtf" in line})
+
+    reset_launches()
+    ct_out = SERVE_DIR / "codec_test"
+    summary = codec_test.main(common + ["--data-path", str(wavs),
+                                        "--outdir", str(ct_out)])
+    ct_launches = read_launches()
+    if ct_launches != launch_counts(mma=2 * -(-SERVE_JOBS // SERVE_BATCH)):
+        raise AssertionError(f"codec_test: kernel launches {ct_launches}")
+    versus = compare_outputs(
+        {path: by_input[path][0]["output"] for path in lengths}, ct_out)
+    if not versus["max_rel_l2"] <= FOLD_REL_L2:
+        raise AssertionError(f"codec_serve off codec_test: {versus}")
+
+    # the same batches as codec_test's (its plan, in its order, padded to
+    # the hop): the same shapes, so the same cuDNN algorithms
+    dataset = SingleDataset(str(wavs))
+    plan = codec_test.plan_buckets(dataset, SERVE_BATCH,
+                                   GeneratorConfig().hop_length)
+    ordered = [dataset.filenames[j] for idxs, _, _ in plan for j in idxs]
+    same_lines, same_calls, same_launches, _ = serve(
+        common + ["--stdin", "--warmup-seconds", "0", "--outdir",
+                  str(SERVE_DIR / "same")], "\n".join(ordered) + "\n")
+    same = compare_outputs({line["input"]: line["output"]
+                            for _, line in same_lines}, ct_out)
+    if same["max_lsb"] > 1 or len(same_lines) != SERVE_JOBS:
+        raise AssertionError(f"codec_serve at codec_test's shapes: {same}")
+
+    watch, wout = SERVE_DIR / "watch", SERVE_DIR / "watch_out"
+    watch.mkdir()
+    picked = list(lengths)[:4]
+
+    def feeder():
+        for path in picked:
+            shutil.copy(path, watch / Path(path).name)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and len(
+                list(wout.glob("*.wav")) if wout.exists() else []) < 4:
+            time.sleep(0.05)
+        (watch / ".stop").touch()
+
+    feed_thread = threading.Thread(target=feeder, daemon=True)
+    feed_thread.start()
+    wlines, wcalls, wlaunches, _ = serve(
+        common + ["--watch", str(watch), "--poll", "0.1", "--outdir",
+                  str(wout)])
+    feed_thread.join(timeout=10)
+    watch_identical = 0
+    for path in picked:
+        out = wout / (Path(path).stem + "_output.wav")
+        got = read_wav_pcm16(str(out))
+        if got is None or got[0].shape != (lengths[path], 1):
+            raise AssertionError(f"--watch: {out}")
+        watch_identical += out.read_bytes() == Path(
+            by_input[path][0]["output"]).read_bytes()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+    result = {"card": card, "jobs": len(feed), "good": len(lengths),
+              "transcodes": len(calls), "warmup_s": warm["end"]
+              - warm["start"], "load_s": warm["start"] - t_main,
+              "batch_rtf": rtfs, "files_per_s": len(lengths)
+              / (t_last - warm["end"]), "first_job_to_last_line_s":
+              t_last - warm["end"], "audio_seconds": sum(lengths.values())
+              / SR,
+              "codec_test_rtf": summary["rtf"],
+              "vs_codec_test": versus, "at_codec_test_shapes": same}
+    print("serve_path " + json.dumps(result), flush=True)
+    emit("serve_path", t0, **result, launches=launches,
+         codec_test_launches=ct_launches, watch={
+             "files": len(picked), "transcodes": len(wcalls),
+             "lines": len(wlines), "launches": wlaunches,
+             "byte_identical_to_stdin_run": watch_identical})
+    return launches
+
+
+class FakeSoundDevice:
+    """A stand-in for the sounddevice package (not installed on the card's
+    machine): a duplex Stream whose context calls the callback with seeded
+    microphone frames at the audio rate from a thread."""
+
+    def __init__(self, n_frames: int):
+        fake = self
+        self.n_frames = n_frames
+
+        class Stream:
+            def __init__(self, device, samplerate, blocksize, dtype,
+                         latency, channels, callback):
+                self.blocksize, self.callback = blocksize, callback
+                self.frame_s = blocksize / samplerate
+
+            def __enter__(self):
+                def drive():
+                    rng = np.random.default_rng(SEED)
+                    for _ in range(fake.n_frames):
+                        indata = (0.1 * rng.standard_normal(
+                            (self.blocksize, 1))).astype(np.float32)
+                        outdata = np.zeros((self.blocksize, 1), np.float32)
+                        self.callback(indata, outdata, self.blocksize, None,
+                                      None)
+                        time.sleep(self.frame_s)
+
+                self.thread = threading.Thread(target=drive, daemon=True)
+                self.thread.start()
+                return self
+
+            def __exit__(self, *exc):
+                self.thread.join()
+
+        self.Stream = Stream
+
+
+def stream_frames(codec, x, frame: int):
+    """x (T, 1)'s whole frames through `codec` from the zero state, one
+    encode and one decode each -> (indices, waveform (T', 1))."""
+    codec.reset()
+    idxs, ys = [], []
+    for i in range(len(x) // frame):
+        idxs.append(codec.encode(x[None, i * frame:(i + 1) * frame]))
+        ys.append(codec.decode(idxs[-1]))
+    return torch.cat(idxs, dim=1), torch.cat(ys, dim=1)[0].cpu().numpy()
+
+
+def phase_stream_tools_path(device, params, card: str):
+    """The streaming tools on StreamingCodec with the trained golden's
+    weights: SimulatedStreamer on 10 s in 8-hop frames (its encoder and
+    decoder threads share one codec), bit-equal to the codec fed the same
+    frames; the same at real-time pace in 1-hop frames for 3 s (drops and
+    latency, no bar); CodecTransmitter and CodecReceiver over a
+    socketpair in two threads, bit-equal to a direct decode of the same
+    indices; DeviceStreamer on a fake audio driver for 1 s.  No kernel
+    launches."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    hop = cfg.hop_length
+    x = np.clip(0.3 * np.random.default_rng(SEED + 16).standard_normal(
+        (STREAM_SECONDS * SR, 1)), -1, 1).astype(np.float32)
+    reset_launches()
+
+    def codec():
+        return StreamingCodec(params, cfg, device=device)
+
+    sim = SimulatedStreamer(codec(), frame_size=8 * hop, max_latency_ms=1e9)
+    t1 = time.perf_counter()
+    y = sim.run(x)
+    sim_s = time.perf_counter() - t1
+    _, y_ref = stream_frames(codec(), x, 8 * hop)
+    if not np.array_equal(y, y_ref):
+        raise AssertionError(f"SimulatedStreamer off the stream by "
+                             f"{np.abs(y - y_ref).max():.3g}")
+
+    rt = SimulatedStreamer(codec(), frame_size=hop, realtime=True)
+    t1 = time.perf_counter()
+    rt.run(x[:3 * SR])
+    rt_s = time.perf_counter() - t1
+
+    frame = 10 * hop
+    a, b = socket.socketpair()
+    rx = {}
+    rx_thread = threading.Thread(target=lambda: rx.update(zip(
+        ("y", "stats"), CodecReceiver(codec()).run(b))))
+    rx_thread.start()
+    t1 = time.perf_counter()
+    tx_stats = CodecTransmitter(codec(), frame_size=frame).run(x, a)
+    rx_thread.join(timeout=300)
+    net_s = time.perf_counter() - t1
+    a.close()
+    b.close()
+    idx, _ = stream_frames(codec(), x, frame)
+    dec = codec()
+    y_net = torch.cat([dec.decode(idx[:, i:i + frame // hop])
+                       for i in range(0, idx.shape[1], frame // hop)],
+                      dim=1)[0].cpu().numpy()
+    if not np.array_equal(rx["y"], y_net):
+        raise AssertionError(f"the receiver off a direct decode by "
+                             f"{np.abs(rx['y'] - y_net).max():.3g}")
+
+    frames = SR // (8 * hop)
+    live = DeviceStreamer(codec(), frame_size=8 * hop,
+                          sd_module=FakeSoundDevice(frames))
+    with contextlib.redirect_stdout(io.StringIO()):
+        live.run(duration=1.0)
+    live_stats = live.stats()
+    if live_stats["frames"] != frames:
+        raise AssertionError(f"DeviceStreamer: {live_stats}")
+    torch.cuda.synchronize()
+    launches = no_kernel_launches("stream_tools_path")
+    summary = {"card": card,
+               "simulated_10s": {**sim.stats(), "wall_s": sim_s,
+                                 "rtf": STREAM_SECONDS / sim_s},
+               "realtime_1hop_3s": {**rt.stats(), "wall_s": rt_s},
+               "net": {**tx_stats, **{f"rx_{k}": v
+                                      for k, v in rx["stats"].items()},
+                       "wall_s": net_s},
+               "device_streamer_1s": live_stats}
+    print("stream_tools_path " + json.dumps(summary), flush=True)
+    emit("stream_tools_path", t0, **summary, launches=launches)
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -3117,11 +3610,15 @@ def main():
     phase_stream_ad_v1_path(device, params, stream_idx, card)
     phase_variants_path(device)
     phase_demo_file_path(device, params)
+    phase_batchfold_path(device, params, x, card)
+    serve_launches = phase_serve_path(device, params, card)
+    phase_stream_tools_path(device, params, card)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
                "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches,
                "folded_probe_path": probe_counts,
+               "serve_path": serve_launches,
                "golden_parity": golden_launches,
                "voc_golden": voc_golden_launches,
                "mma_kernel_vs_plain": mma_counts,

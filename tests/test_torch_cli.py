@@ -478,9 +478,9 @@ def _json(capsys):
 @pytest.mark.parametrize("mode", ["float32", "int8-decode"])
 def test_main_matches_jax_main(mode, narrow_checkpoint, corpus, tmp_path,
                                capsys):
-    """float32 --stack plain (JAX: --stack xla with the batch folds off)
-    and int8-decode --stack folded (JAX: the same): the same files, of the
-    same lengths.  PCM16 samples agree within 1 LSB in float32.  In
+    """float32 --stack plain with the batch folds off (JAX: --stack xla,
+    the same) and int8-decode --stack folded (JAX: the same): the same
+    files, of the same lengths.  PCM16 samples agree within 1 LSB in float32.  In
     int8-decode an activation's int8 code can move by one step where the
     two packages' f32 roundings differ (tests/test_torch_int8_stack.py),
     where the int8 decode's own rounding moves each code by at most half a
@@ -491,8 +491,9 @@ def test_main_matches_jax_main(mode, narrow_checkpoint, corpus, tmp_path,
     common = ["--encoder", narrow_checkpoint, "--decoder", narrow_checkpoint,
               "--data-path", corpus, "--batch-size", "3"]
     if mode == "float32":
-        ours_args, jax_args = ["--stack", "plain"], [
-            "--stack", "xla", "--encode-fold", "off", "--decode-fold", "off"]
+        folds_off = ["--encode-fold", "off", "--decode-fold", "off"]
+        ours_args = ["--stack", "plain"] + folds_off
+        jax_args = ["--stack", "xla"] + folds_off
     else:
         ours_args = jax_args = ["--stack", "folded"]
     jax_cli.main(common + jax_args + ["--dtype", mode,
