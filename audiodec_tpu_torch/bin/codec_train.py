@@ -1,0 +1,161 @@
+"""Training entry point (counterpart of audiodec_tpu/bin/codec_train.py;
+ref codecTrain.py, bin/train.py) for `train_mode: autoencoder`: symAD with
+the HiFiGAN discriminator (model_type symAudioDec) or UnivNet's
+(symAudioDecUniv), in two stages, the metric-only one and then the
+adversarial one with the encoder, projector and quantizer frozen.
+
+    python -m audiodec_tpu_torch.bin.codec_train \\
+        --config configs/autoencoder/symAD_vctk_48000_hop300.yaml \\
+        --tag exp/autoencoder/mytag [--resume CKPT] [--device cpu]
+
+It writes config.yml, metrics.jsonl and the checkpoints (the JAX package's
+format: its `load_only_params` and the port's `codec_test` read them) under
+the tag.  Initial weights come from a torch.Generator seeded by --seed (not
+JAX's draw); a config's `initial:` checkpoint warm-starts the generator.
+The card is the default device, with TF32 off.  `train_mode: vocoder` and
+`denoise`, and data-parallel or multi-host training, are not ported yet and
+raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import torch
+
+from audiodec_tpu_torch.bin.codec_test import require_device
+from audiodec_tpu_torch.data.collate import CollaterAudio
+from audiodec_tpu_torch.data.dataset import SingleDataset
+from audiodec_tpu_torch.data.loader import DataLoader
+from audiodec_tpu_torch.models import discriminators as D
+from audiodec_tpu_torch.models.autoencoder import generator_init
+from audiodec_tpu_torch.ops.norms import apply_weight_norm_tree
+from audiodec_tpu_torch.train.checkpoint import load_params_into
+from audiodec_tpu_torch.train.criterion import build_criterion
+from audiodec_tpu_torch.train.steps import make_autoencoder_steps, train_state
+from audiodec_tpu_torch.train.trainer import GanTrainer
+from audiodec_tpu_torch.utils.checkpoint import load_only_params
+from audiodec_tpu_torch.utils.config import (
+    discriminator_config,
+    dump_yaml,
+    generator_config,
+    load_config,
+)
+
+NOT_PORTED = {
+    "vocoder": "ROADMAP.md A6, item 1 (train_mode: vocoder)",
+    "denoise": "ROADMAP.md A6, item 2 (train_mode: denoise)",
+}
+PARALLEL = "ROADMAP.md A7 (data-parallel and multi-host training)"
+
+
+def _subset_path(config, subset):
+    return os.path.join(config["data"]["path"],
+                        config["data"]["subset"][subset])
+
+
+def build_dataloaders(config, batch_length):
+    """(train, valid) loaders of the autoencoder's single corpus."""
+    bs = config.get("batch_size", 16)
+    workers = config.get("num_workers", 2)
+    col = CollaterAudio(batch_length)
+
+    def loader(subset, shuffle):
+        return DataLoader(SingleDataset(_subset_path(config, subset)), col,
+                          bs, shuffle=shuffle, num_workers=workers)
+
+    return loader("train", True), loader("valid", False)
+
+
+def build_models(config, device, seed: int):
+    """(gen_cfg, gen, disc_apply, disc) from a seeded torch.Generator."""
+    gen_cfg = generator_config(config)
+    disc_cfg = discriminator_config(config)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    gen = generator_init(gen_cfg, rng)
+    if config.get("generator_params", {}).get("use_weight_norm", False):
+        # weight-norm reparametrized training (ref: AudioDec.py:107-109)
+        gen = apply_weight_norm_tree(gen)
+    if isinstance(disc_cfg, D.UnivNetDiscriminatorConfig):
+        disc = D.univnet_discriminator_init(rng, disc_cfg)
+        apply = D.univnet_discriminator_apply
+    else:
+        disc = D.hifigan_discriminator_init(rng, disc_cfg)
+        apply = D.hifigan_discriminator_apply
+    return gen_cfg, gen, (lambda p, x: apply(p, x, disc_cfg)), disc
+
+
+def build_trainer(argv=None) -> GanTrainer:
+    """Parse the command line and set up the run: config.yml, data, models,
+    steps and the trainer (resumed where --resume is given)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--tag", required=True, help="experiment output dir")
+    parser.add_argument("--exp-root", default="",
+                        help="prefix joined ahead of --tag (expdir = "
+                             "exp_root/tag)")
+    parser.add_argument("--resume", default="")
+    parser.add_argument("--seed", type=int, default=1337)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    for flag in ("--dp", "--num-processes", "--process-id"):
+        parser.add_argument(flag, type=int, default=None)
+    parser.add_argument("--coordinator", default=None)
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    for flag in ("dp", "coordinator", "num_processes", "process_id"):
+        value = getattr(args, flag)
+        if value is not None and not (flag == "dp" and value == 1):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')}: not ported; see {PARALLEL}")
+    config = load_config(args.config)
+    train_mode = config.get("train_mode", "autoencoder")
+    if train_mode != "autoencoder":
+        raise NotImplementedError(
+            f"train_mode {train_mode!r}: not ported; see "
+            f"{NOT_PORTED.get(train_mode, 'ROADMAP.md A6')}")
+    device = require_device(args.device)
+    if args.exp_root:
+        args.tag = os.path.join(args.exp_root, args.tag)
+    os.makedirs(args.tag, exist_ok=True)
+    # snapshot the config beside the checkpoints (ref: bin/train.py:58-64)
+    with open(os.path.join(args.tag, "config.yml"), "w") as f:
+        f.write(dump_yaml(config))
+
+    gen_cfg, gen, disc_apply, disc = build_models(config, device, args.seed)
+    if config.get("initial"):
+        # warm start (ref `initial:` key, codecTrain.py:245-247)
+        params, _ = load_only_params(config["initial"], "gen", fold=False)
+        gen = load_params_into(gen, params)
+        logging.info("Warm-started generator from %s", config["initial"])
+    state = train_state(gen, disc, config)
+    steps = make_autoencoder_steps(gen_cfg, disc_apply, config,
+                                   build_criterion(config))
+
+    bl = config.get("batch_length", 9600)
+    adv_bl = config.get("adv_batch_length", bl)
+    train_dl, valid_dl = build_dataloaders(config, bl)
+    adv_dl = (train_dl if adv_bl == bl
+              else build_dataloaders(config, adv_bl)[0])
+    trainer = GanTrainer(
+        steps_fns=steps, state=state, config=config, outdir=args.tag,
+        train_iter=train_dl.infinite(), adv_train_iter=adv_dl.infinite(),
+        eval_iter_fn=lambda: iter(valid_dl), device=device,
+        steps_per_epoch=len(train_dl) or None,
+        adv_steps_per_epoch=len(adv_dl) or None)
+    if args.resume:
+        trainer.resume(args.resume)
+    return trainer
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

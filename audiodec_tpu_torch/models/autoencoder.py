@@ -3,8 +3,10 @@
 
 Causal and noncausal modes, codec "audiodec" and "activate_audiodec"
 (an activation after the encoder and before each transposed conv and the
-last conv of the decoder, which ends in tanh).  Training waits for a later
-slice.  The initializers (`encoder_init`, `projector_init`, `decoder_init`,
+last conv of the decoder, which ends in tanh).  Training: `generator_forward`
+(train mode's EMA codebook update, the projector's batch-stat BN) and
+`merge_forward_buffers`, as the JAX package's train steps call them.  The
+initializers (`encoder_init`, `projector_init`, `decoder_init`,
 `generator_init`) draw from an explicit `torch.Generator` with the JAX
 package's shapes and scales; they do not give JAX's numbers.  Params are
 nested dicts of tensors with the JAX tree's structure and torch's weight
@@ -40,9 +42,15 @@ from audiodec_tpu_torch.ops.conv import (
     noncausal_conv1d,
     noncausal_conv_transpose1d,
 )
-from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_init, rvq_lookup
+from audiodec_tpu_torch.ops.vq import (
+    rvq_forward,
+    rvq_forward_index,
+    rvq_init,
+    rvq_lookup,
+)
 
-_BN_EPS = 1e-5  # torch.nn.BatchNorm1d default
+_BN_EPS = 1e-5       # torch.nn.BatchNorm1d defaults
+_BN_MOMENTUM = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,6 +364,23 @@ def _bn_eval(bn, z):
             * bn["scale"][:, None] + bn["bias"][:, None])
 
 
+def _bn_train(bn, z):
+    """Train-mode BN of z (B, D, T): batch statistics, and the running
+    statistics advanced as torch's BatchNorm1d does (unbiased variance,
+    momentum 0.1, count + 1) -> (zn, new running stats, no gradient)."""
+    n = z.shape[0] * z.shape[2]
+    mean_b = torch.mean(z, dim=(0, 2))
+    var_b = torch.mean(torch.square(z - mean_b[:, None]), dim=(0, 2))
+    zn = ((z - mean_b[:, None]) * torch.rsqrt(var_b[:, None] + _BN_EPS)
+          * bn["scale"][:, None] + bn["bias"][:, None])
+    m = _BN_MOMENTUM
+    with torch.no_grad():
+        new = {"mean": (1 - m) * bn["mean"] + m * mean_b,
+               "var": (1 - m) * bn["var"] + m * var_b * (n / max(n - 1, 1)),
+               "count": bn["count"] + 1}
+    return zn, new
+
+
 def _check_projector(cfg: GeneratorConfig):
     if cfg.projector not in ("conv1d", "conv1d_bn"):
         raise NotImplementedError(f"Projector ({cfg.projector})")
@@ -366,6 +391,16 @@ def projector_bct(p, x, cfg: GeneratorConfig):
     _check_projector(cfg)
     z = _conv_of(cfg)(x, p["conv"])
     return _bn_eval(p["bn"], z) if cfg.projector == "conv1d_bn" else z
+
+
+def projector_train_bct(p, x, cfg: GeneratorConfig):
+    """The projector with train-mode BN -> (z, new BN running stats, or
+    None for the plain conv1d projector)."""
+    _check_projector(cfg)
+    z = _conv_of(cfg)(x, p["conv"])
+    if cfg.projector != "conv1d_bn":
+        return z, None
+    return _bn_train(p["bn"], z)
 
 
 def projector_stream_bct(p, x, cfg: GeneratorConfig, state):
@@ -401,8 +436,13 @@ def encoder_apply(p, x, cfg: GeneratorConfig, state=None):
     return _bct_apply(lambda v: encoder_stream_bct(p, v, cfg, state), x)
 
 
-def projector_apply(p, x, cfg: GeneratorConfig, state=None):
-    """x: (B, T', C_enc) -> z (B, T', D); with `state`, (z, new state)."""
+def projector_apply(p, x, cfg: GeneratorConfig, state=None, *,
+                    train: bool = False):
+    """x: (B, T', C_enc) -> z (B, T', D); with `state`, (z, new state);
+    with train (batch mode), (z, new BN running stats or None)."""
+    if train:
+        z, new_bn = projector_train_bct(p, x.transpose(1, 2), cfg)
+        return z.transpose(1, 2), new_bn
     if state is None:
         return _bct_apply(lambda v: projector_bct(p, v, cfg), x)
     return _bct_apply(lambda v: projector_stream_bct(p, v, cfg, state), x)
@@ -426,6 +466,48 @@ def _channel_fold(x, input_channels: int):
     x = x.reshape(b, t, g, input_channels)
     x = torch.movedim(x, 2, 1)
     return x.reshape(b * g, t, input_channels)
+
+
+def generator_forward(params, x, cfg: GeneratorConfig, *,
+                      train: bool = False, bn_train=None):
+    """The full train / eval forward on the plain residual stacks
+    (ref: AudioDec.py:112-120).  x: (B, T, C) -> (y (B, T, C), zq, z
+    (B, T', D), vqloss (Q,), perplexity (Q,), new_buffers), new_buffers =
+    {"quantizer": the EMA-updated codebooks (the old ones unless train)
+    [, "projector_bn": BN running stats {mean, var, count}]}, the buffers a
+    train step merges back (merge_forward_buffers).
+
+    bn_train (default: train) sets BN's mode apart from the codebook's: the
+    reference's adversarial stage keeps a frozen BN projector in train mode
+    while the codebook is in eval mode (ref: trainer/autoencoder.py:66-79).
+    """
+    bn_train = train if bn_train is None else bn_train
+    x = _channel_fold(x, cfg.input_channels).transpose(1, 2)
+    h = encoder_bct(params["encoder"], x, cfg, res_stack_plain)
+    if bn_train:
+        z, new_bn = projector_train_bct(params["projector"], h, cfg)
+    else:
+        z, new_bn = projector_bct(params["projector"], h, cfg), None
+    z = z.transpose(1, 2)
+    zq, vqloss, ppl, new_q = rvq_forward(z, params["quantizer"], train=train)
+    y = decoder_bct(params["decoder"], zq.transpose(1, 2), cfg,
+                    res_stack_plain)
+    new_buffers = {"quantizer": new_q}
+    if new_bn is not None:
+        new_buffers["projector_bn"] = new_bn
+    return y.transpose(1, 2), zq, z, vqloss, ppl, new_buffers
+
+
+def merge_forward_buffers(gen_params: dict, new_buffers: dict) -> dict:
+    """Overwrite the buffers no optimizer drives (the quantizer's EMA
+    codebooks, BN's running stats) with those generator_forward returned,
+    after the optimizer step -> a new tree that shares every other leaf."""
+    out = dict(gen_params, quantizer=new_buffers["quantizer"])
+    if "projector_bn" in new_buffers:
+        out["projector"] = dict(
+            out["projector"],
+            bn=dict(out["projector"]["bn"], **new_buffers["projector_bn"]))
+    return out
 
 
 def generator_encode(params, x, cfg: GeneratorConfig, state=None):

@@ -28,8 +28,9 @@ number of past inputs the layer keeps; the JAX package keeps the same
 numbers as (B, L, C_in) (utils/bridge.py `state_from_jax`, `state_to_jax`).
 A conv with nothing to keep (L = 0) returns its state unchanged.
 
-Initializers (`conv1d_init`, `conv_transpose1d_init`): the JAX package's
-shapes and scale (normal at 0.01, zero bias) in torch's orientation, drawn
+Initializers (`conv1d_init`, `conv_transpose1d_init`, `conv2d_init`, the
+last (O, I, KH, KW) for the discriminators): the JAX package's shapes and
+scale (normal at 0.01 unless given, zero bias) in torch's orientation, drawn
 from an explicit `torch.Generator` on its device; the numbers differ from
 JAX's, since the two frameworks' generators differ.
 """
@@ -64,6 +65,20 @@ def conv_transpose1d_init(gen: torch.Generator, kernel_size: int,
     """{'w': (C_in, C_out, K) [, 'b': (C_out,)]}."""
     p = {"w": scale * torch.randn(in_channels, out_channels, kernel_size,
                                   generator=gen, device=gen.device)}
+    if bias:
+        p["b"] = torch.zeros(out_channels, device=gen.device)
+    return p
+
+
+def conv2d_init(gen: torch.Generator, kernel_size, in_channels: int,
+                out_channels: int, groups: int = 1, bias: bool = True,
+                scale: float = INIT_SCALE) -> dict:
+    """{'w': (C_out, C_in // groups, KH, KW) [, 'b': (C_out,)]}; an int
+    kernel_size is square."""
+    kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+              else kernel_size)
+    p = {"w": scale * torch.randn(out_channels, in_channels // groups, kh,
+                                  kw, generator=gen, device=gen.device)}
     if bias:
         p["b"] = torch.zeros(out_channels, device=gen.device)
     return p

@@ -1,7 +1,8 @@
-"""Residual vector quantization, inference path (counterpart of
-audiodec_tpu/ops/vq.py).
+"""Residual vector quantization (counterpart of audiodec_tpu/ops/vq.py): the
+inference path and the training forward with its EMA codebook update.
 
-params = {"embed": (Q, N, D)}; z is (..., D) rows, as in JAX.  The distance
+params = {"embed": (Q, N, D)[, "cluster_size": (Q, N), "embed_avg":
+(Q, N, D)]}; z is (..., D) rows, as in JAX.  The distance
 expansion, the straight-through residual arithmetic and the tie rule are
 copied term for term, so the indices agree bit for bit with the JAX package
 whenever the f32 products agree (TF32 must be off on the card).
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def rvq_init(gen: torch.Generator, num_quantizers: int, codebook_size: int,
@@ -97,3 +99,58 @@ def rvq_lookup(idx: torch.Tensor, params: dict,
         idx = idx - offsets
     flat = embed.reshape(num_q * n_embed, dim)
     return torch.sum(flat[(idx + offsets).long()], dim=-2)
+
+
+def rvq_forward(z: torch.Tensor, params: dict, *, train: bool,
+                decay: float = 0.8, eps: float = 1e-5,
+                commitment: float = 1.0):
+    """Training / eval forward -> (zq, per-layer commitment losses (Q,),
+    perplexities (Q,), new params).  z: (B, T, D).
+
+    Term for term JAX's: the straight-through estimator
+    residual + sg(quant - residual) with the residual subtraction not
+    detached (so only the first layer's gradient reaches the encoder), the
+    commitment loss mean((sg(quant) - residual)^2) per layer.  With train,
+    the EMA update of the reference (ref: layers/vq_module.py:74-80) is
+    computed from the codebooks as they were before the step and returned
+    as new buffers (cluster_size, embed_avg, embed); without, `params` is
+    returned as it is.  The buffers carry no gradient.
+    """
+    embed = params["embed"]
+    num_q, n_embed, dim = embed.shape
+    residual = z
+    zq = torch.zeros_like(z)
+    losses, perplexities = [], []
+    new_cluster, new_avg, new_embed = [], [], []
+    for q in range(num_q):
+        e_q = embed[q]
+        with torch.no_grad():
+            idx = vq_nearest(residual, e_q).reshape(-1).long()
+            onehot = F.one_hot(idx, n_embed).to(z.dtype)
+            avg_probs = torch.mean(onehot, dim=0)
+            perplexities.append(torch.exp(-torch.sum(
+                avg_probs * torch.log(avg_probs + 1e-10))))
+        quant = e_q.detach()[idx].reshape(residual.shape)
+        losses.append(commitment * torch.mean(torch.square(
+            quant.detach() - residual)))
+        if train:
+            with torch.no_grad():
+                onehot_sum = torch.sum(onehot, dim=0)
+                embed_sum = onehot.transpose(0, 1) @ residual.reshape(-1, dim)
+                cs = (params["cluster_size"][q] * decay
+                      + (1 - decay) * onehot_sum)
+                ea = params["embed_avg"][q] * decay + (1 - decay) * embed_sum
+                total = torch.sum(cs)
+                smoothed = (cs + eps) / (total + n_embed * eps) * total
+                new_cluster.append(cs)
+                new_avg.append(ea)
+                new_embed.append(ea / smoothed[:, None])
+        quant = residual + (quant - residual).detach()
+        residual = residual - quant
+        zq = zq + quant
+    new_params = params
+    if train:
+        new_params = {"embed": torch.stack(new_embed),
+                      "cluster_size": torch.stack(new_cluster),
+                      "embed_avg": torch.stack(new_avg)}
+    return zq, torch.stack(losses), torch.stack(perplexities), new_params

@@ -1,0 +1,185 @@
+"""The step-driven GAN training loop (counterpart of
+audiodec_tpu/train/trainer.py `GanTrainer` and `MetricsWriter`; ref
+trainer/trainerGAN.py, bin/train.py).
+
+The metric-only stage runs to `start_steps.discriminator`, the adversarial
+stage from that step on (the autoencoder's gate, JAX's `strict_start`),
+each from its own batch iterator; the JSONL log, eval, checkpoint and epoch
+bookkeeping follow the JAX package's.  Step records stay on the device
+and are summed there; the host reads them once per log interval.  A
+checkpoint is written at every save interval and, on exit,
+`checkpoint-final.ckpt`; SIGTERM ends the run at the next step boundary
+with that checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import time
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from audiodec_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
+
+
+class MetricsWriter:
+    """Scalars as JSON lines in <outdir>/metrics.jsonl."""
+
+    def __init__(self, outdir: str):
+        os.makedirs(outdir, exist_ok=True)
+        self.path = os.path.join(outdir, "metrics.jsonl")
+        self._f = open(self.path, "a")
+
+    def write(self, step: int, scalars: Dict[str, float], prefix: str = ""):
+        rec = {"step": step}
+        rec.update({prefix + k: float(v) for k, v in scalars.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
+
+
+def _as_input(batch, device: torch.device) -> torch.Tensor:
+    x = torch.from_numpy(np.ascontiguousarray(batch))
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+class GanTrainer:
+    """Drives the {metric, adv, eval} steps through the two-stage
+    schedule."""
+
+    def __init__(self, steps_fns: Dict[str, Callable], state: dict,
+                 config: dict, outdir: str, train_iter: Iterator,
+                 eval_iter_fn: Callable[[], Iterator],
+                 device: torch.device,
+                 adv_train_iter: Optional[Iterator] = None,
+                 steps_per_epoch: Optional[int] = None,
+                 adv_steps_per_epoch: Optional[int] = None):
+        self.steps_fns = steps_fns
+        self.state = state
+        self.config = config
+        self.outdir = outdir
+        self.device = device
+        self.train_iter = train_iter
+        self.adv_train_iter = adv_train_iter or train_iter
+        self.eval_iter_fn = eval_iter_fn
+        self.steps = 0
+        self.writer = MetricsWriter(outdir)
+        self.discriminator_start = config.get("start_steps", {}).get(
+            "discriminator", 200000)
+        self.train_max_steps = config.get("train_max_steps", 200000)
+        self.adv_train_max_steps = config.get("adv_train_max_steps",
+                                              self.train_max_steps)
+        self.save_interval = config.get("save_interval_steps", 100000)
+        self.eval_interval = config.get("eval_interval_steps", 1000)
+        self.log_interval = config.get("log_interval_steps", 100)
+        self._log_accum: Dict[str, torch.Tensor] = {}
+        self._log_count = 0
+        self.epochs = 0
+        self._epoch_progress = 0
+        self.steps_per_epoch = steps_per_epoch
+        self.adv_steps_per_epoch = adv_steps_per_epoch or steps_per_epoch
+
+    def _adversarial(self) -> bool:
+        return self.steps >= self.discriminator_start
+
+    def _ckpt_path(self, steps):
+        return os.path.join(self.outdir, f"checkpoint-{steps}steps.ckpt")
+
+    def save(self, path=None):
+        save_checkpoint(path or self._ckpt_path(self.steps), self.state,
+                        self.steps, extra={"epochs": self.epochs})
+        logging.info("Saved checkpoint @ %d steps (%d epochs)", self.steps,
+                     self.epochs)
+
+    def resume(self, path: str):
+        self.state, header = load_checkpoint(path, self.state)
+        self.steps = header["steps"]
+        self.epochs = int(header.get("epochs", 0))
+        logging.info("Resumed from %s @ %d steps (%d epochs)", path,
+                     self.steps, self.epochs)
+
+    def _accumulate(self, metrics):
+        for k, v in metrics.items():
+            prev = self._log_accum.get(k)
+            self._log_accum[k] = v if prev is None else prev + v
+        self._log_count += 1
+
+    def _flush_log(self):
+        if self._log_count:
+            avg = {k: float(v) / self._log_count
+                   for k, v in self._log_accum.items()}
+            self.writer.write(self.steps, avg, prefix="train/")
+            top = {k: round(v, 4) for k, v in list(avg.items())[:6]}
+            logging.info("step %d: %s", self.steps, top)
+            self._log_accum, self._log_count = {}, 0
+
+    def _eval(self):
+        accum: Dict[str, torch.Tensor] = {}
+        n = 0
+        for batch in self.eval_iter_fn():
+            m = self.steps_fns["eval"](self.state,
+                                       _as_input(batch, self.device))
+            for k, v in m.items():
+                prev = accum.get(k)
+                accum[k] = v if prev is None else prev + v
+            n += 1
+        if n:
+            self.writer.write(self.steps, {k: float(v) / n for k, v in
+                                           accum.items()}, prefix="eval/")
+
+    def run(self):
+        """Train to adv_train_max_steps, saving on exit; SIGTERM
+        checkpoints and stops (resume with --resume)."""
+        stop = {"flag": False}
+
+        def _on_term(signum, frame):
+            logging.warning("SIGTERM received: checkpointing and stopping")
+            stop["flag"] = True
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:  # not the main thread
+            prev_handler = None
+        t0 = time.time()
+        try:
+            while self.steps < self.adv_train_max_steps and not stop["flag"]:
+                adv = self._adversarial()
+                batch = next(self.adv_train_iter if adv else self.train_iter)
+                x = _as_input(batch, self.device)
+                self.state, metrics = self.steps_fns[
+                    "adv" if adv else "metric"](self.state, x)
+                self.steps += 1
+                spe = (self.adv_steps_per_epoch if adv
+                       else self.steps_per_epoch)
+                if spe:
+                    self._epoch_progress += 1
+                    if self._epoch_progress >= spe:
+                        self.epochs += 1
+                        self._epoch_progress = 0
+                self._accumulate(metrics)
+                if self.steps % self.log_interval == 0:
+                    self._flush_log()
+                if self.steps % self.eval_interval == 0:
+                    self._eval()
+                if self.steps % self.save_interval == 0:
+                    self.save()
+        finally:
+            # always a final checkpoint (ref: bin/train.py:119-123)
+            self.save(os.path.join(self.outdir, "checkpoint-final.ckpt"))
+            self.writer.close()
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+        logging.info("Finished %d steps in %.1fs", self.steps,
+                     time.time() - t0)

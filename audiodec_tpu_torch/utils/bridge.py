@@ -1,14 +1,18 @@
 """Weights carried into the port: from the JAX package's param tree, and from
 the reference implementation's state dict (the port's own copy of
-audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`
-and `import_vocoder` with fold=True); and back to the JAX tree
-(`params_to_jax`, `vocoder_params_to_jax`), so that port weights can be
-written as a JAX-format checkpoint (utils/checkpoint.py).
+audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`,
+`import_vocoder` with fold=True, `import_hifigan_discriminator` with either
+fold, `import_univnet_mrsd` and `import_univnet_discriminator`); and back to
+the JAX tree (`params_to_jax`, `vocoder_params_to_jax`,
+`disc_params_to_jax`), so that port weights can be written as a JAX-format
+checkpoint (utils/checkpoint.py).  A conv carried either way keeps its norm
+reparametrization: {"v", "g"} and {"w_raw", "u"} leaves move as "w" does.
 
 The port's tree is the JAX tree's structure with torch's weight
 orientation, as CPU float32 tensors; the JAX tree holds numpy arrays.
 
     JAX conv           (K, I, O)            -> (O, I, K)
+    JAX conv2d         (KH, KW, I, O)       -> (O, I, KH, KW)
     JAX transposed     (K, I, O) gathering  -> (I, O, K), K flipped
                        (w[k, i, o] = W_torch[i, o, K-1-k])
     reference conv     (O, I, K), reference transposed (I, O, K): as is
@@ -45,18 +49,27 @@ def tree_map(fn: Callable, tree):
 # from the JAX param tree (numpy leaves)
 # ---------------------------------------------------------------------------
 
+# a conv's weight-like leaves: plain "w", weight norm's "v" and "g" (g keeps
+# the preserved axis, size 1 elsewhere), spectral norm's "w_raw"; the
+# others ("b", spectral norm's "u", one entry per output channel) carry over
+_WEIGHTS = ("w", "v", "g", "w_raw")
+
+
+def _conv_leaves(p: dict, weight, other) -> dict:
+    return {k: weight(v) if k in _WEIGHTS else other(v) for k, v in p.items()}
+
+
 def _conv_from_jax(p: dict) -> dict:
-    out = {"w": _tensor(np.transpose(p["w"], (2, 1, 0)))}
-    if "b" in p:
-        out["b"] = _tensor(p["b"])
-    return out
+    """(K..., I, O) -> (O, I, K...), for 1-D and 2-D convs."""
+    return _conv_leaves(
+        p, lambda a: _tensor(np.transpose(
+            a, (2, 1, 0) if np.ndim(a) == 3 else (3, 2, 0, 1))), _tensor)
 
 
 def _convt_from_jax(p: dict) -> dict:
-    out = {"w": _tensor(np.transpose(np.asarray(p["w"])[::-1], (1, 2, 0)))}
-    if "b" in p:
-        out["b"] = _tensor(p["b"])
-    return out
+    return _conv_leaves(
+        p, lambda a: _tensor(np.transpose(np.asarray(a)[::-1], (1, 2, 0))),
+        _tensor)
 
 
 def _res_from_jax(units) -> list:
@@ -135,18 +148,16 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def _conv_to_jax(p: dict) -> dict:
-    out = {"w": np.ascontiguousarray(np.transpose(_array(p["w"]), (2, 1, 0)))}
-    if "b" in p:
-        out["b"] = _array(p["b"])
-    return out
+    """(O, I, K...) -> (K..., I, O), for 1-D and 2-D convs."""
+    return _conv_leaves(
+        p, lambda t: np.ascontiguousarray(np.transpose(
+            _array(t), (2, 1, 0) if t.ndim == 3 else (2, 3, 1, 0))), _array)
 
 
 def _convt_to_jax(p: dict) -> dict:
-    w = np.transpose(_array(p["w"]), (2, 0, 1))[::-1]
-    out = {"w": np.ascontiguousarray(w)}
-    if "b" in p:
-        out["b"] = _array(p["b"])
-    return out
+    return _conv_leaves(
+        p, lambda t: np.ascontiguousarray(
+            np.transpose(_array(t), (2, 0, 1))[::-1]), _array)
 
 
 def _res_to_jax(units) -> list:
@@ -221,6 +232,31 @@ def vocoder_params_to_jax(params: dict) -> dict:
     return out
 
 
+def _is_conv(node) -> bool:
+    return isinstance(node, dict) and any(k in node for k in _WEIGHTS)
+
+
+def _convs(tree, fn):
+    """fn applied to every conv dict of a tree of dicts and lists."""
+    if _is_conv(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _convs(v, fn) for k, v in tree.items()}
+    return [_convs(v, fn) for v in tree]
+
+
+def disc_params_from_jax(tree: dict) -> dict:
+    """JAX discriminator params (numpy leaves; either discriminator, plain,
+    weight- or spectral-normed convs) -> the port's."""
+    return _convs(tree, _conv_from_jax)
+
+
+def disc_params_to_jax(params: dict) -> dict:
+    """The port's discriminator params -> the JAX tree (inverse of
+    disc_params_from_jax)."""
+    return _convs(params, _conv_to_jax)
+
+
 def state_from_jax(tree):
     """A JAX streaming state (numpy leaves, (B, L, C)) -> the port's
     ((B, C, L) CPU float32 tensors)."""
@@ -281,7 +317,8 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
                 "bn": {"scale": _tensor(sd[bn + "weight"]),
                        "bias": _tensor(sd[bn + "bias"]),
                        "mean": _tensor(sd[bn + "running_mean"]),
-                       "var": _tensor(sd[bn + "running_var"])}}
+                       "var": _tensor(sd[bn + "running_var"]),
+                       "count": _tensor(sd[bn + "num_batches_tracked"])}}
 
     def dec_block(i):
         # ActivateDecoder wraps each block in Sequential(act, DecoderBlock)
@@ -353,3 +390,56 @@ def vocoder_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
         if k in sd:
             out[k] = _tensor(sd[k])
     return out
+
+
+def _period_discs(sd, cfg, conv) -> dict:
+    n = len(cfg.discriminator.layer_shapes())
+    return {"discriminators": [
+        {"layers": [conv(f"mpd.discriminators.{i}.convs.{j}.0.conv")
+                    for j in range(n)],
+         "output_conv": conv(f"mpd.discriminators.{i}.output_conv.conv")}
+        for i in range(len(cfg.periods))]}
+
+
+def _layer_key(prefix: str, j: int, n: int) -> str:
+    # every layer but the last is Sequential(conv, act) -> ".0.conv"
+    return f"{prefix}.layers.{j}" + (".conv" if j == n - 1 else ".0.conv")
+
+
+def hifigan_disc_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg,
+                                          fold: bool = True) -> dict:
+    """Reference HiFiGAN MSD + MPD state dict -> the port's params.
+    fold=False keeps the MPD's weight norm as {"v", "g"[, "b"]} (training,
+    where torch's Adam trains weight_g and weight_v); the MSD's convs are
+    plain in the reference."""
+    if fold:
+        sd = fold_weight_norm(sd)
+
+    def conv(prefix):
+        if prefix + ".weight_v" in sd:
+            p = {"v": _tensor(sd[prefix + ".weight_v"]),
+                 "g": _tensor(sd[prefix + ".weight_g"])}
+            if prefix + ".bias" in sd:
+                p["b"] = _tensor(sd[prefix + ".bias"])
+            return p
+        return _conv_from_sd(sd, prefix)
+
+    n = len(cfg.msd.discriminator.layer_shapes())
+    msd = {"discriminators": [
+        {"layers": [conv(_layer_key(f"msd.discriminators.{i}", j, n))
+                    for j in range(n)]}
+        for i in range(cfg.msd.scales)]}
+    return {"msd": msd, "mpd": _period_discs(sd, cfg.mpd, conv)}
+
+
+def mrsd_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg,
+                                  prefix: str = "") -> dict:
+    """Reference UnivNet multi-resolution spectral discriminator state dict
+    -> the port's params, weight norm folded; `prefix` is "mrsd." within the
+    combined UnivNet discriminator."""
+    sd = fold_weight_norm(sd)
+    n = len(cfg.discriminator.layer_shapes())
+    return {"discriminators": [
+        {"layers": [_conv_from_sd(sd, _layer_key(
+            f"{prefix}discriminators.{i}", j, n)) for j in range(n)]}
+        for i in range(len(cfg.fft_sizes))]}

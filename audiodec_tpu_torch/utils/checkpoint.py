@@ -272,32 +272,40 @@ def restore_lists(tree):
     return tree
 
 
-def fold_weight_norm(tree):
-    """Weight-normed convs {v, g[, b]} -> {w[, b]}, w = g * v / ||v|| over
-    the axes where g has size 1 (audiodec_tpu/ops/norms.py:56-63), in f32."""
+def fold_norms(tree):
+    """Norm-reparametrized convs folded into {w[, b]}, in f32, as the JAX
+    package folds them on load (audiodec_tpu/ops/norms.py:56-87):
+    weight norm {v, g[, b]}, w = g * v / ||v|| over the axes where g has
+    size 1; spectral norm {w_raw, u[, b]}, w = w_raw / sigma after one
+    power iteration from u over the (everything else, O) matricization."""
     if isinstance(tree, dict) and "v" in tree and "g" in tree:
         v = np.asarray(tree["v"], np.float32)
         g = np.asarray(tree["g"], np.float32)
         axes = tuple(i for i, s in enumerate(g.shape) if s == 1)
-        norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
-        out = {"w": g * v / norm}
-        if "b" in tree:
-            out["b"] = tree["b"]
-        return out
-    if isinstance(tree, dict) and "w_raw" in tree and "u" in tree:
-        raise NotImplementedError("spectral-normed convs (a discriminator's) "
-                                  "are not read by the port")
-    if isinstance(tree, dict):
-        return {k: fold_weight_norm(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [fold_weight_norm(v) for v in tree]
-    return tree
+        out = {"w": g * v / np.sqrt(np.sum(v * v, axis=axes, keepdims=True))}
+    elif isinstance(tree, dict) and "w_raw" in tree and "u" in tree:
+        w = np.asarray(tree["w_raw"], np.float32)
+        mat = w.reshape(-1, w.shape[-1])
+        v = mat @ np.asarray(tree["u"], np.float32)
+        v = v / (np.linalg.norm(v) + 1e-12)
+        u = mat.T @ v
+        u = u / (np.linalg.norm(u) + 1e-12)
+        out = {"w": w / (v @ (mat @ u))}
+    elif isinstance(tree, dict):
+        return {k: fold_norms(v) for k, v in tree.items()}
+    elif isinstance(tree, list):
+        return [fold_norms(v) for v in tree]
+    else:
+        return tree
+    if "b" in tree:
+        out["b"] = tree["b"]
+    return out
 
 
-def load_only_params(path: str, key: str = "gen"):
+def load_only_params(path: str, key: str = "gen", fold: bool = True):
     """-> (params, header): the `key` sub-tree (or the whole state if it has
-    no such key) with its lists restored and weight norm folded, numpy
-    arrays in the JAX package's layout."""
+    no such key) with its lists restored and, with fold, the norm
+    reparametrizations folded; numpy arrays in the JAX package's layout."""
     state, header = load_checkpoint(path)
-    sub = state[key] if key in state else state
-    return fold_weight_norm(restore_lists(sub)), header
+    sub = restore_lists(state[key] if key in state else state)
+    return (fold_norms(sub) if fold else sub), header

@@ -1,6 +1,8 @@
 """Experiment configs (counterpart of audiodec_tpu/utils/config.py:
-`_deep_merge`, `load_config` with `inherit:`, `load_config_near_checkpoint`
-and the generator part of `generator_config`).
+`_deep_merge`, `load_config` with `inherit:`, `load_config_near_checkpoint`,
+`generator_config` and the discriminator configs), and `dump_yaml`, which
+writes a config that `yaml.safe_load` and `parse_yaml` both read back as
+the same dict (PyYAML's `safe_dump` stands in the JAX package).
 
 The machine with the card has no PyYAML, so `parse_yaml` reads the subset
 of YAML that the repo's configs use, with PyYAML's (YAML 1.1) reading of
@@ -9,12 +11,13 @@ plain scalars so that it gives `yaml.safe_load`'s dict:
   - block maps and block lists (a list may sit at its key's indentation,
     and an item may open a nested list or map: `- - 1`, `- key: v`);
   - flow lists such as `[3, 4, 5, 5]`, nested ones included;
+  - the empty flow map `{}`;
   - null (`null`, `~`, empty), booleans (`true`, `yes`, `off`, ...),
     decimal ints, floats with a dot (`2.0e-4`; YAML 1.1 reads `1e-12`, with
     no dot, as a string), `.inf` and `.nan`;
   - plain, single- and double-quoted strings, and comments.
 
-Anything else (flow maps, anchors and aliases, tags, block scalars,
+Anything else (other flow maps, anchors and aliases, tags, block scalars,
 multi-line plain scalars, several documents, octal, hex and sexagesimal
 numbers, dates) raises ValueError rather than be read differently.
 """
@@ -25,6 +28,7 @@ import os
 import re
 
 from audiodec_tpu_torch.models import autoencoder as ae
+from audiodec_tpu_torch.models import discriminators as disc
 from audiodec_tpu_torch.models import vocoder as voc
 
 _NULL = {"", "~", "null", "Null", "NULL"}
@@ -92,6 +96,8 @@ def _quoted(text: str, where: str) -> str:
 
 def _scalar(text: str, where: str):
     text = text.strip()
+    if text == "{}":
+        return {}
     if text[:1] in ("'", '"'):
         return _quoted(text, where)
     if text[:1] == "[":
@@ -297,3 +303,176 @@ def generator_config(config: dict):
     if model_type in ("HiFiGAN", "UnivNet"):
         return voc.config_from_yaml(gp, stats=gp.get("stats") is not None)
     raise NotImplementedError(f"Model type {model_type} is not supported!")
+
+
+def _act_params(d: dict) -> tuple:
+    return tuple(sorted(d.get("nonlinear_activation_params", {}).items()))
+
+
+def _period_config(p: dict) -> disc.PeriodDiscriminatorConfig:
+    return disc.PeriodDiscriminatorConfig(
+        in_channels=p.get("in_channels", 1),
+        out_channels=p.get("out_channels", 1),
+        kernel_sizes=tuple(p.get("kernel_sizes", (5, 3))),
+        channels=p.get("channels", 32),
+        downsample_scales=tuple(p.get("downsample_scales", (3, 3, 3, 3, 1))),
+        max_downsample_channels=p.get("max_downsample_channels", 1024),
+        bias=p.get("bias", True),
+        nonlinear_activation=p.get("nonlinear_activation", "LeakyReLU"),
+        nonlinear_activation_params=_act_params(p),
+        use_spectral_norm=p.get("use_spectral_norm", False))
+
+
+def _mpd_config(d: dict) -> disc.MultiPeriodConfig:
+    return disc.MultiPeriodConfig(
+        periods=tuple(d.get("periods", (2, 3, 5, 7, 11))),
+        discriminator=_period_config(d.get("period_discriminator_params",
+                                           {})))
+
+
+def hifigan_discriminator_config(d: dict):
+    """A config's discriminator_params block -> HiFiGAN MSD + MPD."""
+    pool = d.get("scale_downsample_pooling_params", {})
+    p = d.get("scale_discriminator_params", {})
+    scale = disc.ScaleDiscriminatorConfig(
+        in_channels=p.get("in_channels", 1),
+        out_channels=p.get("out_channels", 1),
+        kernel_sizes=tuple(p.get("kernel_sizes", (15, 41, 5, 3))),
+        channels=p.get("channels", 128),
+        max_downsample_channels=p.get("max_downsample_channels", 1024),
+        max_groups=p.get("max_groups", 16),
+        bias=p.get("bias", True),
+        downsample_scales=tuple(p.get("downsample_scales", (2, 2, 4, 4, 1))),
+        nonlinear_activation=p.get("nonlinear_activation", "LeakyReLU"),
+        nonlinear_activation_params=_act_params(p))
+    return disc.HiFiGANDiscriminatorConfig(
+        msd=disc.MultiScaleConfig(
+            scales=d.get("scales", 3),
+            follow_official_norm=d.get("follow_official_norm", True),
+            pool_kernel=pool.get("kernel_size", 4),
+            pool_stride=pool.get("stride", 2),
+            pool_padding=pool.get("padding", 2),
+            discriminator=scale),
+        mpd=_mpd_config(d))
+
+
+def univnet_discriminator_config(d: dict):
+    """A config's discriminator_params block -> UnivNet MRSD + MPD."""
+    sp = d.get("spectral_discriminator_params", {})
+    default = disc.SpectralDiscriminatorConfig()
+    return disc.UnivNetDiscriminatorConfig(
+        mrsd=disc.MultiResolutionSpectralConfig(
+            fft_sizes=tuple(d.get("fft_sizes", (1024, 2048, 512))),
+            hop_sizes=tuple(d.get("hop_sizes", (120, 240, 50))),
+            win_lengths=tuple(d.get("win_lengths", (600, 1200, 240))),
+            discriminator=disc.SpectralDiscriminatorConfig(
+                kernel_sizes=tuple(tuple(k) for k in sp.get(
+                    "kernel_sizes", default.kernel_sizes)),
+                strides=tuple(tuple(s) for s in sp.get(
+                    "strides", default.strides)),
+                channels=sp.get("channels", 32),
+                bias=sp.get("bias", True),
+                nonlinear_activation=sp.get("nonlinear_activation",
+                                            "LeakyReLU"),
+                nonlinear_activation_params=(
+                    _act_params(sp) or (("negative_slope", 0.2),)))),
+        mpd=_mpd_config(d),
+        flat_channel=d.get("flat_channel", False))
+
+
+def discriminator_config(config: dict):
+    """model_type -> the discriminator's config."""
+    model_type = config.get("model_type", "symAudioDec")
+    dp = config.get("discriminator_params", {})
+    if model_type in ("symAudioDec", "HiFiGAN"):
+        return hifigan_discriminator_config(dp)
+    if model_type in ("symAudioDecUniv", "UnivNet"):
+        return univnet_discriminator_config(dp)
+    raise NotImplementedError(f"Model type {model_type} is not supported!")
+
+
+# ---------------------------------------------------------------------------
+# writing YAML
+# ---------------------------------------------------------------------------
+
+_PLAIN_STR = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*$")
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        # YAML 1.1 reads a float only with a dot: 1e-05 -> 1.0e-05
+        if "." not in text:
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0" + (f"e{exp}" if exp else "")
+        if "e" in text and text.split("e")[1][0] not in "+-":
+            text = text.replace("e", "e+")
+        return text
+    if isinstance(v, str):
+        if _PLAIN_STR.match(v) and _plain(v, "") == v:
+            return v
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} as YAML")
+
+
+def _dump_flow(v) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(x) for x in v) + "]"
+    return _dump_scalar(v)
+
+
+def _is_flat(v) -> bool:
+    """A list written as one flow list: scalars and such lists only."""
+    return all(_is_flat(x) if isinstance(x, (list, tuple))
+               else not isinstance(x, dict) for x in v)
+
+
+def _dump_block(v, indent: int, out: list):
+    pad = " " * indent
+    if isinstance(v, dict):
+        for k, item in v.items():
+            key = _dump_scalar(k)
+            if isinstance(item, dict) and item:
+                out.append(f"{pad}{key}:")
+                _dump_block(item, indent + 4, out)
+            elif isinstance(item, (list, tuple)) and not _is_flat(item):
+                out.append(f"{pad}{key}:")
+                _dump_block(item, indent + 4, out)
+            else:
+                out.append(f"{pad}{key}: " + ("{}" if isinstance(item, dict)
+                                              else _dump_flow(item)))
+        return
+    for item in v:
+        if isinstance(item, dict) and item:
+            lines: list = []
+            _dump_block(item, indent + 2, lines)
+            out.append(f"{pad}- " + lines[0][indent + 2:])
+            out.extend(lines[1:])
+        elif isinstance(item, (list, tuple)) and not _is_flat(item):
+            out.append(f"{pad}-")
+            _dump_block(item, indent + 2, out)
+        else:
+            out.append(f"{pad}- " + ("{}" if isinstance(item, dict)
+                                     else _dump_flow(item)))
+
+
+def dump_yaml(config: dict) -> str:
+    """A config dict (dicts, lists, strings, numbers, booleans, None) as
+    block YAML that yaml.safe_load and parse_yaml read back as `config`."""
+    if not isinstance(config, dict):
+        raise TypeError("dump_yaml writes a dict")
+    if not config:
+        return "{}\n"
+    out: list = []
+    _dump_block(config, 0, out)
+    return "\n".join(out) + "\n"

@@ -1,19 +1,17 @@
-"""Waveform quality metrics for codec evaluation, in numpy (counterpart of
-audiodec_tpu/utils/metrics.py: `snr_db`, `mel_distance`, `mcd_db`).
+"""Waveform quality metrics for codec evaluation, on numpy arrays
+(counterpart of audiodec_tpu/utils/metrics.py: `snr_db`, `mel_distance`,
+`mcd_db`).
 
-The log-mel front end is the port's own copy of the JAX package's
-`ops/spectral.py mel_spectrogram` as these metrics call it: torch.stft
-conventions (center, reflect padding, periodic Hann window), a slaney mel
-filterbank (librosa's default), fmin 0, fmax sr / 2, natural log.
+The log-mel front end is ops/spectral.py `mel_spectrogram` as the JAX
+package's metrics call it: fmin 0, fmax sr / 2, natural log.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
+import torch
 
-_EPS = 1e-10   # mel_spectrogram's default clamp
+from audiodec_tpu_torch.ops.spectral import mel_spectrogram
 
 
 def snr_db(reference: np.ndarray, estimate: np.ndarray) -> float:
@@ -30,58 +28,16 @@ def snr_db(reference: np.ndarray, estimate: np.ndarray) -> float:
     return float(10.0 * np.log10(p_sig / max(p_noise, 1e-30)))
 
 
-@lru_cache(maxsize=32)
-def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float,
-                   fmax: float) -> np.ndarray:
-    """Slaney-scale, slaney-normalized mel filterbank, (1 + n_fft//2,
-    n_mels), float32 (librosa.filters.mel(htk=False, norm='slaney').T)."""
-    f_sp = 200.0 / 3
-    min_log_hz = 1000.0
-    min_log_mel = min_log_hz / f_sp
-    logstep = np.log(6.4) / 27.0
-
-    def hz_to_mel(f):
-        f = np.asanyarray(f, dtype=np.float64)
-        return np.where(f >= min_log_hz,
-                        min_log_mel + np.log(np.maximum(f, 1e-10)
-                                             / min_log_hz) / logstep,
-                        f / f_sp)
-
-    def mel_to_hz(m):
-        m = np.asanyarray(m, dtype=np.float64)
-        return np.where(m >= min_log_mel,
-                        min_log_hz * np.exp(logstep * (m - min_log_mel)),
-                        f_sp * m)
-
-    fftfreqs = np.linspace(0, sr / 2.0, 1 + n_fft // 2)
-    mel_f = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
-                                  n_mels + 2))
-    fdiff = np.diff(mel_f)
-    ramps = mel_f[:, None] - fftfreqs[None, :]
-    lower = -ramps[:-2] / fdiff[:-1, None]
-    upper = ramps[2:] / fdiff[1:, None]
-    weights = np.maximum(0.0, np.minimum(lower, upper))
-    enorm = 2.0 / (mel_f[2 + np.arange(n_mels)] - mel_f[:n_mels])
-    weights *= enorm[:, None]
-    return weights.T.astype(np.float32)
-
-
 def log_mel(x: np.ndarray, sr: int, fft_size: int = 2048, hop: int = 300,
             num_mels: int = 80) -> np.ndarray:
-    """Natural-log mel spectrogram of a mono waveform (T,) -> (T', M)."""
-    x = np.asarray(x, np.float32).ravel()
-    xp = np.pad(x, (fft_size // 2, fft_size // 2), mode="reflect")
-    n_frames = 1 + (len(xp) - fft_size) // hop
-    idx = (np.arange(n_frames)[:, None] * hop
-           + np.arange(fft_size)[None, :])
-    n = np.arange(fft_size, dtype=np.float64)
-    window = (0.5 * (1.0 - np.cos(2.0 * np.pi * n / fft_size))).astype(
-        np.float32)
-    spec = np.fft.rfft(xp[idx] * window, n=fft_size, axis=-1)
-    power = np.real(spec) ** 2 + np.imag(spec) ** 2
-    amp = np.sqrt(np.maximum(power, _EPS))
-    mel = amp @ mel_filterbank(sr, fft_size, num_mels, 0.0, sr / 2)
-    return np.log(np.maximum(mel, _EPS))
+    """Natural-log mel spectrogram of a mono waveform (T,) -> (T', M):
+    ops/spectral.py mel_spectrogram on the CPU in float32."""
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32).ravel())
+    with torch.no_grad():
+        mel = mel_spectrogram(x[None], fs=sr, fft_size=fft_size,
+                              hop_size=hop, num_mels=num_mels, fmin=0,
+                              fmax=sr / 2, log_base=None)
+    return mel[0].numpy()
 
 
 def mel_distance(a: np.ndarray, b: np.ndarray, sr: int,

@@ -147,6 +147,32 @@ with the same bars, and at a codebook whose upper half repeats its lower
 half, where every index must lie in the lower half; `rvq_timing` prints
 the geometry beside the ms.
 
+The phases of slice 16 (training: `bin/codec_train.py`'s two stages on
+cuDNN and torch.autograd, no kernel of the port, as JAX trains on XLA
+convs; every launch count 0 over each training window): `train_golden`
+replays tests/golden/train_step.npz (3 metric, then 2 adversarial steps)
+at tests/test_train_step_parity.py's bars (per leaf median |diff| <=
+5e-7, q99 <= 5e-6, max <= 1.05 x the learning-rate budget), the frozen
+encoder and projector and the codebook unmoved, and the disc_hifigan and
+disc_univnet goldens at rtol 1e-3 / atol 1e-4; `train_path` trains the
+symAD config at its full widths and batch (16 x 9600) for 20 metric and 20
+adversarial steps on a seeded corpus under build/chip_smoke_train/
+(removed afterwards) and prints a line of step ms p50 / p90 per stage
+(CUDA events, after 3 warm-up steps), seconds of audio trained per
+second, peak memory and the first and last logged losses beside the
+card's name and power limit; it checks the log is finite, the encoder,
+projector and codebook bit-equal across the adversarial stage while the
+decoder and discriminator moved, --resume from step 20 to 40, and the
+final checkpoint through `codec_test` (1 s at f32), and profiles one step
+of each stage; `train_univ_path` runs the symADuniv config (MRSD + MPD),
+2 + 2 steps, with the same checks.  The steps are timed by wrapping the
+trainer's step functions; `train_path` also reports what the process
+holds before it trains (threads, objects tracked by the garbage
+collector, device memory reserved): the metric step waits on the host.
+`python3 chip_smoke.py train` builds the kernels and runs only the three
+training phases, in a fresh process, and prints no `kernels` line and no
+result line.
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -298,6 +324,7 @@ JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
 
 import contextlib
+import gc
 import io
 import json
 import shutil
@@ -307,6 +334,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -319,6 +347,7 @@ from audiodec_tpu_torch.archive import vq_kernel
 from audiodec_tpu_torch.bin import (
     codec_serve,
     codec_test,
+    codec_train,
     demo_file,
     folded_ablate,
     folded_probe,
@@ -328,6 +357,7 @@ from audiodec_tpu_torch.bin import (
 )
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
 from audiodec_tpu_torch.bin.kernel_bounds import bound_ms
+from audiodec_tpu_torch.models import discriminators as D
 from audiodec_tpu_torch.models import fast
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
@@ -363,14 +393,27 @@ from audiodec_tpu_torch.streaming import (
 )
 from audiodec_tpu_torch.streaming.net import CodecReceiver, CodecTransmitter
 from audiodec_tpu_torch.utils.bitstream import unpack_codes
+from audiodec_tpu_torch.ops.norms import resolve_params
+from audiodec_tpu_torch.train.criterion import build_criterion
+from audiodec_tpu_torch.train.optim import tree_leaves
+from audiodec_tpu_torch.train.steps import make_autoencoder_steps, train_state
 from audiodec_tpu_torch.utils.bridge import (
+    hifigan_disc_params_from_reference_sd,
+    mrsd_params_from_reference_sd,
     params_from_reference_sd,
     params_to_jax,
     tree_map,
     vocoder_params_from_reference_sd,
 )
-from audiodec_tpu_torch.utils.checkpoint import save_checkpoint
-from audiodec_tpu_torch.utils.config import generator_config, load_config
+from audiodec_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
+from audiodec_tpu_torch.utils.config import (
+    dump_yaml,
+    generator_config,
+    load_config,
+)
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
@@ -2618,12 +2661,33 @@ def cuda_launches_per_call(fn, source: str, want: int) -> int:
     return n
 
 
+def is_kernel(e) -> bool:
+    """A device event of the profiler that is work, not a user annotation
+    (the optimizer's step range is one)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the traced kernels' intervals, in ms: the device's busy
+    time even where kernels overlap (a library's side streams)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if is_kernel(e))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def phase_profile(path: str, tc, x):
-    """One more transcode of a path under torch.profiler: its wall time,
-    the device time summed over all kernels, the device's idle share (one
-    stream, so kernels do not overlap), the kernels with the most device
-    time and the launch counts of the traced transcode (its wrapper calls
-    by kernel, which name the CUDA kernels of `top`)."""
+    """One more transcode of a path (or a call of any fn(x)) under
+    torch.profiler: its wall time, the device time summed over all kernels,
+    the device's busy time (the union of the kernels' intervals) and idle
+    share, the kernels with the most device time, the CUDA kernel count
+    and the launch counts of the traced call (its wrapper calls by kernel,
+    which name the CUDA kernels of `top`)."""
     t0 = time.perf_counter()
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2633,14 +2697,18 @@ def phase_profile(path: str, tc, x):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1)
     launches = {k: n for k, n in read_launches().items() if n}
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if is_kernel(e)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    t2 = time.perf_counter()
+    busy_ms = device_busy_ms(prof)
+    walk_ms = 1e3 * (time.perf_counter() - t2)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     emit("profile", t0, path=path, wall_ms=wall_ms, device_ms=device_ms,
-         idle_share=1.0 - device_ms / wall_ms, launches=launches,
+         idle_share=1.0 - busy_ms / wall_ms, busy_ms=busy_ms,
+         busy_walk_ms=walk_ms,
+         launches=launches, cuda_kernels=sum(e.count for e in kernels),
          top=[{"name": e.key[:120], "calls": e.count,
                "device_ms": e.self_device_time_total / 1e3}
               for e in kernels[:PROFILE_TOP]])
@@ -3499,6 +3567,420 @@ def phase_stream_tools_path(device, params, card: str):
     emit("stream_tools_path", t0, **summary, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# slice 16: training (bin/codec_train.py's two stages; no kernel of the port)
+# ---------------------------------------------------------------------------
+
+# tests/test_train_step_parity.py's config (the reference trainer's golden)
+TRAIN_GOLDEN_CONFIG = {
+    "sampling_rate": 48000,
+    "use_mel_loss": True,
+    "mel_loss_params": {"fs": 48000, "fft_sizes": [512], "hop_sizes": [150],
+                        "win_lengths": [512], "num_mels": 16, "fmin": 0,
+                        "fmax": 24000, "log_base": None},
+    "use_stft_loss": False,
+    "use_shape_loss": False,
+    "use_feat_match_loss": True,
+    "feat_match_loss_params": {"average_by_discriminators": False,
+                               "average_by_layers": False},
+    "generator_adv_loss_params": {"average_by_discriminators": False},
+    "discriminator_adv_loss_params": {"average_by_discriminators": False},
+    "lambda_adv": 1.0, "lambda_feat_match": 2.0, "lambda_vq_loss": 1.0,
+    "lambda_mel_loss": 45.0,
+    "generator_optimizer_type": "Adam",
+    "generator_optimizer_params": {"lr": 1.0e-4, "betas": [0.5, 0.9],
+                                   "weight_decay": 0.0},
+    "generator_scheduler_type": "StepLR",
+    "generator_scheduler_params": {"step_size": 2, "gamma": 0.5},
+    "generator_grad_norm": -1,
+    "discriminator_optimizer_type": "Adam",
+    "discriminator_optimizer_params": {"lr": 2.0e-4, "betas": [0.5, 0.9],
+                                       "weight_decay": 0.0},
+    "discriminator_scheduler_type": "MultiStepLR",
+    "discriminator_scheduler_params": {"milestones": [1], "gamma": 0.5},
+    "discriminator_grad_norm": -1,
+}
+TRAIN_GOLDEN_GEN = GeneratorConfig(encode_channels=4, decode_channels=4,
+                                   code_dim=16, codebook_num=4,
+                                   codebook_size=32)
+TRAIN_GOLDEN_DISC = D.HiFiGANDiscriminatorConfig(
+    msd=D.MultiScaleConfig(scales=2, follow_official_norm=False,
+                           discriminator=D.ScaleDiscriminatorConfig(
+                               channels=16, max_downsample_channels=32,
+                               max_groups=4)),
+    mpd=D.MultiPeriodConfig(periods=(2, 3),
+                            discriminator=D.PeriodDiscriminatorConfig(
+                                channels=4, max_downsample_channels=16)))
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+SYMADUNIV_YAML = (ROOT / "configs" / "autoencoder"
+                  / "symADuniv_vctk_48000_hop300.yaml")
+TRAIN_WARMUP = 3
+
+
+def _sub(data, prefix):
+    return {k[len(prefix):]: data[k] for k in data.files
+            if k.startswith(prefix)}
+
+
+def library_launches() -> dict:
+    """The CUDA launches the kernel libraries that count their own have
+    made in this process (ops/kernels/folded_stack.py cuda_launches)."""
+    return {src: folded_stack.cuda_launches(src)
+            for src in ("resunit_stack", "wide_stack_mma")}
+
+
+def no_training_launches(phase: str, before: dict) -> dict:
+    """Training runs no kernel of the port, as JAX's runs no pallas_call:
+    every wrapper count 0 and no library launch since `before`."""
+    launches = no_kernel_launches(phase)
+    cuda = {k: n - before[k] for k, n in library_launches().items()}
+    if any(cuda.values()):
+        raise AssertionError(f"{phase}: CUDA launches {cuda}")
+    return {**launches, "library_cuda_launches": cuda}
+
+
+def parity_bars(ours, ref, lr_budget: float, label: str) -> dict:
+    """tests/test_train_step_parity.py's bars per leaf: median |diff| <=
+    5e-7, q99 <= 5e-6, max <= 1.05 x the learning-rate budget -> the worst
+    of each over the leaves."""
+    ours, ref = dict(tree_leaves(ours)), dict(tree_leaves(ref))
+    if sorted(ours) != sorted(ref):
+        raise AssertionError(f"{label}: trees differ")
+    worst = {"median": 0.0, "q99": 0.0, "max": 0.0}
+    for path in ours:
+        d = np.abs(ours[path].detach().double().cpu().numpy()
+                   - ref[path].detach().double().cpu().numpy())
+        got = {"median": float(np.median(d)),
+               "q99": float(np.quantile(d, 0.99)), "max": float(d.max())}
+        bars = {"median": 5e-7, "q99": 5e-6, "max": 1.05 * lr_budget}
+        for k in got:
+            if got[k] > bars[k]:
+                raise AssertionError(f"{label}{path}: {k} |diff| {got[k]} "
+                                     f"over {bars[k]}")
+            worst[k] = max(worst[k], got[k])
+    return worst
+
+
+def disc_golden(name, cfg, params_of, apply, device) -> float:
+    """A discriminator golden on the card at the JAX test's rtol 1e-3 /
+    atol 1e-4 -> the largest error over every feature map."""
+    data = np.load(GOLDEN / f"{name}.npz")
+    eff, _ = resolve_params(tree_map(lambda t: t.to(device),
+                                     params_of(_sub(data, "sd__"))))
+    x = torch.from_numpy(data["x"].transpose(0, 2, 1).copy()).to(device)
+    with torch.no_grad():
+        outs = apply(eff, x, cfg)
+    worst = 0.0
+    for i, branch in enumerate(outs):
+        for j, t in enumerate(branch):
+            ref = data[f"out_{i}_{j}"]
+            got = t.cpu().numpy()
+            if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-3,
+                                                         atol=1e-4):
+                raise AssertionError(f"{name}: branch {i} layer {j}")
+            worst = max(worst, float(np.abs(got - ref).max()))
+    return worst
+
+
+def phase_train_golden(device):
+    """The reference trainer's golden (tests/golden/train_step.npz) on the
+    card: 3 metric steps, then 2 adversarial steps, through
+    train/steps.py, held to the parity test's bars; the frozen encoder and
+    projector, and the codebook, unmoved by the adversarial steps; the
+    HiFiGAN and UnivNet discriminator goldens.  No kernel launches."""
+    t0 = time.perf_counter()
+    data = np.load(GOLDEN / "train_step.npz")
+    on = partial(tree_map, lambda t: t.to(device))
+    gen = on(params_from_reference_sd(_sub(data, "sd0_gen__"),
+                                      TRAIN_GOLDEN_GEN))
+    disc = on(hifigan_disc_params_from_reference_sd(
+        _sub(data, "sd0_disc__"), TRAIN_GOLDEN_DISC, fold=False))
+    state = train_state(gen, disc, TRAIN_GOLDEN_CONFIG)
+    steps = make_autoencoder_steps(
+        TRAIN_GOLDEN_GEN,
+        lambda p, x: D.hifigan_discriminator_apply(p, x, TRAIN_GOLDEN_DISC),
+        TRAIN_GOLDEN_CONFIG, build_criterion(TRAIN_GOLDEN_CONFIG))
+    x_all = torch.from_numpy(data["x_all"].transpose(0, 1, 3, 2).copy()
+                             ).to(device)
+    n_metric, n_adv = int(data["n_metric"]), int(data["n_adv"])
+    reset_launches()
+    cuda = library_launches()
+    for i in range(n_metric):
+        state, _ = steps["metric"](state, x_all[i])
+
+    def ref_gen(key):
+        return params_from_reference_sd(_sub(data, key), TRAIN_GOLDEN_GEN)
+
+    bars = {"metric_gen": parity_bars(state["gen"], ref_gen("sdm_gen__"),
+                                      3 * 1e-4, "metric:gen:")}
+    codebook = state["gen"]["quantizer"]["embed"].clone()
+    records = []
+    for i in range(n_metric, n_metric + n_adv):
+        state, rec = steps["adv"](state, x_all[i])
+        records.append({k: float(v) for k, v in rec.items()})
+    torch.cuda.synchronize()
+    launches = no_training_launches("train_golden", cuda)
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        raise AssertionError(f"train_golden: losses {records}")
+    ref_a = ref_gen("sda_gen__")
+    for sub in ("encoder", "projector"):
+        bars[f"adv_frozen_{sub}"] = parity_bars(
+            {sub: state["gen"][sub]}, {sub: ref_a[sub]}, 3 * 1e-4,
+            "adv:frozen:")
+    embed = state["gen"]["quantizer"]["embed"]
+    if not torch.equal(embed, codebook) or not np.allclose(
+            embed.cpu().numpy(), ref_a["quantizer"]["embed"].numpy(),
+            rtol=1e-4, atol=1e-5):
+        raise AssertionError("train_golden: the codebook moved in the "
+                             "adversarial stage")
+    bars["adv_decoder"] = parity_bars(
+        {"decoder": state["gen"]["decoder"]}, {"decoder": ref_a["decoder"]},
+        3 * 1e-4 + 2 * 5e-5, "adv:gen:")
+    bars["adv_disc"] = parity_bars(
+        state["disc"], hifigan_disc_params_from_reference_sd(
+            _sub(data, "sda_disc__"), TRAIN_GOLDEN_DISC, fold=False),
+        2e-4 + 1e-4, "adv:disc:")
+
+    hifigan = D.HiFiGANDiscriminatorConfig(
+        msd=D.MultiScaleConfig(follow_official_norm=False,
+                               discriminator=D.ScaleDiscriminatorConfig(
+                                   channels=16, max_downsample_channels=64)),
+        mpd=D.MultiPeriodConfig(discriminator=D.PeriodDiscriminatorConfig(
+            channels=8, max_downsample_channels=64)))
+    mrsd = D.MultiResolutionSpectralConfig(
+        discriminator=D.SpectralDiscriminatorConfig(channels=16))
+    golden = {"disc_hifigan": disc_golden(
+        "disc_hifigan", hifigan,
+        lambda sd: hifigan_disc_params_from_reference_sd(sd, hifigan),
+        D.hifigan_discriminator_apply, device)}
+    golden["disc_univnet"] = disc_golden(
+        "disc_univnet", mrsd,
+        lambda sd: mrsd_params_from_reference_sd(sd, mrsd),
+        D.mrsd_apply, device)
+    emit("train_golden", t0, steps={"metric": n_metric, "adv": n_adv},
+         worst_per_leaf=bars, adv_records=records,
+         disc_golden_max_abs_err=golden, launches=launches)
+
+
+def train_corpus(root: Path, rng):
+    """Seeded 48 kHz wavs: 32 of 1 s to train on, 16 of 0.5 s to
+    evaluate on (one batch of 16)."""
+    for sub, n, seconds in (("train", 32, 1.0), ("valid", 16, 0.5)):
+        (root / sub).mkdir(parents=True)
+        for i in range(n):
+            x = 0.3 * np.sin(np.arange(int(seconds * SR))
+                             * rng.uniform(0.01, 0.2))
+            x = x + 0.05 * rng.standard_normal(x.shape)
+            write_wav(str(root / sub / f"u{i:02d}.wav"),
+                      x[:, None].astype(np.float32), SR)
+
+
+def timed_steps(trainer) -> dict:
+    """Wrap the trainer's metric and adversarial steps so that each call is
+    timed with CUDA events -> {stage: [(start, end), ...]}, filled as the
+    run goes."""
+    marks = {"metric": [], "adv": []}
+    for stage, out in marks.items():
+        def timed(state, x, step=trainer.steps_fns[stage], out=out):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = step(state, x)
+            end.record()
+            out.append((start, end))
+            return result
+        trainer.steps_fns[stage] = timed
+    return marks
+
+
+def host_census() -> dict:
+    """What else the process holds when a host-bound step is timed: its
+    live threads, the objects the garbage collector tracks, and the
+    device memory the caching allocator keeps."""
+    return {"threads": sorted(t.name for t in threading.enumerate()),
+            "gc_objects": len(gc.get_objects()),
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+
+
+def train_run(yaml_path: Path, tag: str, metric: int, adv: int, **over):
+    """codec_train's trainer on a config with only the data paths, step
+    counts and intervals changed, each step timed -> (trainer, config,
+    seconds, peak GiB, launches, {stage: step ms}, host census before the
+    run)."""
+    argv = over.pop("argv", [])
+    cfg = load_config(str(yaml_path))
+    cfg["data"] = {"path": str(TRAIN_DIR / "data"),
+                   "subset": {"train": "train", "valid": "valid"}}
+    cfg["start_steps"] = dict(cfg.get("start_steps", {}),
+                              discriminator=metric)
+    cfg.update(train_max_steps=metric, adv_train_max_steps=metric + adv,
+               **over)
+    cfg_path = TRAIN_DIR / f"{tag}.yaml"
+    cfg_path.write_text(dump_yaml(cfg))
+    census = host_census()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cuda = library_launches()
+    t1 = time.perf_counter()
+    trainer = codec_train.build_trainer(["--config", str(cfg_path), "--tag",
+                                         str(TRAIN_DIR / tag)] + argv)
+    steps = dict(trainer.steps_fns)
+    marks = timed_steps(trainer)
+    trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    trainer.steps_fns = steps
+    launches = no_training_launches(tag, cuda)
+    ms = {stage: [a.elapsed_time(b) for a, b in pairs]
+          for stage, pairs in marks.items()}
+    return (trainer, cfg, seconds,
+            torch.cuda.max_memory_allocated() / 2 ** 30, launches, ms,
+            census)
+
+
+def logged_losses(tag: str) -> list:
+    with open(TRAIN_DIR / tag / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    bad = [r for r in recs if not all(np.isfinite(v) for v in r.values())]
+    if bad:
+        raise AssertionError(f"{tag}: a logged loss is not finite: {bad[0]}")
+    return recs
+
+
+def stage_changes(tag: str, before: str) -> dict:
+    """Which subtrees moved between two checkpoints of a run: the frozen
+    ones must be bit-equal, the decoder and discriminator must have
+    moved."""
+    a, _ = load_checkpoint(str(TRAIN_DIR / tag / before))
+    b, _ = load_checkpoint(str(TRAIN_DIR / tag / "checkpoint-final.ckpt"))
+    moved = {}
+    for sub in ("gen/encoder", "gen/projector", "gen/quantizer",
+                "gen/decoder", "disc"):
+        key = sub.split("/")
+        ta, tb = a, b
+        for k in key:
+            ta, tb = ta[k], tb[k]
+        la, lb = dict(tree_leaves(ta)), dict(tree_leaves(tb))
+        moved[sub] = sum(not np.array_equal(la[p], lb[p]) for p in la)
+    frozen = [s for s in ("gen/encoder", "gen/projector", "gen/quantizer")
+              if moved[s]]
+    if frozen or not moved["gen/decoder"] or not moved["disc"]:
+        raise AssertionError(f"{tag}: leaves moved in the adversarial "
+                             f"stage {moved}")
+    return moved
+
+
+def step_stats(step_ms: dict, audio_seconds_per_step: float) -> dict:
+    """Per stage: step ms p50 / p90 (CUDA events, after TRAIN_WARMUP
+    steps) and seconds of audio trained per second."""
+    out = {}
+    for stage, ms in step_ms.items():
+        ms = ms[TRAIN_WARMUP:] or ms
+        if not ms:
+            continue
+        p50 = float(np.percentile(ms, 50))
+        out[stage] = {"steps": len(ms), "p50_ms": p50,
+                      "p90_ms": float(np.percentile(ms, 90)),
+                      "audio_s_per_s": audio_seconds_per_step / p50 * 1e3}
+    return out
+
+
+def phase_train_path(card: str):
+    """bin/codec_train.py on the symAD config at its full widths and batch
+    (16 x 9600): 20 metric steps, then 20 adversarial steps against the
+    full HiFiGAN MSD + MPD, an eval at step 40, checkpoints at 20 and 40
+    and the final one; then --resume from step 20 to step 40, and the
+    final checkpoint through the port's codec_test (1 s at f32); one more
+    step of each stage profiled.  Every kernel count reads 0 over the
+    training windows and the profiled steps."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    train_corpus(TRAIN_DIR / "data", np.random.default_rng(SEED))
+    trainer, cfg, seconds, peak, launches, ms, census = train_run(
+        SYMAD_YAML, "symad", 20, 20, save_interval_steps=20,
+        eval_interval_steps=40, log_interval_steps=5)
+    if trainer.steps != 40:
+        raise AssertionError(f"train_path: stopped at {trainer.steps}")
+    recs = logged_losses("symad")
+    train = [r for r in recs if "train/generator_loss" in r]
+    evals = [r for r in recs if "eval/generator_loss" in r]
+    if len(evals) != 1 or "train/discriminator_loss" not in train[-1]:
+        raise AssertionError(f"train_path: log {recs}")
+    moved = stage_changes("symad", "checkpoint-20steps.ckpt")
+    audio = cfg["batch_size"] * cfg["batch_length"] / SR
+    stats = step_stats(ms, audio)
+    summary = {"card": card, "batch": [cfg["batch_size"],
+                                       cfg["batch_length"]],
+               **{f"{k}_{m}": v[m] for k, v in stats.items()
+                  for m in ("p50_ms", "p90_ms", "audio_s_per_s")},
+               "peak_gib": peak, "first_log": train[0], "last_log": train[-1]}
+    print("train_path " + json.dumps(summary), flush=True)
+    x = 0.3 * torch.randn(cfg["batch_size"], cfg["batch_length"], 1,
+                          generator=torch.Generator(device=trainer.device)
+                          .manual_seed(SEED), device=trainer.device)
+    for stage in ("metric", "adv"):
+        step = trainer.steps_fns[stage]
+        cuda = library_launches()
+        phase_profile(f"train_path_{stage}_step",
+                      lambda v: step(trainer.state, v), x)
+        no_training_launches(f"train_path_{stage}_step", cuda)
+
+    resumed, _, resume_seconds, _, resume_launches, _, _ = train_run(
+        SYMAD_YAML, "symad_resumed", 20, 20, save_interval_steps=20,
+        eval_interval_steps=40, log_interval_steps=5,
+        argv=["--resume", str(TRAIN_DIR / "symad" /
+                              "checkpoint-20steps.ckpt")])
+    _, header = load_checkpoint(str(TRAIN_DIR / "symad_resumed" /
+                                    "checkpoint-final.ckpt"))
+    if resumed.steps != 40 or header["steps"] != 40:
+        raise AssertionError(f"train_path: resumed to {resumed.steps}, "
+                             f"header {header}")
+
+    wavs = TRAIN_DIR / "codec_test"
+    wavs.mkdir()
+    x = 0.3 * np.sin(np.arange(SR) * 0.05)
+    write_wav(str(wavs / "one.wav"), x[:, None].astype(np.float32), SR)
+    final = str(TRAIN_DIR / "symad" / "checkpoint-final.ckpt")
+    reset_launches()
+    summary_cli = codec_test.main(["--encoder", final, "--decoder", final,
+                                   "--data-path", str(wavs), "--outdir",
+                                   str(TRAIN_DIR / "codec_test_out"),
+                                   "--dtype", "float32"])
+    cli_launches = read_launches()
+    y, sr = read_wav(str(TRAIN_DIR / "codec_test_out" / "one_output.wav"))
+    if y.shape != (SR, 1) or sr != SR or not np.all(np.isfinite(y)):
+        raise AssertionError(f"train_path: codec_test wrote {y.shape}")
+    shutil.rmtree(TRAIN_DIR / "symad_resumed", ignore_errors=True)
+    emit("train_path", t0, config=str(SYMAD_YAML.relative_to(ROOT)),
+         seconds_of_training=seconds, steps=stats, peak_gib=peak,
+         moved_leaves=moved, launches=launches, host=census,
+         resume={"steps": resumed.steps, "seconds": resume_seconds,
+                 "launches": resume_launches},
+         codec_test={"summary": summary_cli, "launches": cli_launches,
+                     "peak_abs_y": float(np.abs(y).max())})
+
+
+def phase_train_univ_path(card: str):
+    """The symADuniv config (UnivNet's MRSD + MPD) at its widths and batch:
+    2 metric steps and 2 adversarial steps, with the finiteness and the
+    freezing checks."""
+    t0 = time.perf_counter()
+    trainer, cfg, seconds, peak, launches, ms, _ = train_run(
+        SYMADUNIV_YAML, "symaduniv", 2, 2, save_interval_steps=2,
+        eval_interval_steps=10 ** 6, log_interval_steps=1)
+    if trainer.steps != 4:
+        raise AssertionError(f"train_univ_path: stopped at {trainer.steps}")
+    recs = logged_losses("symaduniv")
+    moved = stage_changes("symaduniv", "checkpoint-2steps.ckpt")
+    summary = {"card": card, "metric_ms": ms["metric"], "adv_ms": ms["adv"],
+               "peak_gib": peak, "last_log": recs[-1]}
+    print("train_univ_path " + json.dumps(summary), flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    emit("train_univ_path", t0, config=str(SYMADUNIV_YAML.relative_to(ROOT)),
+         seconds_of_training=seconds, moved_leaves=moved, launches=launches)
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -3547,6 +4029,8 @@ def summed(rows, key):
 
 
 def main():
+    if sys.argv[1:] not in ([], ["train"]):
+        sys.exit("usage: python3 chip_smoke.py [train]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -3562,6 +4046,11 @@ def main():
          cuda=torch.version.cuda, nvidia_smi=card)
 
     phase_build()
+    if sys.argv[1:] == ["train"]:
+        phase_train_golden(device)
+        phase_train_path(card)
+        phase_train_univ_path(card)
+        return
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
     phase_voc_kernel_vs_plain(device)
@@ -3613,6 +4102,9 @@ def main():
     phase_batchfold_path(device, params, x, card)
     serve_launches = phase_serve_path(device, params, card)
     phase_stream_tools_path(device, params, card)
+    phase_train_golden(device)
+    phase_train_path(card)
+    phase_train_univ_path(card)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,

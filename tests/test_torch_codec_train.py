@@ -1,0 +1,368 @@
+"""The port's training command line (`bin/codec_train.py`) on the CPU: a few
+steps of each stage on a seeded tiny corpus at gen_small-like widths, its
+JSONL log and checkpoints, resume and warm start; the checkpoint read by
+the JAX package (`load_only_params` onto a JAX template gives JAX the
+port's outputs) and by the port's `codec_test`; `config.yml` read back by
+JAX's `load_config`; the seeded collater and loader against JAX's.
+
+Tolerances: outputs of the JAX and port models on one checkpoint within a
+relative 1e-5 of the largest entry; batches, configs and restored states
+exactly.
+"""
+
+import glob
+import itertools
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from audiodec_tpu.data import collate as jax_collate
+from audiodec_tpu.data import loader as jax_loader
+from audiodec_tpu.models import autoencoder as jax_ae
+from audiodec_tpu.models import discriminators as jax_disc
+from audiodec_tpu.ops import norms as jax_norms
+from audiodec_tpu.train import checkpoint as jax_ckpt
+from audiodec_tpu.utils import config as jax_config
+from audiodec_tpu_torch.bin import codec_test, codec_train
+from audiodec_tpu_torch.data.collate import CollaterAudio
+from audiodec_tpu_torch.data.dataset import SingleDataset
+from audiodec_tpu_torch.data.loader import DataLoader
+from audiodec_tpu_torch.data.wav import write_wav
+from audiodec_tpu_torch.models import autoencoder as ae
+from audiodec_tpu_torch.models import discriminators as D
+from audiodec_tpu_torch.ops.norms import resolve_params
+from audiodec_tpu_torch.train import checkpoint as ckpt
+from audiodec_tpu_torch.utils.checkpoint import load_only_params
+from audiodec_tpu_torch.train.optim import tree_leaves
+from audiodec_tpu_torch.utils import bridge, config
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SYMAD = os.path.join(ROOT, "configs", "autoencoder",
+                     "symAD_vctk_48000_hop300.yaml")
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
+                           recursive=True))
+SR = 48000
+
+
+def _corpus(root):
+    rng = np.random.default_rng(0)
+    for sub, n in (("train", 6), ("valid", 2)):
+        os.makedirs(os.path.join(root, sub))
+        for i in range(n):
+            write_wav(os.path.join(root, sub, f"{i}.wav"),
+                      (0.3 * rng.standard_normal(3000 + 500 * i)
+                       ).astype(np.float32), SR)
+
+
+def _tiny_config(data_path, **over):
+    cfg = config.load_config(SYMAD)
+    cfg["data"] = {"path": data_path,
+                   "subset": {"train": "train", "valid": "valid"}}
+    cfg["generator_params"].update(encode_channels=4, decode_channels=4,
+                                   code_dim=16, codebook_num=4,
+                                   codebook_size=32)
+    dp = cfg["discriminator_params"]
+    dp["scales"], dp["periods"] = 2, [2, 3]
+    dp["scale_discriminator_params"].update(
+        channels=16, max_downsample_channels=32, max_groups=4)
+    dp["period_discriminator_params"].update(channels=4,
+                                             max_downsample_channels=16)
+    cfg.update(batch_size=2, batch_length=1200, adv_batch_length=1200,
+               num_workers=1, start_steps={"generator": 0,
+                                           "discriminator": 2},
+               train_max_steps=2, adv_train_max_steps=4,
+               save_interval_steps=2, eval_interval_steps=2,
+               log_interval_steps=1)
+    cfg.update(over)
+    return cfg
+
+
+def _write(path, cfg):
+    with open(path, "w") as f:
+        f.write(config.dump_yaml(cfg))
+    return path
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Four steps (two metric, two adversarial) of the tiny config."""
+    root = tmp_path_factory.mktemp("train")
+    _corpus(str(root / "data"))
+    cfg = _tiny_config(str(root / "data"))
+    cfg_path = _write(str(root / "cfg.yaml"), cfg)
+    tag = str(root / "exp")
+    trainer = codec_train.main(["--config", cfg_path, "--tag", tag,
+                                "--device", "cpu", "--seed", "3"])
+    return root, cfg, cfg_path, tag, trainer
+
+
+def test_runs_both_stages_and_logs(run):
+    _, _, _, tag, trainer = run
+    assert trainer.steps == 4
+    with open(os.path.join(tag, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if "train/generator_loss" in r]
+    evals = [r for r in recs if "eval/generator_loss" in r]
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert [r["step"] for r in evals] == [2, 4]
+    assert "train/discriminator_loss" not in train[1]
+    for key in ("mel_loss", "vqloss", "ppl_3", "adversarial_loss",
+                "feature_matching_loss", "real_loss", "fake_loss",
+                "discriminator_loss"):
+        assert f"train/{key}" in train[2], key
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    for name in ("checkpoint-2steps.ckpt", "checkpoint-4steps.ckpt",
+                 "checkpoint-final.ckpt", "config.yml"):
+        assert os.path.exists(os.path.join(tag, name)), name
+    _, header = load_only_params(
+        os.path.join(tag, "checkpoint-final.ckpt"))
+    assert header["steps"] == 4
+
+
+def test_adversarial_stage_freezes_encoder_and_codebook(run):
+    _, _, _, tag, _ = run
+    at2, _ = load_only_params(os.path.join(tag,
+                                                "checkpoint-2steps.ckpt"))
+    at4, _ = load_only_params(os.path.join(tag,
+                                                "checkpoint-4steps.ckpt"))
+    a, b = dict(tree_leaves(at2)), dict(tree_leaves(at4))
+    for path in a:
+        if path.split("/")[0] in ("encoder", "projector", "quantizer"):
+            np.testing.assert_array_equal(a[path], b[path], err_msg=path)
+    assert any(not np.array_equal(a[p], b[p]) for p in a
+               if p.startswith("decoder"))
+
+
+def test_config_yml_reads_back_in_jax(run):
+    _, cfg, cfg_path, tag, _ = run
+    written = os.path.join(tag, "config.yml")
+    assert jax_config.load_config(written) == cfg
+    assert config.load_config(written) == cfg
+    assert jax_config.load_config(cfg_path) == cfg
+
+
+@pytest.mark.parametrize("path", CONFIGS,
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_dump_yaml_round_trips(path):
+    """Every shipped config, as dump_yaml writes it, reads back equal
+    through PyYAML and through the port's parser."""
+    cfg = config.load_config(path)
+    text = config.dump_yaml(cfg)
+    assert yaml.safe_load(text) == cfg
+    assert config.parse_yaml(text) == cfg
+
+
+def test_dump_yaml_odd_values():
+    cfg = {"a": 1e-05, "b": [1e-12, 2.5, float("inf"), -3], "c": {},
+           "d": [], "e": "yes", "f": "it's", "g": [[3, 9], [1, 2]],
+           "h": [{"x": 1, "y": [1, 2]}, {"z": None}], "i": "1e-12",
+           "j": "a b: c", "k": "", "l": 1e20, "m": True}
+    text = config.dump_yaml(cfg)
+    assert yaml.safe_load(text) == cfg
+    assert config.parse_yaml(text) == cfg
+
+
+def _gen_cfgs(cfg):
+    gp = cfg["generator_params"]
+    return (jax_ae.config_from_yaml(gp), ae.config_from_yaml(gp))
+
+
+def test_checkpoint_loads_in_jax(run):
+    """JAX's load_only_params reads the port's gen and disc onto JAX
+    templates (folding the MPD's weight norm), and JAX's forward on them
+    gives the port's."""
+    _, cfg, _, tag, _ = run
+    path = os.path.join(tag, "checkpoint-final.ckpt")
+    jcfg, pcfg = _gen_cfgs(cfg)
+    template = jax.eval_shape(lambda k: jax_ae.generator_init(k, jcfg),
+                              jax.random.PRNGKey(0))
+    jgen, header = jax_ckpt.load_only_params(path, "gen", template=template)
+    assert header["steps"] == 4
+    x = (0.3 * np.random.default_rng(1).standard_normal((2, 1200, 1))
+         ).astype(np.float32)
+    want = jax.jit(lambda p, v: jax_ae.generator_forward(p, v, jcfg)[0])(
+        jgen, jnp.asarray(x))
+    gen = bridge.params_from_jax(load_only_params(path)[0])
+    got = ae.generator_forward(gen, torch.from_numpy(x), pcfg)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.max(np.abs(want))))
+
+    djcfg = jax_config.discriminator_config(cfg)
+    dtemplate = jax.eval_shape(lambda k: jax_norms.resolve_params(
+        jax_disc.hifigan_discriminator_init(k, djcfg))[0],
+        jax.random.PRNGKey(0))
+    jdisc, _ = jax_ckpt.load_only_params(path, "disc", template=dtemplate)
+    want = jax.jit(lambda p, v: jax_disc.hifigan_discriminator_apply(
+        p, v, djcfg))(jdisc, jnp.asarray(x))
+    disc = bridge.disc_params_from_jax(load_only_params(
+        path, "disc", fold=False)[0])
+    eff, _ = resolve_params(disc)
+    got = D.hifigan_discriminator_apply(
+        eff, torch.from_numpy(x), config.discriminator_config(cfg))
+    for branch_g, branch_w in zip(got, want):
+        g, w = branch_g[-1].detach().numpy(), np.asarray(branch_w[-1])
+        np.testing.assert_allclose(g.reshape(w.shape[0], -1),
+                                   w.reshape(w.shape[0], -1), rtol=1e-5,
+                                   atol=1e-5 * float(np.max(np.abs(w))))
+
+
+def test_codec_test_reads_the_checkpoint(run, tmp_path):
+    """The final checkpoint (JAX format, config.yml beside it) through the
+    port's codec_test on the CPU: finite output of the input's length."""
+    root, _, _, tag, _ = run
+    path = os.path.join(tag, "checkpoint-final.ckpt")
+    out = str(tmp_path / "out")
+    codec_test.main(["--encoder", path, "--decoder", path, "--data-path",
+                     str(root / "data" / "valid"), "--outdir", out,
+                     "--stack", "plain", "--device", "cpu"])
+    wavs = sorted(glob.glob(os.path.join(out, "**", "*.wav"),
+                            recursive=True))
+    assert len(wavs) == 2
+    from audiodec_tpu_torch.data.wav import read_wav
+    for w in wavs:
+        y, sr = read_wav(w)
+        assert sr == SR and np.all(np.isfinite(y))
+
+
+def test_resume_restores_the_state(run, tmp_path):
+    """--resume from the step-2 checkpoint: the trained state and the
+    optimizers' moments and schedules as saved, then on to step 4."""
+    root, cfg, cfg_path, tag, _ = run
+    resumed = codec_train.main(["--config", cfg_path, "--tag",
+                                str(tmp_path / "resumed"), "--device",
+                                "cpu", "--resume",
+                                os.path.join(tag, "checkpoint-2steps.ckpt")])
+    assert resumed.steps == 4
+    _, header = load_only_params(str(tmp_path / "resumed" /
+                                          "checkpoint-final.ckpt"))
+    assert header["steps"] == 4
+
+    # a state restored from a checkpoint writes the same checkpoint back
+    from audiodec_tpu_torch.utils import checkpoint as ckpt_io
+
+    state = resumed.state
+    state, header = ckpt.load_checkpoint(
+        os.path.join(tag, "checkpoint-2steps.ckpt"), state)
+    again = str(tmp_path / "again.ckpt")
+    ckpt.save_checkpoint(again, state, header["steps"])
+    a = dict(tree_leaves(ckpt_io.load_checkpoint(again)[0]))
+    b = dict(tree_leaves(ckpt_io.load_checkpoint(
+        os.path.join(tag, "checkpoint-2steps.ckpt"))[0]))
+    assert sorted(a) == sorted(b)
+    for p in a:
+        np.testing.assert_array_equal(np.asarray(a[p]), np.asarray(b[p]),
+                                      err_msg=p)
+    assert any("/exp_avg_sq" in p for p in a)
+
+
+def test_warm_start_from_a_jax_checkpoint(run, tmp_path):
+    """`initial:` takes the generator of a checkpoint the JAX package
+    wrote; with no step to run, the final checkpoint holds it as it is."""
+    root, cfg, _, _, _ = run
+    _, pcfg = _gen_cfgs(cfg)
+    jgen = bridge.params_to_jax(ae.generator_init(
+        pcfg, torch.Generator().manual_seed(5)))
+    init_path = str(tmp_path / "jax.ckpt")
+    jax_ckpt.save_checkpoint(init_path, {"gen": jgen}, 0)
+    cfg_path = _write(str(tmp_path / "cfg.yaml"),
+                      dict(cfg, initial=init_path, adv_train_max_steps=0))
+    codec_train.main(["--config", cfg_path, "--tag", str(tmp_path / "w"),
+                      "--device", "cpu"])
+    got = dict(tree_leaves(load_only_params(
+        str(tmp_path / "w" / "checkpoint-final.ckpt"))[0]))
+    want = dict(tree_leaves(jgen))
+    assert sorted(got) == sorted(want)
+    for p in want:
+        np.testing.assert_array_equal(got[p], want[p], err_msg=p)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_collater_and_loader_match_jax(run, workers):
+    """Seeded crops and shuffles equal JAX's, batch for batch over two
+    epochs (one worker: the collater's draws in batch order; two: the
+    loader's order and its shuffle, crops drawn in whichever order the
+    threads take)."""
+    root = run[0]
+    files = str(root / "data" / "train")
+    ours = DataLoader(SingleDataset(files), CollaterAudio(1200, seed=4), 2,
+                      num_workers=workers, seed=7)
+    from audiodec_tpu.data.dataset import SingleDataset as JaxDataset
+
+    theirs = jax_loader.DataLoader(JaxDataset(files),
+                                   jax_collate.CollaterAudio(1200, seed=4),
+                                   2, num_workers=workers, seed=7)
+    assert len(ours) == len(theirs) == 3
+    a, b = ours.infinite(), theirs.infinite()
+    for _ in range(2 * len(ours)):
+        x, y = next(a), next(b)
+        assert x.shape == y.shape == (2, 1200, 1)
+        if workers == 1:
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("argv,mode", [
+    ([], "vocoder"), ([], "denoise"), (["--dp", "2"], None),
+    (["--coordinator", "localhost:1234"], None),
+    (["--num-processes", "2"], None)])
+def test_unported_modes_raise(run, tmp_path, argv, mode):
+    _, cfg, cfg_path, _, _ = run
+    if mode:
+        cfg_path = _write(str(tmp_path / "cfg.yaml"),
+                          dict(cfg, train_mode=mode))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A[67]"):
+        codec_train.main(["--config", cfg_path, "--tag",
+                          str(tmp_path / "x"), "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("start", [0, 2])
+def test_trainer_stages_and_sigterm(tmp_path, start):
+    """GanTrainer's stage switch (the adversarial stage from step
+    start_steps.discriminator on, JAX's strict_start), and SIGTERM: the
+    run stops after the step in flight with checkpoint-final.ckpt."""
+    import signal
+
+    from audiodec_tpu_torch.train.steps import train_state
+    from audiodec_tpu_torch.train.trainer import GanTrainer
+
+    cfg = _tiny_config("unused")
+    gcfg = ae.config_from_yaml(cfg["generator_params"])
+    rng = torch.Generator().manual_seed(0)
+    state = train_state(ae.generator_init(gcfg, rng),
+                        D.hifigan_discriminator_init(
+                            rng, config.discriminator_config(cfg)), cfg)
+    kinds = []
+
+    def step(kind):
+        def fn(st, x):
+            kinds.append(kind)
+            if len(kinds) == 5:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return st, {"loss": torch.tensor(float(len(kinds)))}
+        return fn
+
+    batches = itertools.repeat(np.zeros((1, 8, 1), np.float32))
+    trainer = GanTrainer({"metric": step("metric"), "adv": step("adv"),
+                          "eval": None}, state,
+                         dict(cfg, adv_train_max_steps=8,
+                              eval_interval_steps=100,
+                              start_steps={"generator": 0,
+                                           "discriminator": start}),
+                         str(tmp_path), batches, lambda: iter(()),
+                         torch.device("cpu"))
+    trainer.run()
+    assert kinds == ["metric"] * start + ["adv"] * (5 - start)
+    assert trainer.steps == 5
+    _, header = load_only_params(str(tmp_path /
+                                          "checkpoint-final.ckpt"))
+    assert header["steps"] == 5
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert [json.loads(line)["train/loss"] for line in f] == [
+            1.0, 2.0, 3.0, 4.0, 5.0]
