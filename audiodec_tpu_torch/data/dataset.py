@@ -1,12 +1,12 @@
 """File datasets (the port's copy of audiodec_tpu/data/dataset.py:
-`find_files`, `load_files`, `SingleDataset`): indexable collections of
-float32 (T, C) numpy arrays, read with data/wav.py."""
+`find_files`, `load_files`, `SingleDataset`, `MultiDataset`): indexable
+collections of float32 (T, C) numpy arrays, read with data/wav.py."""
 
 from __future__ import annotations
 
 import fnmatch
 import os
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -81,3 +81,24 @@ class SingleDataset:
         if self.return_utt_id:
             return self.utt_ids[idx], data
         return data
+
+
+class MultiDataset:
+    """N parallel corpora by index, e.g. (noisy, clean) pairs with matching
+    file lists (ref: dataloader/dataset.py:99-152)."""
+
+    def __init__(self, multi_files: Sequence, return_utt_id: bool = False):
+        self.datasets = [SingleDataset(files) for files in multi_files]
+        lengths = [len(d) for d in self.datasets]
+        if len(set(lengths)) != 1:
+            raise ValueError(f"Corpora lengths differ: {lengths}")
+        self.return_utt_id = return_utt_id
+
+    def __len__(self):
+        return len(self.datasets[0])
+
+    def __getitem__(self, idx: int):
+        items = [d[idx] for d in self.datasets]
+        if self.return_utt_id:
+            return self.datasets[0].utt_ids[idx], items
+        return items

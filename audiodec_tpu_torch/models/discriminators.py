@@ -18,9 +18,14 @@ before an apply.  The scale discriminators stay plain: the reference's norm
 walk tests isinstance(m, nn.Conv2d) on Conv1d stacks and never applies,
 follow_official_norm included (ref discriminator.py:355-373).
 
-The JAX package's `batched=True` variants (mpd_apply_batched,
-msd_apply_batched), a TPU layout experiment that training does not call,
-are not ported here.
+The batched variants (`msd_apply_batched`, `mpd_apply_batched`, the
+combined applies' `batched=True`) run every layer of all the branches (the
+scales, the periods) as one grouped conv, the branches' weights stacked on
+the output axis and their inputs zero padded to the largest branch; a mask
+zeroes each branch's padded rows after every layer, and the maps come out
+sliced to the sequential applies' shapes, so outputs and gradients equal
+theirs to f32 reassociation.  They are the JAX package's TPU layout
+experiment; codec_train does not call them.
 """
 
 from __future__ import annotations
@@ -213,6 +218,103 @@ def mpd_bct(p, x, cfg: MultiPeriodConfig):
 
 
 # ---------------------------------------------------------------------------
+# batched MSD / MPD: one grouped conv per layer across the branches
+# ---------------------------------------------------------------------------
+
+def _stacked_conv(convs: list) -> dict:
+    """The branches' convs {"w"[, "b"]} as one conv with their weights
+    stacked on the output axis (groups = branches x the convs' groups)."""
+    out = {"w": torch.cat([c["w"] for c in convs])}
+    if "b" in convs[0]:
+        out["b"] = torch.cat([c["b"] for c in convs])
+    return out
+
+
+def _masked(y, lengths):
+    """Zero every branch's rows past its valid length.  y: (B, N * C, L,
+    ...) with branch j in channels [j * C, (j + 1) * C) -> the same."""
+    n = len(lengths)
+    keep = torch.arange(y.shape[2], device=y.device)[None, :] < torch.tensor(
+        lengths, device=y.device)[:, None]                   # (N, L)
+    shape = (1, n, 1, y.shape[2]) + (1,) * (y.ndim - 3)
+    mask = keep.reshape(shape).to(y.dtype)
+    return (y.reshape((y.shape[0], n, -1) + y.shape[2:]) * mask).reshape(
+        y.shape)
+
+
+def _branch(y, j: int, n: int):
+    """Branch j's channels of a stacked map (B, N * C, ...)."""
+    c = y.shape[1] // n
+    return y[:, j * c:(j + 1) * c]
+
+
+def msd_apply_batched(p, x, cfg: MultiScaleConfig):
+    """msd_bct's outputs, the scale discriminators run as one grouped conv
+    per layer.  x: (B, C, T)."""
+    dcfg = cfg.discriminator
+    act = get_activation(dcfg.nonlinear_activation,
+                         dict(dcfg.nonlinear_activation_params))
+    xs = [x]
+    for _ in range(cfg.scales - 1):
+        xs.append(F.avg_pool1d(xs[-1], cfg.pool_kernel, cfg.pool_stride,
+                               cfg.pool_padding))
+    lens = [xi.shape[-1] for xi in xs]
+    y = torch.cat([F.pad(xi, (0, lens[0] - xi.shape[-1])) for xi in xs], 1)
+    shapes = dcfg.layer_shapes()
+    n = cfg.scales
+    outs = []
+    for i, (k, _, _, stride, groups) in enumerate(shapes):
+        lp = _stacked_conv([d["layers"][i] for d in p["discriminators"]])
+        pad = (k - 1) // 2
+        y = F.conv1d(y, lp["w"], lp.get("b"), stride=stride, padding=pad,
+                     groups=n * groups)
+        if i < len(shapes) - 1:
+            y = act(y)
+        lens = [(t + 2 * pad - k) // stride + 1 for t in lens]
+        y = _masked(y, lens)
+        outs.append((y, lens))
+    return [[_branch(y, j, n)[..., :ls[j]] for y, ls in outs]
+            for j in range(n)]
+
+
+def mpd_apply_batched(p, x, cfg: MultiPeriodConfig):
+    """mpd_bct's outputs, the period discriminators run as one grouped
+    conv per layer over their folds, zero padded to the tallest fold and
+    the longest period.  x: (B, C, T)."""
+    dcfg = cfg.discriminator
+    act = get_activation(dcfg.nonlinear_activation,
+                         dict(dcfg.nonlinear_activation_params))
+    periods = tuple(cfg.periods)
+    n = len(periods)
+    b, c, t = x.shape
+    folds = []
+    for per in periods:
+        xp = x if t % per == 0 else F.pad(x, (0, per - t % per),
+                                          mode="reflect")
+        folds.append(xp.reshape(b, c, -1, per))
+    hs = [f.shape[2] for f in folds]
+    hmax, pmax = max(hs), max(periods)
+    y = torch.cat([F.pad(f, (0, pmax - f.shape[3], 0, hmax - f.shape[2]))
+                   for f in folds], 1)
+    outs = []
+    for i, (k, _, _, ds) in enumerate(dcfg.layer_shapes()):
+        lp = _stacked_conv([d["layers"][i] for d in p["discriminators"]])
+        pad = (k - 1) // 2
+        y = act(F.conv2d(y, lp["w"], lp.get("b"), stride=(ds, 1),
+                         padding=(pad, 0), groups=n))
+        hs = [(h + 2 * pad - k) // ds + 1 for h in hs]
+        y = _masked(y, hs)
+        outs.append((y, hs))
+    po = _stacked_conv([d["output_conv"] for d in p["discriminators"]])
+    pad = (dcfg.kernel_sizes[1] - 1) // 2
+    y = F.conv2d(y, po["w"], po.get("b"), padding=(pad, 0), groups=n)
+    h_out = [h + 2 * pad - po["w"].shape[2] + 1 for h in hs]
+    return [[_branch(m, j, n)[:, :, :ls[j], :per] for m, ls in outs]
+            + [_branch(y, j, n)[:, :, :h_out[j], :per].reshape(b, -1)]
+            for j, per in enumerate(periods)]
+
+
+# ---------------------------------------------------------------------------
 # UnivNet spectral discriminator (ref: discriminator.py:451-640)
 # ---------------------------------------------------------------------------
 
@@ -320,9 +422,14 @@ def _mono_fold(x):
     return x
 
 
-def hifigan_discriminator_apply(p, x, cfg: HiFiGANDiscriminatorConfig):
-    """x: (B, T, C) -> the MSD's outputs, then the MPD's."""
+def hifigan_discriminator_apply(p, x, cfg: HiFiGANDiscriminatorConfig,
+                                batched: bool = False):
+    """x: (B, T, C) -> the MSD's outputs, then the MPD's; batched runs
+    the stacked variants."""
     x = _mono_fold(x).transpose(1, 2)
+    if batched:
+        return (msd_apply_batched(p["msd"], x, cfg.msd)
+                + mpd_apply_batched(p["mpd"], x, cfg.mpd))
     return msd_bct(p["msd"], x, cfg.msd) + mpd_bct(p["mpd"], x, cfg.mpd)
 
 
@@ -338,10 +445,13 @@ def univnet_discriminator_init(gen: torch.Generator,
     return {"mrsd": mrsd_init(gen, cfg.mrsd), "mpd": mpd_init(gen, cfg.mpd)}
 
 
-def univnet_discriminator_apply(p, x, cfg: UnivNetDiscriminatorConfig):
-    """x: (B, T, C) -> the MRSD's outputs, then the MPD's.  Multi-channel
-    input is folded only with flat_channel (ref: UnivNet.py:98-100)."""
+def univnet_discriminator_apply(p, x, cfg: UnivNetDiscriminatorConfig,
+                                batched: bool = False):
+    """x: (B, T, C) -> the MRSD's outputs, then the MPD's (batched: the
+    stacked MPD).  Multi-channel input is folded only with flat_channel
+    (ref: UnivNet.py:98-100)."""
     if cfg.flat_channel:
         x = _mono_fold(x)
+    mpd = mpd_apply_batched if batched else mpd_bct
     return (mrsd_apply(p["mrsd"], x, cfg.mrsd)
-            + mpd_bct(p["mpd"], x.transpose(1, 2), cfg.mpd))
+            + mpd(p["mpd"], x.transpose(1, 2), cfg.mpd))

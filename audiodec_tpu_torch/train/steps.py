@@ -1,46 +1,60 @@
-"""The autoencoder's GAN training steps (counterpart of
-audiodec_tpu/train/steps.py `make_autoencoder_steps`; ref
-trainer/autoencoder.py:49-131).
+"""GAN and denoising training steps (counterpart of
+audiodec_tpu/train/steps.py `make_autoencoder_steps`, `analyzer_codes`,
+`make_vocoder_steps`, `make_denoise_steps`; ref trainer/autoencoder.py:49-131,
+trainer/vocoder.py:49-146, trainer/denoise.py:52-111).
 
 A train state is {"gen", "disc": param trees, "gen_opt", "disc_opt":
-train/optim.py Optimizers}.  A step updates the trained leaves in place,
-replaces the buffers no optimizer drives (the quantizer's EMA codebooks,
-BN's running stats, spectral norm's `u`) with new tensors, and returns
-(state, record): the losses the JAX package records, as detached scalars on
-the state's device.
+train/optim.py Optimizers}; a vocoder's adds the frozen "analyzer" (a symAD
+generator tree), a denoiser's has no "disc" and no "disc_opt".  A step
+updates the trained leaves in place, replaces the buffers no optimizer
+drives (the quantizer's EMA codebooks, BN's running stats, spectral norm's
+`u`) with new tensors, and returns (state, record): the losses the JAX
+package records, as detached scalars on the state's device.
 
 The semantics are JAX's, which are the reference's:
-- metric step: train mode (EMA codebooks, batch-stat BN), the buffers
-  merged after the optimizer step;
-- adversarial step ("efficient" paradigm): encoder, projector and quantizer
-  frozen (no gradient reaches them, no update moves them), the codebook in
-  eval mode, a BN projector still in train mode; the real audio's
-  discriminator features under no gradient for feature matching; then the
-  discriminator's update on y_ recomputed with the updated generator (which
-  advances a BN projector's running stats a second time, ref
-  autoencoder.py:117-126) with the spectral-norm `u` its own loss
+- autoencoder metric step: train mode (EMA codebooks, batch-stat BN), the
+  buffers merged after the optimizer step;
+- autoencoder adversarial step ("efficient" paradigm): encoder, projector
+  and quantizer frozen (no gradient reaches them, no update moves them),
+  the codebook in eval mode, a BN projector still in train mode; the real
+  audio's discriminator features under no gradient for feature matching;
+  then the discriminator's update on y_ recomputed with the updated
+  generator (which advances a BN projector's running stats a second time,
+  ref autoencoder.py:117-126) with the spectral-norm `u` its own loss
   advanced;
-- eval step: eval mode, no update.
+- vocoder steps: the analyzer's codes under no gradient, the stats
+  buffers `mean` and `scale` never trained; the adversarial step updates
+  the discriminator on y_ recomputed with the updated vocoder;
+- denoise step: the noisy input encoded, the losses against the clean
+  target; quantizer and decoder frozen, the codebook in eval mode, a BN
+  projector in train mode (eval mode in the eval step);
+- eval steps: eval mode, no update.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
+    encoder_apply,
     generator_forward,
     merge_forward_buffers,
+    projector_apply,
 )
+from audiodec_tpu_torch.models.vocoder import VocoderConfig, vocoder_apply
 from audiodec_tpu_torch.ops.norms import resolve_params
+from audiodec_tpu_torch.ops.vq import rvq_forward
 from audiodec_tpu_torch.train import criterion as C
 from audiodec_tpu_torch.train.optim import Optimizer, tree_leaves
 from audiodec_tpu_torch.utils.bridge import tree_map
 
-# the subtrees the adversarial stage freezes
+# the subtrees the autoencoder's adversarial stage freezes
 FROZEN = ("encoder", "projector", "quantizer")
+# the subtrees denoising freezes
+DENOISE_FROZEN = ("quantizer", "decoder")
 
 
 def _ppl_record(record, ppl):
@@ -52,10 +66,50 @@ def _detached(record: dict) -> dict:
     return {k: torch.as_tensor(v).detach() for k, v in record.items()}
 
 
-def _frozen_detached(tree: dict) -> dict:
+def _frozen_detached(tree: dict, frozen=FROZEN) -> dict:
     """The tree with the frozen subtrees cut from the autograd graph."""
-    return {k: tree_map(torch.Tensor.detach, v) if k in FROZEN else v
+    return {k: tree_map(torch.Tensor.detach, v) if k in frozen else v
             for k, v in tree.items()}
+
+
+def _trained_paths(opt: Optimizer, frozen) -> list:
+    return [path for path in opt.params
+            if path.split("/")[0] not in frozen]
+
+
+def _disc_update(state, disc_apply, crit, y_, x, record):
+    """The discriminator's step on fake y_ and real x; the spectral-norm
+    `u` its loss advanced is kept."""
+    disc_eff, new_disc = resolve_params(state["disc"])
+    dloss = C.dis_loss(crit, disc_apply(disc_eff, y_),
+                       disc_apply(disc_eff, x), record)
+    state["disc_opt"].step(dloss)
+    state["disc"] = new_disc
+
+
+def _adv_loss(state, disc_apply, crit, config, y, x, record):
+    """The generator's adversarial and feature-matching terms; the `u`
+    that advances in the discriminator's norms is thrown away, as in
+    JAX."""
+    disc_eff, _ = resolve_params(state["disc"])
+    p_hat = disc_apply(disc_eff, y)
+    p = None
+    if "feat_match" in crit:
+        with torch.no_grad():
+            p = disc_apply(disc_eff, x)
+    return C.adv_loss(crit, config, p_hat, p, record)
+
+
+def _codec_losses(gen_cfg, config, crit, eff, x, target, record, *, train,
+                  bn_train=None):
+    """generator_forward on x, its VQ loss and its metric losses against
+    `target` -> (loss, y, new buffers)."""
+    y, _, _, vql, ppl, new_buf = generator_forward(
+        eff, x, gen_cfg, train=train, bn_train=bn_train)
+    _ppl_record(record, ppl)
+    loss = C.vq_loss(config, vql, record)
+    loss = loss + C.metric_loss(crit, config, y, target, record)
+    return loss, y, new_buf
 
 
 def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
@@ -63,13 +117,8 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
     """-> {"metric": fn, "adv": fn, "eval": fn}, each fn(state, x) with x a
     (B, T, C) batch on the state's device."""
 
-    def generator_losses(eff, x, record, *, train, bn_train=None):
-        y, _, _, vql, ppl, new_buf = generator_forward(
-            eff, x, gen_cfg, train=train, bn_train=bn_train)
-        _ppl_record(record, ppl)
-        loss = C.vq_loss(config, vql, record)
-        loss = loss + C.metric_loss(crit, config, y, x, record)
-        return loss, y, new_buf
+    def generator_losses(eff, x, record, **mode):
+        return _codec_losses(gen_cfg, config, crit, eff, x, x, record, **mode)
 
     def metric_step(state, x):
         record = {}
@@ -86,18 +135,10 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
         eff, _ = resolve_params(state["gen"])
         loss, y, new_buf = generator_losses(
             _frozen_detached(eff), x, record, train=False, bn_train=True)
-        # the generator's loss resolves the discriminator's norms too; the
-        # `u` that advances there is thrown away, as in JAX
-        disc_eff, _ = resolve_params(state["disc"])
-        p_hat = disc_apply(disc_eff, y)
-        p = None
-        if "feat_match" in crit:
-            with torch.no_grad():
-                p = disc_apply(disc_eff, x)
-        loss = loss + C.adv_loss(crit, config, p_hat, p, record)
+        loss = loss + _adv_loss(state, disc_apply, crit, config, y, x,
+                                record)
         record["generator_loss"] = loss
-        gen_opt.step(loss, [path for path in gen_opt.params
-                            if path.split("/")[0] not in FROZEN])
+        gen_opt.step(loss, _trained_paths(gen_opt, FROZEN))
         gen = merge_forward_buffers(state["gen"], new_buf)
 
         # the discriminator's update, on y_ from the updated generator
@@ -106,13 +147,7 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
             y_, _, _, _, _, buf2 = generator_forward(
                 gen_eff, x, gen_cfg, train=False, bn_train=True)
         state["gen"] = merge_forward_buffers(gen, buf2)
-        drec = {}
-        disc_eff, new_disc = resolve_params(state["disc"])
-        dloss = C.dis_loss(crit, disc_apply(disc_eff, y_),
-                           disc_apply(disc_eff, x), drec)
-        state["disc_opt"].step(dloss)
-        state["disc"] = new_disc
-        record.update(drec)
+        _disc_update(state, disc_apply, crit, y_, x, record)
         return state, _detached(record)
 
     @torch.no_grad()
@@ -126,21 +161,114 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
     return {"metric": metric_step, "adv": adv_step, "eval": eval_step}
 
 
+@torch.no_grad()
+def analyzer_codes(analyzer: dict, x, gen_cfg: GeneratorConfig):
+    """The frozen analyzer's encode path, encoder -> projector (eval) ->
+    quantize-dequantize (eval), under no gradient (ref:
+    trainer/vocoder.py:69-73).  x: (B, T, 1) -> zq (B, T', D)."""
+    h = encoder_apply(analyzer["encoder"], x, gen_cfg)
+    z = projector_apply(analyzer["projector"], h, gen_cfg)
+    return rvq_forward(z, analyzer["quantizer"], train=False)[0]
+
+
+def make_vocoder_steps(voc_cfg: VocoderConfig, gen_cfg: GeneratorConfig,
+                       disc_apply: Callable, config: dict, crit: dict):
+    """-> {"metric": fn, "adv": fn, "eval": fn}, each fn(state, x) with x a
+    (B, T, 1) batch on the state's device; gen_cfg is the analyzer's."""
+
+    def vocoder_losses(state, zq, x, record, adversarial: bool):
+        eff, _ = resolve_params(state["gen"])
+        y = vocoder_apply(eff, zq, voc_cfg)
+        loss = C.metric_loss(crit, config, y, x, record)
+        if adversarial:
+            loss = loss + _adv_loss(state, disc_apply, crit, config, y, x,
+                                    record)
+        record["generator_loss"] = loss
+        return loss
+
+    def metric_step(state, x):
+        record = {}
+        zq = analyzer_codes(state["analyzer"], x, gen_cfg)
+        state["gen_opt"].step(vocoder_losses(state, zq, x, record, False))
+        return state, _detached(record)
+
+    def adv_step(state, x):
+        record = {}
+        zq = analyzer_codes(state["analyzer"], x, gen_cfg)
+        state["gen_opt"].step(vocoder_losses(state, zq, x, record, True))
+        with torch.no_grad():
+            gen_eff, _ = resolve_params(state["gen"])
+            y_ = vocoder_apply(gen_eff, zq, voc_cfg)
+        _disc_update(state, disc_apply, crit, y_, x, record)
+        return state, _detached(record)
+
+    @torch.no_grad()
+    def eval_step(state, x):
+        record = {}
+        vocoder_losses(state, analyzer_codes(state["analyzer"], x, gen_cfg),
+                       x, record, False)
+        return _detached(record)
+
+    return {"metric": metric_step, "adv": adv_step, "eval": eval_step}
+
+
+def make_denoise_steps(gen_cfg: GeneratorConfig, config: dict, crit: dict):
+    """-> {"train": fn, "eval": fn}, each fn(state, x_noisy, x_clean) with
+    (B, T, C) batches on the state's device."""
+
+    def denoise_losses(eff, x_n, x_c, record, bn_train: bool):
+        # the codebook in eval mode (ref denoise.py:60)
+        loss, _, new_buf = _codec_losses(gen_cfg, config, crit, eff, x_n,
+                                         x_c, record, train=False,
+                                         bn_train=bn_train)
+        record["generator_loss"] = loss
+        return loss, new_buf
+
+    def train_step(state, x_n, x_c):
+        record = {}
+        gen_opt = state["gen_opt"]
+        eff, _ = resolve_params(state["gen"])
+        loss, new_buf = denoise_losses(
+            _frozen_detached(eff, DENOISE_FROZEN), x_n, x_c, record, True)
+        gen_opt.step(loss, _trained_paths(gen_opt, DENOISE_FROZEN))
+        state["gen"] = merge_forward_buffers(state["gen"], new_buf)
+        return state, _detached(record)
+
+    @torch.no_grad()
+    def eval_step(state, x_n, x_c):
+        record = {}
+        eff, _ = resolve_params(state["gen"])
+        denoise_losses(eff, x_n, x_c, record, False)
+        return _detached(record)
+
+    return {"train": train_step, "eval": eval_step}
+
+
 def is_buffer(path: str) -> bool:
     """Leaves no optimizer drives: the quantizer's codebooks and EMA
-    statistics, BN's running statistics, spectral norm's `u`."""
+    statistics, BN's running statistics, spectral norm's `u`, and a
+    vocoder's input statistics `mean` and `scale` (torch buffers in the
+    reference, ref models/vocoder/HiFiGAN.py:206-219)."""
     parts = path.split("/")
     return (parts[0] == "quantizer" or parts[-1] == "u"
+            or (len(parts) == 1 and parts[0] in ("mean", "scale"))
             or (len(parts) > 2 and parts[-2] == "bn"
                 and parts[-1] in ("mean", "var", "count")))
 
 
-def train_state(gen: dict, disc: dict, config: dict) -> dict:
-    """{gen, disc, gen_opt, disc_opt}, each optimizer over every leaf of
-    its tree but the buffers."""
+def train_state(gen: dict, disc: Optional[dict], config: dict,
+                analyzer: Optional[dict] = None) -> dict:
+    """{gen, gen_opt[, disc, disc_opt][, analyzer]}, each optimizer over
+    every leaf of its tree but the buffers; no discriminator for
+    denoising, the frozen analyzer for a vocoder."""
     def trained(tree):
         return [(p, t) for p, t in tree_leaves(tree) if not is_buffer(p)]
 
-    return {"gen": gen, "disc": disc,
-            "gen_opt": Optimizer(config, "generator", trained(gen)),
-            "disc_opt": Optimizer(config, "discriminator", trained(disc))}
+    state = {"gen": gen,
+             "gen_opt": Optimizer(config, "generator", trained(gen))}
+    if disc is not None:
+        state.update(disc=disc, disc_opt=Optimizer(config, "discriminator",
+                                                   trained(disc)))
+    if analyzer is not None:
+        state["analyzer"] = analyzer
+    return state

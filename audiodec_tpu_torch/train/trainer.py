@@ -2,14 +2,19 @@
 audiodec_tpu/train/trainer.py `GanTrainer` and `MetricsWriter`; ref
 trainer/trainerGAN.py, bin/train.py).
 
-The metric-only stage runs to `start_steps.discriminator`, the adversarial
-stage from that step on (the autoencoder's gate, JAX's `strict_start`),
-each from its own batch iterator; the JSONL log, eval, checkpoint and epoch
-bookkeeping follow the JAX package's.  Step records stay on the device
-and are summed there; the host reads them once per log interval.  A
-checkpoint is written at every save interval and, on exit,
-`checkpoint-final.ckpt`; SIGTERM ends the run at the next step boundary
-with that checkpoint.
+The metric-only stage runs to the discriminator's start step, the
+adversarial stage from there on, each from its own batch iterator; the
+start is `discriminator_train_start_steps` (vocoder configs) or
+`start_steps.discriminator` (autoencoder configs), and the stage switches
+at `>=` that step with strict_start (the autoencoder) or `>` without (the
+vocoder), as JAX's does.  Steps named {"train", "eval"} (denoising) have
+one stage.  A batch is an array or a tuple of arrays (the denoiser's
+(noisy, clean)), each moved to the device and passed as its own argument.
+The JSONL log, eval, checkpoint and epoch bookkeeping follow the JAX
+package's.  Step records stay on the device and are summed there; the
+host reads them once per log interval.  A checkpoint is written at every
+save interval and, on exit, `checkpoint-final.ckpt`; SIGTERM ends the run
+at the next step boundary with that checkpoint.
 """
 
 from __future__ import annotations
@@ -48,22 +53,30 @@ class MetricsWriter:
         self._f.close()
 
 
-def _as_input(batch, device: torch.device) -> torch.Tensor:
-    x = torch.from_numpy(np.ascontiguousarray(batch))
+def _as_input(array, device: torch.device) -> torch.Tensor:
+    x = torch.from_numpy(np.ascontiguousarray(array))
     if device.type == "cuda":
         return x.pin_memory().to(device, non_blocking=True)
     return x.to(device)
 
 
+def _as_inputs(batch, device: torch.device) -> tuple:
+    """A batch (an array or a tuple of arrays) -> the step's tensor
+    arguments."""
+    parts = batch if isinstance(batch, tuple) else (batch,)
+    return tuple(_as_input(b, device) for b in parts)
+
+
 class GanTrainer:
-    """Drives the {metric, adv, eval} steps through the two-stage
-    schedule."""
+    """Drives the {metric, adv, eval} steps through the two-stage schedule,
+    or the {train, eval} steps through one."""
 
     def __init__(self, steps_fns: Dict[str, Callable], state: dict,
                  config: dict, outdir: str, train_iter: Iterator,
                  eval_iter_fn: Callable[[], Iterator],
                  device: torch.device,
                  adv_train_iter: Optional[Iterator] = None,
+                 strict_start: bool = True,
                  steps_per_epoch: Optional[int] = None,
                  adv_steps_per_epoch: Optional[int] = None):
         self.steps_fns = steps_fns
@@ -76,8 +89,10 @@ class GanTrainer:
         self.eval_iter_fn = eval_iter_fn
         self.steps = 0
         self.writer = MetricsWriter(outdir)
-        self.discriminator_start = config.get("start_steps", {}).get(
-            "discriminator", 200000)
+        self.strict_start = strict_start
+        self.discriminator_start = config.get(
+            "discriminator_train_start_steps",
+            config.get("start_steps", {}).get("discriminator", 200000))
         self.train_max_steps = config.get("train_max_steps", 200000)
         self.adv_train_max_steps = config.get("adv_train_max_steps",
                                               self.train_max_steps)
@@ -92,7 +107,14 @@ class GanTrainer:
         self.adv_steps_per_epoch = adv_steps_per_epoch or steps_per_epoch
 
     def _adversarial(self) -> bool:
-        return self.steps >= self.discriminator_start
+        if self.strict_start:
+            return self.steps >= self.discriminator_start
+        return self.steps > self.discriminator_start
+
+    def _step_fn(self, adv: bool) -> Callable:
+        if "metric" not in self.steps_fns:
+            return self.steps_fns["train"]
+        return self.steps_fns["adv" if adv else "metric"]
 
     def _ckpt_path(self, steps):
         return os.path.join(self.outdir, f"checkpoint-{steps}steps.ckpt")
@@ -130,7 +152,7 @@ class GanTrainer:
         n = 0
         for batch in self.eval_iter_fn():
             m = self.steps_fns["eval"](self.state,
-                                       _as_input(batch, self.device))
+                                       *_as_inputs(batch, self.device))
             for k, v in m.items():
                 prev = accum.get(k)
                 accum[k] = v if prev is None else prev + v
@@ -157,9 +179,8 @@ class GanTrainer:
             while self.steps < self.adv_train_max_steps and not stop["flag"]:
                 adv = self._adversarial()
                 batch = next(self.adv_train_iter if adv else self.train_iter)
-                x = _as_input(batch, self.device)
-                self.state, metrics = self.steps_fns[
-                    "adv" if adv else "metric"](self.state, x)
+                self.state, metrics = self._step_fn(adv)(
+                    self.state, *_as_inputs(batch, self.device))
                 self.steps += 1
                 spe = (self.adv_steps_per_epoch if adv
                        else self.steps_per_epoch)

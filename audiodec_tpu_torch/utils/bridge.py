@@ -1,9 +1,9 @@
 """Weights carried into the port: from the JAX package's param tree, and from
 the reference implementation's state dict (the port's own copy of
 audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`,
-`import_vocoder` with fold=True, `import_hifigan_discriminator` with either
-fold, `import_univnet_mrsd` and `import_univnet_discriminator`); and back to
-the JAX tree (`params_to_jax`, `vocoder_params_to_jax`,
+`import_vocoder` and `import_hifigan_discriminator` with either fold,
+`import_univnet_mrsd` and `import_univnet_discriminator`); and back to the
+JAX tree (`params_to_jax`, `vocoder_params_to_jax`,
 `disc_params_to_jax`), so that port weights can be written as a JAX-format
 checkpoint (utils/checkpoint.py).  A conv carried either way keeps its norm
 reparametrization: {"v", "g"} and {"w_raw", "u"} leaves move as "w" does.
@@ -354,12 +354,29 @@ def params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
     }
 
 
-def vocoder_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg) -> dict:
+def _conv_or_wn_from_sd(sd: Dict[str, np.ndarray], prefix: str) -> dict:
+    """A conv of the state dict: weight-normed ones as {"v", "g"[, "b"]}
+    (torch's weight_norm dim=0 is the port's preserved axis 0, for the
+    transposed convs' input channels too), the others as {"w"[, "b"]}."""
+    if prefix + ".weight_v" not in sd:
+        return _conv_from_sd(sd, prefix)
+    p = {"v": _tensor(sd[prefix + ".weight_v"]),
+         "g": _tensor(sd[prefix + ".weight_g"])}
+    if prefix + ".bias" in sd:
+        p["b"] = _tensor(sd[prefix + ".bias"])
+    return p
+
+
+def vocoder_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg,
+                                     fold: bool = True) -> dict:
     """Reference HiFiGAN Generator state dict -> the port's params (key
-    scheme of ref models/vocoder/HiFiGAN.py:84-123); weight norm folded,
-    the `mean`/`scale` stats carried."""
-    sd = fold_weight_norm(sd)
-    conv = partial(_conv_from_sd, sd)
+    scheme of ref models/vocoder/HiFiGAN.py:84-123), the `mean`/`scale`
+    stats carried.  fold=True folds weight norm (inference); fold=False
+    keeps it as {"v", "g"[, "b"]} (training, where torch's Adam trains
+    weight_g and weight_v)."""
+    if fold:
+        sd = fold_weight_norm(sd)
+    conv = partial(_conv_or_wn_from_sd, sd)
 
     def resblock(prefix, dilations):
         n = len(dilations)
@@ -414,16 +431,7 @@ def hifigan_disc_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg,
     plain in the reference."""
     if fold:
         sd = fold_weight_norm(sd)
-
-    def conv(prefix):
-        if prefix + ".weight_v" in sd:
-            p = {"v": _tensor(sd[prefix + ".weight_v"]),
-                 "g": _tensor(sd[prefix + ".weight_g"])}
-            if prefix + ".bias" in sd:
-                p["b"] = _tensor(sd[prefix + ".bias"])
-            return p
-        return _conv_from_sd(sd, prefix)
-
+    conv = partial(_conv_or_wn_from_sd, sd)
     n = len(cfg.msd.discriminator.layer_shapes())
     msd = {"discriminators": [
         {"layers": [conv(_layer_key(f"msd.discriminators.{i}", j, n))

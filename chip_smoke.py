@@ -169,9 +169,33 @@ of each stage; `train_univ_path` runs the symADuniv config (MRSD + MPD),
 trainer's step functions; `train_path` also reports what the process
 holds before it trains (threads, objects tracked by the garbage
 collector, device memory reserved): the metric step waits on the host.
-`python3 chip_smoke.py train` builds the kernels and runs only the three
-training phases, in a fresh process, and prints no `kernels` line and no
-result line.
+`python3 chip_smoke.py train` builds the kernels and runs only the
+training phases (slices 16 and 17), in a fresh process, and prints no
+`kernels` line and no result line.
+
+The phases of slice 17 (the rest of training, no kernel of the port while
+training; they run between train_path and train_univ_path, which removes
+build/chip_smoke_train/): `voc_train_golden` and `denoise_train_golden`
+replay tests/golden/voc_train_step.npz (a metric step, then 2 adversarial
+steps) and denoise_train_step.npz (3 steps) at the parity test's bars,
+the analyzer, the vocoder's `mean` and `scale`, and the denoiser's
+quantizer and decoder bit-equal to their start; `stats_path` runs
+`bin/codec_stats.py` over train_path's corpus with its final symAD
+checkpoint as the analyzer and holds the moments to one whole-utterance
+encode of the corpus (within STATS_REL of the largest entry);
+`voc_train_path` trains the AD v1 vocoder config at its full widths and
+batch on those codes and statistics, 10 metric and 10 adversarial steps,
+prints a line of step ms p50 / p90 per stage, audio seconds per second and
+peak memory beside the card's name and power limit, checks the analyzer
+and statistics unmoved and the vocoder and discriminator moved, profiles
+one step of each stage, and decodes through the port's `codec_test` with
+the symAD encoder and the trained vocoder (default stack, --dtype mixed:
+B1's vocoder units launched, their count in the `kernels` line as
+`voc_train_path`); `denoise_train_path` trains the denoise config (symAD
+at full width, warm-started from train_path's checkpoint) for 10 steps on
+(noisy, clean) pairs, the noisy side train_path's corpus plus seeded
+noise, the quantizer and decoder bit-equal to the warm start, the encoder
+moved.
 
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
@@ -346,6 +370,7 @@ from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
 from audiodec_tpu_torch.bin import (
     codec_serve,
+    codec_stats,
     codec_test,
     codec_train,
     demo_file,
@@ -396,7 +421,12 @@ from audiodec_tpu_torch.utils.bitstream import unpack_codes
 from audiodec_tpu_torch.ops.norms import resolve_params
 from audiodec_tpu_torch.train.criterion import build_criterion
 from audiodec_tpu_torch.train.optim import tree_leaves
-from audiodec_tpu_torch.train.steps import make_autoencoder_steps, train_state
+from audiodec_tpu_torch.train.steps import (
+    make_autoencoder_steps,
+    make_denoise_steps,
+    make_vocoder_steps,
+    train_state,
+)
 from audiodec_tpu_torch.utils.bridge import (
     hifigan_disc_params_from_reference_sd,
     mrsd_params_from_reference_sd,
@@ -3776,16 +3806,17 @@ def train_corpus(root: Path, rng):
 
 
 def timed_steps(trainer) -> dict:
-    """Wrap the trainer's metric and adversarial steps so that each call is
-    timed with CUDA events -> {stage: [(start, end), ...]}, filled as the
-    run goes."""
-    marks = {"metric": [], "adv": []}
+    """Wrap the trainer's training steps (metric and adversarial, or the
+    denoiser's one) so that each call is timed with CUDA events ->
+    {stage: [(start, end), ...]}, filled as the run goes."""
+    marks = {stage: [] for stage in ("metric", "adv", "train")
+             if stage in trainer.steps_fns}
     for stage, out in marks.items():
-        def timed(state, x, step=trainer.steps_fns[stage], out=out):
+        def timed(state, *x, step=trainer.steps_fns[stage], out=out):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            result = step(state, x)
+            result = step(state, *x)
             end.record()
             out.append((start, end))
             return result
@@ -3803,16 +3834,19 @@ def host_census() -> dict:
 
 
 def train_run(yaml_path: Path, tag: str, metric: int, adv: int, **over):
-    """codec_train's trainer on a config with only the data paths, step
-    counts and intervals changed, each step timed -> (trainer, config,
-    seconds, peak GiB, launches, {stage: step ms}, host census before the
-    run)."""
+    """codec_train's trainer on a config with only the data and checkpoint
+    paths, step counts and intervals changed, each step timed -> (trainer,
+    config, seconds, peak GiB, launches, {stage: step ms}, host census
+    before the run).  The adversarial stage starts at step `metric`."""
     argv = over.pop("argv", [])
     cfg = load_config(str(yaml_path))
     cfg["data"] = {"path": str(TRAIN_DIR / "data"),
                    "subset": {"train": "train", "valid": "valid"}}
     cfg["start_steps"] = dict(cfg.get("start_steps", {}),
                               discriminator=metric)
+    if "discriminator_train_start_steps" in cfg:
+        # the vocoder's gate is `>`
+        cfg["discriminator_train_start_steps"] = metric - 1
     cfg.update(train_max_steps=metric, adv_train_max_steps=metric + adv,
                **over)
     cfg_path = TRAIN_DIR / f"{tag}.yaml"
@@ -3961,6 +3995,324 @@ def phase_train_path(card: str):
                      "peak_abs_y": float(np.abs(y).max())})
 
 
+# ---------------------------------------------------------------------------
+# slice 17: vocoder and denoise training, codec_stats (no kernel of the
+# port while training, as in JAX; B1's vocoder units in the codec_test
+# decode of the trained vocoder)
+# ---------------------------------------------------------------------------
+
+# tests/test_train_step_parity.py's vocoder and denoise configs
+VOC_GOLDEN_CONFIG = dict(TRAIN_GOLDEN_CONFIG, generator_scheduler_params={
+    "step_size": 1, "gamma": 0.5})
+VOC_GOLDEN_CFG = VocoderConfig(
+    in_channels=16, out_channels=1, channels=32, kernel_size=7,
+    upsample_scales=(5, 5, 4, 3), upsample_kernel_sizes=(10, 10, 8, 6),
+    resblock_kernel_sizes=(3,), resblock_dilations=((1, 3),), groups=2,
+    stats=True)
+VOCODER_YAML = (ROOT / "configs" / "vocoder"
+                / "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml")
+DENOISE_YAML = ROOT / "configs" / "denoise" / "symAD_vctk_48000_hop300.yaml"
+STATISTIC_YAML = (ROOT / "configs" / "statistic"
+                  / "symAD_vctk_48000_hop300_clean.yaml")
+# what stats_path holds its windowed moments to: a whole-utterance encode
+STATS_REL = 1e-5
+
+
+def bit_equal(ours: dict, ref: dict, label: str) -> int:
+    """Every leaf of `ours` equal to `ref`'s bit for bit -> the count."""
+    ours, ref = dict(tree_leaves(ours)), dict(tree_leaves(ref))
+    if sorted(ours) != sorted(ref):
+        raise AssertionError(f"{label}: trees differ")
+    for path, t in ours.items():
+        if not torch.equal(t.detach().cpu(), ref[path].detach().cpu()):
+            raise AssertionError(f"{label}{path} moved")
+    return len(ours)
+
+
+def phase_voc_train_golden(device):
+    """The reference trainer's vocoder golden (tests/golden/
+    voc_train_step.npz) on the card: a metric step on batch 1, adversarial
+    steps on batches 2 and 3 (the reference's first call is a no-op, its
+    `>` gate at step 0), held to the parity test's bars; the analyzer and
+    the stats `mean` and `scale` bit-equal to their start.  No kernel
+    launches."""
+    t0 = time.perf_counter()
+    data = np.load(GOLDEN / "voc_train_step.npz")
+    on = partial(tree_map, lambda t: t.to(device))
+
+    def voc(key):
+        return vocoder_params_from_reference_sd(_sub(data, key),
+                                                VOC_GOLDEN_CFG, fold=False)
+
+    def disc(key):
+        return hifigan_disc_params_from_reference_sd(
+            _sub(data, key), TRAIN_GOLDEN_DISC, fold=False)
+
+    analyzer = on(params_from_reference_sd(_sub(data, "sd_analyzer__"),
+                                           TRAIN_GOLDEN_GEN))
+    frozen0 = tree_map(torch.clone, {"analyzer": analyzer})
+    gen = on(voc("sd0_gen__"))
+    stats0 = tree_map(torch.clone, {k: gen[k] for k in ("mean", "scale")})
+    state = train_state(gen, on(disc("sd0_disc__")), VOC_GOLDEN_CONFIG,
+                        analyzer=analyzer)
+    steps = make_vocoder_steps(
+        VOC_GOLDEN_CFG, TRAIN_GOLDEN_GEN,
+        lambda p, x: D.hifigan_discriminator_apply(p, x, TRAIN_GOLDEN_DISC),
+        VOC_GOLDEN_CONFIG, build_criterion(VOC_GOLDEN_CONFIG))
+    x_all = torch.from_numpy(data["x_all"].transpose(0, 1, 3, 2).copy()
+                             ).to(device)
+    reset_launches()
+    cuda = library_launches()
+    state, _ = steps["metric"](state, x_all[1])
+    bars = {"metric_gen": parity_bars(state["gen"], voc("sdm_gen__"),
+                                      2 * 1e-4, "voc:metric:")}
+    records = []
+    for i in (2, 3):
+        state, rec = steps["adv"](state, x_all[i])
+        records.append({k: float(v) for k, v in rec.items()})
+    torch.cuda.synchronize()
+    launches = no_training_launches("voc_train_golden", cuda)
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        raise AssertionError(f"voc_train_golden: losses {records}")
+    bars["adv_gen"] = parity_bars(state["gen"], voc("sda_gen__"),
+                                  2 * (1e-4 + 5e-5 + 2.5e-5), "voc:adv:gen:")
+    bars["adv_disc"] = parity_bars(state["disc"], disc("sda_disc__"),
+                                   2 * (2e-4 + 1e-4), "voc:adv:disc:")
+    unmoved = bit_equal({k: state["gen"][k] for k in ("mean", "scale")},
+                        stats0, "voc_train_golden: ")
+    unmoved += bit_equal({"analyzer": state["analyzer"]}, frozen0,
+                         "voc_train_golden: ")
+    emit("voc_train_golden", t0, steps={"metric": 1, "adv": 2},
+         worst_per_leaf=bars, adv_records=records,
+         bit_equal_leaves=unmoved, launches=launches)
+
+
+def phase_denoise_train_golden(device):
+    """The reference trainer's denoise golden (tests/golden/
+    denoise_train_step.npz) on the card: its n_steps (noisy, clean) steps,
+    the encoder and projector held to the parity test's bars, the
+    quantizer (its EMA buffers included) and the decoder bit-equal to
+    their start.  No kernel launches."""
+    t0 = time.perf_counter()
+    data = np.load(GOLDEN / "denoise_train_step.npz")
+    gen = tree_map(lambda t: t.to(device), params_from_reference_sd(
+        _sub(data, "sd0_gen__"), TRAIN_GOLDEN_GEN))
+    frozen0 = tree_map(torch.clone, {k: gen[k]
+                                     for k in ("quantizer", "decoder")})
+    state = train_state(gen, None, TRAIN_GOLDEN_CONFIG)
+    steps = make_denoise_steps(TRAIN_GOLDEN_GEN, TRAIN_GOLDEN_CONFIG,
+                               build_criterion(TRAIN_GOLDEN_CONFIG))
+    x_n, x_c = (torch.from_numpy(data[k].transpose(0, 1, 3, 2).copy()
+                                 ).to(device)
+                for k in ("x_noisy", "x_clean"))
+    reset_launches()
+    cuda = library_launches()
+    records = []
+    for i in range(int(data["n_steps"])):
+        state, rec = steps["train"](state, x_n[i], x_c[i])
+        records.append({k: float(v) for k, v in rec.items()})
+    torch.cuda.synchronize()
+    launches = no_training_launches("denoise_train_golden", cuda)
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        raise AssertionError(f"denoise_train_golden: losses {records}")
+    ref = params_from_reference_sd(_sub(data, "sd1_gen__"), TRAIN_GOLDEN_GEN)
+    keys = ("encoder", "projector")
+    bars = parity_bars({k: state["gen"][k] for k in keys},
+                       {k: ref[k] for k in keys}, 2 * (2 * 1e-4 + 5e-5),
+                       "denoise:")
+    unmoved = bit_equal({k: state["gen"][k] for k in frozen0}, frozen0,
+                        "denoise_train_golden: ")
+    emit("denoise_train_golden", t0, steps=len(records),
+         worst_per_leaf=bars, records=records, bit_equal_leaves=unmoved,
+         launches=launches)
+
+
+def phase_stats_path(device, card: str) -> Path:
+    """bin/codec_stats.py over train_path's corpus (32 utterances of 1 s)
+    with train_path's final symAD checkpoint as the analyzer, its windowed
+    moments held to one whole-utterance encode of the same corpus on the
+    card (mean and standard deviation within STATS_REL of the largest
+    entry; the written scale gives a constant feature 1, as the
+    reference's StandardScaler).  No kernel launches -> the stats file."""
+    t0 = time.perf_counter()
+    analyzer_ckpt = TRAIN_DIR / "symad" / "checkpoint-final.ckpt"
+    out = TRAIN_DIR / "stats" / "stats.npy"
+    reset_launches()
+    t1 = time.perf_counter()
+    stats = codec_stats.main(["--config", str(STATISTIC_YAML), "--analyzer",
+                              str(analyzer_ckpt), "--data-path",
+                              str(TRAIN_DIR / "data" / "train"), "--out",
+                              str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = no_kernel_launches("stats_path")
+    params, cfg = codec_train.load_analyzer(str(analyzer_ckpt), device)
+    dataset = SingleDataset(str(TRAIN_DIR / "data" / "train"))
+    x = torch.from_numpy(np.stack([dataset[i] for i in range(len(dataset))])
+                         ).to(device)
+    with torch.no_grad():
+        zq = rvq_forward_index(projector_apply(
+            params["projector"], encoder_apply(params["encoder"], x, cfg),
+            cfg), params["quantizer"])[0]
+    whole = codec_stats.RunningMoments(cfg.code_dim)
+    whole.update(zq.reshape(-1, cfg.code_dim).cpu().numpy().astype(
+        np.float64))
+    want = np.stack([whole.mean, np.sqrt(whole.m2 / whole.n)])
+    got = np.stack([stats[0], np.where(stats[1] == 1.0, 0.0, stats[1])])
+    constant = int(np.sum(stats[1] == 1.0))
+    # a feature the written stats call constant holds 0 beside the whole
+    # encode's standard deviation, which must be as small
+    err = np.abs(got - want)
+    tol = STATS_REL * float(np.abs(want).max())
+    if err.max() > tol or not np.all(np.isfinite(stats)):
+        raise AssertionError(f"stats_path: |windowed - whole| {err.max()} "
+                             f"over {tol}")
+    summary = {"card": card, "utterances": len(dataset),
+               "frames": int(whole.n), "seconds": seconds,
+               "max_abs_err": float(err.max()), "tolerance": tol,
+               "constant_features": constant,
+               "scale_range": [float(stats[1].min()),
+                               float(stats[1].max())]}
+    print("stats_path " + json.dumps(summary), flush=True)
+    emit("stats_path", t0, **summary, launches=launches)
+    return out
+
+
+def phase_voc_train_path(card: str, stats: Path) -> dict:
+    """bin/codec_train.py on the AD v1 vocoder config at its full widths
+    (512 channels, 3 groups, full HiFiGAN MSD + MPD) and batch (16 x 9600),
+    train_path's final symAD checkpoint as the analyzer and stats_path's
+    statistics: 10 metric steps, then 10 adversarial steps, an eval at
+    step 20, checkpoints at 10 and 20; the log finite, the analyzer and
+    the statistics in the checkpoint unmoved, the vocoder and the
+    discriminator moved; one step of each stage profiled.  Then the port's
+    codec_test with the symAD checkpoint as the encoder and the vocoder's
+    as the decoder, the default stack, --dtype mixed: B1's vocoder-unit
+    kernel launched, the output finite -> codec_test's launch counts."""
+    t0 = time.perf_counter()
+    analyzer_ckpt = TRAIN_DIR / "symad" / "checkpoint-final.ckpt"
+    cfg = load_config(str(VOCODER_YAML))
+    gp = dict(cfg["generator_params"], stats=str(stats))
+    trainer, cfg, seconds, peak, launches, ms, _ = train_run(
+        VOCODER_YAML, "vocoder", 10, 10, analyzer=str(analyzer_ckpt),
+        generator_params=gp, save_interval_steps=10,
+        eval_interval_steps=20, log_interval_steps=5)
+    if trainer.steps != 20:
+        raise AssertionError(f"voc_train_path: stopped at {trainer.steps}")
+    recs = logged_losses("vocoder")
+    train = [r for r in recs if "train/generator_loss" in r]
+    if ("train/discriminator_loss" in train[1]
+            or "train/discriminator_loss" not in train[-1]):
+        raise AssertionError(f"voc_train_path: log {recs}")
+    final = TRAIN_DIR / "vocoder" / "checkpoint-final.ckpt"
+    a, _ = load_checkpoint(str(TRAIN_DIR / "vocoder" /
+                               "checkpoint-10steps.ckpt"))
+    b, _ = load_checkpoint(str(final))
+    an, _ = load_checkpoint(str(analyzer_ckpt))
+    written = np.load(stats)
+    moved = {sub: sum(not np.array_equal(la, lb) for (_, la), (_, lb) in
+                      zip(tree_leaves(a[sub]), tree_leaves(b[sub])))
+             for sub in ("gen", "disc")}
+    same = (all(np.array_equal(la, lb) for (_, la), (_, lb) in
+                zip(tree_leaves(b["analyzer"]), tree_leaves(an["gen"])))
+            and np.array_equal(b["gen"]["mean"], written[0])
+            and np.array_equal(b["gen"]["scale"], written[1]))
+    if not same or not all(moved.values()):
+        raise AssertionError(f"voc_train_path: moved {moved}, analyzer and "
+                             f"stats unmoved {same}")
+    audio = cfg["batch_size"] * cfg["batch_length"] / SR
+    stats_ms = step_stats(ms, audio)
+    summary = {"card": card, "batch": [cfg["batch_size"],
+                                       cfg["batch_length"]],
+               **{f"{k}_{m}": v[m] for k, v in stats_ms.items()
+                  for m in ("p50_ms", "p90_ms", "audio_s_per_s")},
+               "peak_gib": peak, "first_log": train[0], "last_log": train[-1]}
+    print("voc_train_path " + json.dumps(summary), flush=True)
+    x = 0.3 * torch.randn(cfg["batch_size"], cfg["batch_length"], 1,
+                          generator=torch.Generator(device=trainer.device)
+                          .manual_seed(SEED), device=trainer.device)
+    for stage in ("metric", "adv"):
+        step = trainer.steps_fns[stage]
+        cuda = library_launches()
+        phase_profile(f"voc_train_path_{stage}_step",
+                      lambda v: step(trainer.state, v), x)
+        no_training_launches(f"voc_train_path_{stage}_step", cuda)
+
+    out = TRAIN_DIR / "voc_codec_test_out"
+    reset_launches()
+    summary_cli = codec_test.main(["--encoder", str(analyzer_ckpt),
+                                   "--decoder", str(final), "--data-path",
+                                   str(TRAIN_DIR / "codec_test"), "--outdir",
+                                   str(out), "--dtype", "mixed"])
+    cli_launches = read_launches()
+    y, sr = read_wav(str(out / "one_output.wav"))
+    if y.shape != (SR, 1) or sr != SR or not np.all(np.isfinite(y)):
+        raise AssertionError(f"voc_train_path: codec_test wrote {y.shape}")
+    if cli_launches["mma_voc"] == 0:
+        raise AssertionError(f"voc_train_path: codec_test launched "
+                             f"{cli_launches}, no vocoder unit")
+    emit("voc_train_path", t0, config=str(VOCODER_YAML.relative_to(ROOT)),
+         seconds_of_training=seconds, steps=stats_ms, peak_gib=peak,
+         moved_leaves=moved, launches=launches,
+         codec_test={"summary": summary_cli, "launches": cli_launches,
+                     "peak_abs_y": float(np.abs(y).max())})
+    return cli_launches
+
+
+def noisy_corpus(root: Path, rng):
+    """noisy_train and noisy_valid: train_corpus's wavs plus seeded noise,
+    file for file."""
+    for sub in ("train", "valid"):
+        (root / f"noisy_{sub}").mkdir()
+        for wav in sorted((root / sub).iterdir()):
+            x, sr = read_wav(str(wav))
+            x = x + 0.05 * rng.standard_normal(x.shape)
+            write_wav(str(root / f"noisy_{sub}" / wav.name),
+                      x.astype(np.float32), sr)
+
+
+def phase_denoise_train_path(card: str):
+    """bin/codec_train.py on the denoise config (symAD at its full widths,
+    B = 16 x 9600) warm-started from train_path's final checkpoint on
+    (noisy, clean) pairs, the clean side train_path's corpus: 10 steps,
+    checkpoints at 5 and 10; the log finite, the quantizer and decoder
+    bit-equal to the warm start, the encoder moved."""
+    t0 = time.perf_counter()
+    noisy_corpus(TRAIN_DIR / "data", np.random.default_rng(SEED + 1))
+    initial = TRAIN_DIR / "symad" / "checkpoint-final.ckpt"
+    data = {"path": str(TRAIN_DIR / "data"),
+            "subset": {"clean_train": "train", "clean_valid": "valid",
+                       "noisy_train": "noisy_train",
+                       "noisy_valid": "noisy_valid"}}
+    trainer, cfg, seconds, peak, launches, ms, _ = train_run(
+        DENOISE_YAML, "denoise", 10, 0, initial=str(initial), data=data,
+        save_interval_steps=5, eval_interval_steps=10, log_interval_steps=5)
+    if trainer.steps != 10:
+        raise AssertionError(f"denoise_train_path: stopped at "
+                             f"{trainer.steps}")
+    recs = logged_losses("denoise")
+    start, _ = load_checkpoint(str(initial))
+    end, _ = load_checkpoint(str(TRAIN_DIR / "denoise" /
+                                 "checkpoint-final.ckpt"))
+    moved = {sub: sum(not np.array_equal(la, lb) for (_, la), (_, lb) in
+                      zip(tree_leaves(start["gen"][sub]),
+                          tree_leaves(end["gen"][sub])))
+             for sub in ("encoder", "projector", "quantizer", "decoder")}
+    if moved["quantizer"] or moved["decoder"] or not moved["encoder"]:
+        raise AssertionError(f"denoise_train_path: moved {moved}")
+    audio = cfg["batch_size"] * cfg["batch_length"] / SR
+    stats_ms = step_stats(ms, audio)
+    summary = {"card": card, "batch": [cfg["batch_size"],
+                                       cfg["batch_length"]],
+               **{f"{k}_{m}": v[m] for k, v in stats_ms.items()
+                  for m in ("p50_ms", "p90_ms", "audio_s_per_s")},
+               "peak_gib": peak, "last_log": recs[-1]}
+    print("denoise_train_path " + json.dumps(summary), flush=True)
+    emit("denoise_train_path", t0, config=str(DENOISE_YAML.relative_to(ROOT)),
+         seconds_of_training=seconds, steps=stats_ms, peak_gib=peak,
+         moved_leaves=moved, launches=launches)
+
+
 def phase_train_univ_path(card: str):
     """The symADuniv config (UnivNet's MRSD + MPD) at its widths and batch:
     2 metric steps and 2 adversarial steps, with the finiteness and the
@@ -3979,6 +4331,21 @@ def phase_train_univ_path(card: str):
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     emit("train_univ_path", t0, config=str(SYMADUNIV_YAML.relative_to(ROOT)),
          seconds_of_training=seconds, moved_leaves=moved, launches=launches)
+
+
+def train_phases(device, card: str) -> dict:
+    """The training phases of slices 16 and 17, in the order their files
+    need (train_univ_path removes build/chip_smoke_train/) -> the launch
+    counts of voc_train_path's codec_test."""
+    phase_train_golden(device)
+    phase_voc_train_golden(device)
+    phase_denoise_train_golden(device)
+    phase_train_path(card)
+    stats = phase_stats_path(device, card)
+    launches = phase_voc_train_path(card, stats)
+    phase_denoise_train_path(card)
+    phase_train_univ_path(card)
+    return launches
 
 
 def phase_build():
@@ -4047,9 +4414,7 @@ def main():
 
     phase_build()
     if sys.argv[1:] == ["train"]:
-        phase_train_golden(device)
-        phase_train_path(card)
-        phase_train_univ_path(card)
+        train_phases(device, card)
         return
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
@@ -4102,15 +4467,14 @@ def main():
     phase_batchfold_path(device, params, x, card)
     serve_launches = phase_serve_path(device, params, card)
     phase_stream_tools_path(device, params, card)
-    phase_train_golden(device)
-    phase_train_path(card)
-    phase_train_univ_path(card)
+    voc_train_launches = train_phases(device, card)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,
                "mxu_rate_path": mxu_launches, "ablate_path": ablate_launches,
                "folded_probe_path": probe_counts,
                "serve_path": serve_launches,
+               "voc_train_path": voc_train_launches,
                "golden_parity": golden_launches,
                "voc_golden": voc_golden_launches,
                "mma_kernel_vs_plain": mma_counts,

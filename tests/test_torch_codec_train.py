@@ -3,7 +3,11 @@ steps of each stage on a seeded tiny corpus at gen_small-like widths, its
 JSONL log and checkpoints, resume and warm start; the checkpoint read by
 the JAX package (`load_only_params` onto a JAX template gives JAX the
 port's outputs) and by the port's `codec_test`; `config.yml` read back by
-JAX's `load_config`; the seeded collater and loader against JAX's.
+JAX's `load_config`; the seeded collater and loader against JAX's.  Then
+the AD v1 recipe's other modes on the same corpus: `bin/codec_stats.py`
+with the trained symAD as the analyzer, the vocoder trained on its codes
+and statistics, and the denoiser warm-started from it on (noisy, clean)
+pairs, each through both JAX's `load_only_params` and a resume.
 
 Tolerances: outputs of the JAX and port models on one checkpoint within a
 relative 1e-5 of the largest entry; batches, configs and restored states
@@ -26,27 +30,36 @@ from audiodec_tpu.data import collate as jax_collate
 from audiodec_tpu.data import loader as jax_loader
 from audiodec_tpu.models import autoencoder as jax_ae
 from audiodec_tpu.models import discriminators as jax_disc
+from audiodec_tpu.models import vocoder as jax_voc
 from audiodec_tpu.ops import norms as jax_norms
 from audiodec_tpu.train import checkpoint as jax_ckpt
 from audiodec_tpu.utils import config as jax_config
-from audiodec_tpu_torch.bin import codec_test, codec_train
+from audiodec_tpu_torch.bin import codec_stats, codec_test, codec_train
 from audiodec_tpu_torch.data.collate import CollaterAudio
 from audiodec_tpu_torch.data.dataset import SingleDataset
 from audiodec_tpu_torch.data.loader import DataLoader
 from audiodec_tpu_torch.data.wav import write_wav
 from audiodec_tpu_torch.models import autoencoder as ae
 from audiodec_tpu_torch.models import discriminators as D
+from audiodec_tpu_torch.models import vocoder as voc
 from audiodec_tpu_torch.ops.norms import resolve_params
 from audiodec_tpu_torch.train import checkpoint as ckpt
-from audiodec_tpu_torch.utils.checkpoint import load_only_params
 from audiodec_tpu_torch.train.optim import tree_leaves
 from audiodec_tpu_torch.utils import bridge, config
+from audiodec_tpu_torch.utils import checkpoint as ckpt_io
+from audiodec_tpu_torch.utils.checkpoint import load_only_params
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYMAD = os.path.join(ROOT, "configs", "autoencoder",
                      "symAD_vctk_48000_hop300.yaml")
+VOCODER = os.path.join(ROOT, "configs", "vocoder",
+                       "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml")
+DENOISE = os.path.join(ROOT, "configs", "denoise",
+                       "symAD_vctk_48000_hop300.yaml")
+STATISTIC = os.path.join(ROOT, "configs", "statistic",
+                         "symAD_vctk_48000_hop300_clean.yaml")
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
                            recursive=True))
 SR = 48000
@@ -62,13 +75,16 @@ def _corpus(root):
                        ).astype(np.float32), SR)
 
 
-def _tiny_config(data_path, **over):
-    cfg = config.load_config(SYMAD)
+def _tiny_config(data_path, base=SYMAD, **over):
+    cfg = config.load_config(base)
     cfg["data"] = {"path": data_path,
                    "subset": {"train": "train", "valid": "valid"}}
-    cfg["generator_params"].update(encode_channels=4, decode_channels=4,
-                                   code_dim=16, codebook_num=4,
-                                   codebook_size=32)
+    if base == VOCODER:
+        cfg["generator_params"].update(in_channels=16, channels=32)
+    else:
+        cfg["generator_params"].update(encode_channels=4, decode_channels=4,
+                                       code_dim=16, codebook_num=4,
+                                       codebook_size=32)
     dp = cfg["discriminator_params"]
     dp["scales"], dp["periods"] = 2, [2, 3]
     dp["scale_discriminator_params"].update(
@@ -308,18 +324,214 @@ def test_collater_and_loader_match_jax(run, workers):
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("argv,mode", [
-    ([], "vocoder"), ([], "denoise"), (["--dp", "2"], None),
-    (["--coordinator", "localhost:1234"], None),
-    (["--num-processes", "2"], None)])
-def test_unported_modes_raise(run, tmp_path, argv, mode):
-    _, cfg, cfg_path, _, _ = run
-    if mode:
-        cfg_path = _write(str(tmp_path / "cfg.yaml"),
-                          dict(cfg, train_mode=mode))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A[67]"):
+@pytest.mark.parametrize("argv", [
+    ["--dp", "2"], ["--coordinator", "localhost:1234"],
+    ["--num-processes", "2"]])
+def test_unported_modes_raise(run, tmp_path, argv):
+    _, _, cfg_path, _, _ = run
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         codec_train.main(["--config", cfg_path, "--tag",
                           str(tmp_path / "x"), "--device", "cpu"] + argv)
+
+
+# ---------------------------------------------------------------------------
+# codec_stats, then the vocoder and the denoiser on the trained symAD
+# ---------------------------------------------------------------------------
+
+def _train_log(tag):
+    with open(os.path.join(tag, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    return [r for r in recs if "train/generator_loss" in r]
+
+
+def _leaves(path, key):
+    return dict(tree_leaves(load_only_params(path, key, fold=False)[0]))
+
+
+@pytest.fixture(scope="module")
+def stats(run):
+    """codec_stats over the training corpus with the trained symAD as the
+    analyzer."""
+    root, _, _, tag, _ = run
+    cfg = config.load_config(STATISTIC)
+    cfg["data"] = {"path": str(root / "data"),
+                   "subset": {"train": "train", "valid": "valid"}}
+    cfg_path = _write(str(root / "stats.yaml"), cfg)
+    out = str(root / "stats" / "stats.npy")
+    got = codec_stats.main(["--config", cfg_path, "--analyzer",
+                            os.path.join(tag, "checkpoint-final.ckpt"),
+                            "--out", out, "--batch-size", "4",
+                            "--device", "cpu"])
+    return cfg_path, out, got
+
+
+def test_codec_stats_writes_the_analyzers_moments(run, stats):
+    root, _, _, tag, _ = run
+    cfg_path, out, got = stats
+    written = np.load(out)
+    np.testing.assert_array_equal(written, got)
+    assert written.shape == (2, 16) and np.all(written[1] > 0)
+    params, cfg = codec_train.load_analyzer(
+        os.path.join(tag, "checkpoint-final.ckpt"), torch.device("cpu"))
+    np.testing.assert_array_equal(written, codec_stats.extract_stats(
+        params, cfg, SingleDataset(str(root / "data" / "train")),
+        batch_size=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        codec_stats.main(["--config", cfg_path, "--dp", "2", "--device",
+                          "cpu"])
+
+
+def _voc_config(run, stats, **over):
+    root, _, _, tag, _ = run
+    cfg = _tiny_config(str(root / "data"), base=VOCODER,
+                       analyzer=os.path.join(tag, "checkpoint-final.ckpt"),
+                       discriminator_train_start_steps=1, **over)
+    cfg["generator_params"]["stats"] = stats[1]
+    return _write(str(root / "voc.yaml"), cfg), cfg
+
+
+@pytest.fixture(scope="module")
+def voc_run(run, stats):
+    """Four vocoder steps: the `>` gate at discriminator_train_start_steps
+    1 makes steps 0 and 1 metric steps, 2 and 3 adversarial ones."""
+    root = run[0]
+    cfg_path, cfg = _voc_config(run, stats)
+    tag = str(root / "voc")
+    trainer = codec_train.main(["--config", cfg_path, "--tag", tag,
+                                "--device", "cpu", "--seed", "5"])
+    return cfg_path, cfg, tag, trainer
+
+
+def test_vocoder_mode_trains_and_loads_in_jax(run, stats, voc_run):
+    """Both stages run and log; the analyzer and the statistics ride along
+    unmoved; JAX's load_only_params reads the vocoder onto a vocoder_init
+    template (folding its weight norm), and JAX's vocoder gives the
+    port's output on it."""
+    _, _, _, an_tag, _ = run
+    _, cfg, tag, trainer = voc_run
+    assert trainer.steps == 4
+    train = _train_log(tag)
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert ["train/discriminator_loss" in r for r in train] == [
+        False, False, True, True]
+    path = os.path.join(tag, "checkpoint-final.ckpt")
+    gen = _leaves(path, "gen")
+    assert "input_conv/v" in gen and "upsamples/0/g" in gen
+    st = np.load(stats[1])
+    np.testing.assert_array_equal(gen["mean"], st[0])
+    np.testing.assert_array_equal(gen["scale"], st[1])
+    analyzer = _leaves(os.path.join(an_tag, "checkpoint-final.ckpt"), "gen")
+    for p, a in _leaves(path, "analyzer").items():
+        np.testing.assert_array_equal(a, analyzer[p], err_msg=p)
+    assert not np.array_equal(gen["input_conv/v"], _leaves(
+        os.path.join(tag, "checkpoint-2steps.ckpt"), "gen")["input_conv/v"])
+
+    gp = cfg["generator_params"]
+    jcfg = jax_voc.config_from_yaml(gp, stats=True)
+    template = jax.eval_shape(lambda k: jax_voc.vocoder_init(k, jcfg),
+                              jax.random.PRNGKey(0))
+    jgen, header = jax_ckpt.load_only_params(path, "gen", template=template)
+    assert header["steps"] == 4
+    c = np.random.default_rng(2).standard_normal((2, 5, 16)).astype(
+        np.float32)
+    want = jax.jit(lambda p, v: jax_voc.vocoder_apply(p, v, jcfg))(
+        jgen, jnp.asarray(c))
+    got = voc.vocoder_apply(
+        bridge.vocoder_params_from_jax(load_only_params(path)[0]),
+        torch.from_numpy(c), voc.config_from_yaml(gp, stats=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.max(np.abs(want))))
+
+
+def _pair_corpus(root):
+    """The training corpus as the clean side, plus seeded noise as the
+    noisy side, for train and valid."""
+    rng = np.random.default_rng(6)
+    from audiodec_tpu_torch.data.wav import read_wav
+
+    for sub in ("train", "valid"):
+        os.makedirs(os.path.join(root, f"noisy_{sub}"))
+        for name in sorted(os.listdir(os.path.join(root, sub))):
+            x, sr = read_wav(os.path.join(root, sub, name))
+            write_wav(os.path.join(root, f"noisy_{sub}", name),
+                      x + 0.05 * rng.standard_normal(x.shape).astype(
+                          np.float32), sr)
+
+
+@pytest.fixture(scope="module")
+def den_run(run):
+    """Four denoising steps warm-started from the trained symAD."""
+    root, _, _, an_tag, _ = run
+    _pair_corpus(str(root / "data"))
+    cfg = _tiny_config(str(root / "data"), base=DENOISE,
+                       initial=os.path.join(an_tag, "checkpoint-final.ckpt"),
+                       start_steps={"generator": 0, "discriminator": 200000})
+    cfg["data"]["subset"] = {"clean_train": "train", "clean_valid": "valid",
+                             "noisy_train": "noisy_train",
+                             "noisy_valid": "noisy_valid"}
+    cfg_path = _write(str(root / "den.yaml"), cfg)
+    tag = str(root / "den")
+    trainer = codec_train.main(["--config", cfg_path, "--tag", tag,
+                                "--device", "cpu"])
+    return cfg_path, cfg, tag, trainer
+
+
+def test_denoise_mode_trains_and_loads_in_jax(run, den_run):
+    """Four steps of one stage; the quantizer and decoder of the warm
+    start unmoved bit for bit, the encoder moved; no discriminator in the
+    checkpoint; JAX's load_only_params reads it onto a generator_init
+    template and JAX's generator gives the port's output on it."""
+    _, _, _, an_tag, _ = run
+    _, cfg, tag, trainer = den_run
+    assert trainer.steps == 4 and "disc" not in trainer.state
+    train = _train_log(tag)
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert not any("train/discriminator_loss" in r for r in train)
+    path = os.path.join(tag, "checkpoint-final.ckpt")
+    raw, _ = ckpt_io.load_checkpoint(path)
+    assert sorted(raw) == ["gen", "gen_opt"]
+    start = _leaves(os.path.join(an_tag, "checkpoint-final.ckpt"), "gen")
+    gen = _leaves(path, "gen")
+    for p in gen:
+        if p.split("/")[0] in ("quantizer", "decoder"):
+            np.testing.assert_array_equal(gen[p], start[p], err_msg=p)
+    assert not np.array_equal(gen["encoder/conv/w"], start["encoder/conv/w"])
+
+    jcfg, pcfg = _gen_cfgs(cfg)
+    template = jax.eval_shape(lambda k: jax_ae.generator_init(k, jcfg),
+                              jax.random.PRNGKey(0))
+    jgen, _ = jax_ckpt.load_only_params(path, "gen", template=template)
+    x = (0.3 * np.random.default_rng(1).standard_normal((2, 1200, 1))
+         ).astype(np.float32)
+    want = jax.jit(lambda p, v: jax_ae.generator_forward(p, v, jcfg)[0])(
+        jgen, jnp.asarray(x))
+    got = ae.generator_forward(bridge.params_from_jax(
+        load_only_params(path)[0]), torch.from_numpy(x), pcfg)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.max(np.abs(want))))
+
+
+@pytest.mark.parametrize("mode", ["vocoder", "denoise"])
+def test_resume_other_modes(request, tmp_path, mode):
+    """--resume from the step-2 checkpoint runs on to step 4, and a state
+    restored from a checkpoint writes it back as it was."""
+    cfg_path, _, tag, _ = request.getfixturevalue(
+        "voc_run" if mode == "vocoder" else "den_run")
+    at2 = os.path.join(tag, "checkpoint-2steps.ckpt")
+    resumed = codec_train.main(["--config", cfg_path, "--tag",
+                                str(tmp_path / "resumed"), "--device",
+                                "cpu", "--resume", at2])
+    assert resumed.steps == 4
+    state, header = ckpt.load_checkpoint(at2, resumed.state)
+    again = str(tmp_path / "again.ckpt")
+    ckpt.save_checkpoint(again, state, header["steps"])
+    a = dict(tree_leaves(ckpt_io.load_checkpoint(again)[0]))
+    b = dict(tree_leaves(ckpt_io.load_checkpoint(at2)[0]))
+    assert sorted(a) == sorted(b)
+    for p in a:
+        np.testing.assert_array_equal(np.asarray(a[p]), np.asarray(b[p]),
+                                      err_msg=p)
 
 
 @pytest.mark.parametrize("start", [0, 2])
