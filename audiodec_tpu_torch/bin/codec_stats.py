@@ -16,6 +16,12 @@ Utterances are cut into fixed-size windows, batched; each window carries
 the encoder's receptive-field halo of real left context, so the codes
 equal a whole-utterance encode's to f32 rounding.  The card is the default
 device, with TF32 off.
+
+`--dp N` splits each batch of windows over N ranks (started as
+bin/codec_train.py's docstring says: torchrun, or --coordinator
+--num-processes --process-id): each rank encodes its rows, the codes are
+gathered on every rank, and the first rank writes the file.  The merge is
+exact, so N ranks give one rank's moments to f32 rounding.
 """
 
 from __future__ import annotations
@@ -36,9 +42,14 @@ from audiodec_tpu_torch.models.autoencoder import (
 )
 from audiodec_tpu_torch.ops.vq import rvq_forward_index
 from audiodec_tpu_torch.parallel.codec import encoder_halo_samples
+from audiodec_tpu_torch.parallel.distributed import (
+    add_parallel_flags,
+    global_mesh,
+    join_world,
+    process_index,
+    world_size,
+)
 from audiodec_tpu_torch.utils.config import load_config
-
-PARALLEL = "ROADMAP.md A7 (data-parallel statistics)"
 
 
 class RunningMoments:
@@ -103,13 +114,19 @@ def _windows(dataset, window: int, hop: int, halo: int = 0):
 
 
 def extract_stats(params, cfg, dataset, window_hops: int = 160,
-                  batch_size: int = 8) -> np.ndarray:
+                  batch_size: int = 8, axis=None) -> np.ndarray:
     """The codes' moments over fixed-size windows in batches of
     `batch_size` (the last one zero padded to that shape), on the device
     of the analyzer's tree `params` -> (2, code_dim) float32 [mean, scale].
     The grouping of windows does not change the moments (the merge is
-    exact)."""
+    exact).  axis: a data axis (parallel/distributed.py `Axis`) whose
+    ranks each encode their contiguous rows of every batch, the codes
+    then gathered on all of them (JAX's `dp`); batch_size must divide
+    over it."""
     device = params["quantizer"]["embed"].device
+    if axis is not None and batch_size % axis.size:
+        raise ValueError(f"--batch-size {batch_size} must divide over "
+                         f"--dp {axis.size}")
     halo = encoder_halo_samples(cfg)
     halo_frames = halo // cfg.hop_length
 
@@ -125,7 +142,13 @@ def extract_stats(params, cfg, dataset, window_hops: int = 160,
     def flush(buf, counts):
         xb = np.zeros((batch_size,) + buf[0].shape, np.float32)
         xb[:len(buf)] = np.stack(buf)
-        zq = codes(torch.from_numpy(xb).to(device)).cpu().numpy()
+        if axis is None:
+            zq = codes(torch.from_numpy(xb).to(device)).cpu().numpy()
+        else:
+            rows = batch_size // axis.size
+            mine = xb[axis.index * rows:(axis.index + 1) * rows]
+            zq = axis.all_gather(codes(torch.from_numpy(mine).to(device)),
+                                 0).cpu().numpy()
         mom.update(np.concatenate([zq[j, :n] for j, n in enumerate(counts)],
                                   axis=0).astype(np.float64))
 
@@ -153,25 +176,30 @@ def main(argv=None) -> np.ndarray:
     parser.add_argument("--out", default=None)
     parser.add_argument("--batch-size", type=int, default=8,
                         help="windows per device batch")
-    parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
+    add_parallel_flags(parser, "data-parallel ranks, each encoding its "
+                               "rows of every batch (default: the world)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.dp != 1:
-        raise NotImplementedError(f"--dp: not ported; see {PARALLEL}")
 
     config = load_config(args.config)
-    device = require_device(args.device)
+    device = join_world(args, parser, require_device(args.device))
+    axis = None
+    if args.dp > 1 or world_size() > 1:
+        axis = global_mesh(data=-1 if args.dp <= 1 else args.dp,
+                           device=device).axis("data")
     params, cfg = load_analyzer(args.analyzer or config["analyzer"], device)
     data_path = args.data_path or os.path.join(
         config["data"]["path"], config["data"]["subset"][args.subset])
     dataset = SingleDataset(data_path, subset_num=args.subset_num)
-    stats = extract_stats(params, cfg, dataset, batch_size=args.batch_size)
-    out = args.out or config.get("stats", "stats.npy")
-    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    np.save(out, stats)
-    logging.info("saved stats %s (shape %s)", out, stats.shape)
+    stats = extract_stats(params, cfg, dataset, batch_size=args.batch_size,
+                          axis=axis)
+    if process_index() == 0:
+        out = args.out or config.get("stats", "stats.npy")
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.save(out, stats)
+        logging.info("saved stats %s (shape %s)", out, stats.shape)
     return stats
 
 

@@ -20,8 +20,19 @@ The last line printed is the JAX CLI's JSON summary (`utterances`,
 `--stack folded` (the default) equals JAX `--stack folded`; `--stack
 plain` equals JAX `--stack xla`, with the batch folds (`--encode-fold`,
 `--decode-fold`, models/fast.py) on by the same rules.  `--profile DIR`
-writes a torch.profiler trace of the transcode loop.  The mesh and
-multi-host options are not ported.
+writes a torch.profiler trace of the transcode loop.
+
+`--dp D --seq S` runs the chunk-halo sharded codec
+(parallel/codec.py `make_sharded_codec`, whatever `--stack` says, as in
+JAX) over a ('data', 'seq') mesh of D x S ranks, one per device: the
+batch's rows split over 'data', each utterance's time over 'seq'.  Start
+the ranks with torchrun (`torchrun --nproc-per-node N -m
+audiodec_tpu_torch.bin.codec_test ...`) or run the command once per rank
+with `--coordinator host:port --num-processes N --process-id I`, all with
+the same arguments; parallel/distributed.py says which backend they use.
+Every rank reads every batch and keeps its block; the first rank of each
+seq line writes its rows, and the first rank prints the summary with the
+slowest rank's wall clock.
 """
 
 from __future__ import annotations
@@ -64,6 +75,17 @@ from audiodec_tpu_torch.models.fast import (
 )
 from audiodec_tpu_torch.models.vocoder import vocoder_apply
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
+from audiodec_tpu_torch.parallel.codec import make_sharded_codec
+from audiodec_tpu_torch.parallel.distributed import (
+    add_parallel_flags,
+    global_mesh,
+    host_local_rows,
+    join_world,
+    local_block,
+    process_index,
+    world_max,
+    world_size,
+)
 from audiodec_tpu_torch.utils.bridge import (
     params_from_jax,
     tree_map,
@@ -221,6 +243,10 @@ class BatchTranscoder:
     exact_k: the RVQ argmin runs `vq_nearest_2pass` with this shortlist.
     An int16 batch is read as PCM16 and normalized by 1/32768 on the
     device, which equals the float read exactly.
+    mesh: a ('data', 'seq') mesh of ranks (parallel/mesh.py): the
+    transcoder then runs the sharded codec on this rank's block of each
+    batch, whatever `stack` says, on the mesh's device; the int8 decode is
+    refused with a warning, and the folds take the same rules.
     encode_fold / decode_fold: the batch folds of models/fast.py, as JAX's
     (None = auto, False = off, an int = that fold).  Off unless the stack
     is "plain"; the decode folds only a bf16 decoder or vocoder; the
@@ -233,21 +259,29 @@ class BatchTranscoder:
                  dtype=torch.float32, dec_dtype=None, stack: str = "folded",
                  bf16_dots: bool = True, pcm16: bool = False,
                  int8_decode: bool = False, exact_k=None,
-                 encode_fold=None, decode_fold=None, device=None):
+                 encode_fold=None, decode_fold=None, device=None,
+                 mesh=None):
         if stack not in ("folded", "plain"):
             raise ValueError(f"stack must be 'folded' or 'plain', got "
                              f"{stack!r}")
-        self.device = require_device(device)
+        self.device = require_device(device if mesh is None
+                                     else mesh.device)
         self.cfg = cfg
+        self.mesh = mesh
         self.dtype = dtype
         self.dec_dtype = dtype if dec_dtype is None else dec_dtype
         self.pcm16 = pcm16
         self.exact_k = exact_k
         if int8_decode and (voc is not None or cfg.mode != "causal"
-                            or cfg.codec != "audiodec"):
+                            or cfg.codec != "audiodec"
+                            or mesh is not None):
+            # the int8 stacks exist for the causal audiodec decoder on the
+            # unsharded path; anything else would get another mode than
+            # asked for without a word (JAX codec_test.py:188-205)
             warnings.warn(
                 "int8-decode cannot be honored for "
                 + ("vocoder-pair decodes" if voc is not None
+                   else "sharded (--dp/--seq) runs" if mesh is not None
                    else f"mode={cfg.mode}/codec={cfg.codec}")
                 + "; running the non-int8 decoder instead")
             int8_decode = False
@@ -267,6 +301,15 @@ class BatchTranscoder:
         self.fold_policy = {"enc_fold": enc_fold,
                             "dec_fold": dec_fold or voc_fold,
                             "int8_decode": int8_decode}
+        if mesh is not None:
+            # the folds run inside each shard (make_sharded_codec)
+            self._sharded = make_sharded_codec(
+                mesh, params, cfg, vocoder=voc, dtype=dtype,
+                dec_dtype=self.dec_dtype,
+                encode_fold=_fold_arg(encode_fold) if enc_fold else False,
+                decode_fold=(_fold_arg(decode_fold)
+                             if dec_fold or voc_fold else False))
+            return
         # the folded stacks take the causal audiodec codec only; any other
         # config runs the plain encoder and decoder, as in JAX
         # (codec_test.py:226-227)
@@ -320,10 +363,12 @@ class BatchTranscoder:
 
     def encode(self, x) -> torch.Tensor:
         """x: (B, T, 1) float, or int16 PCM -> indices (B, T/hop, Q)
-        int32."""
+        int32; under a mesh, this rank's block of both."""
         x = self._to_device(x)
         if x.dtype == torch.int16:
             x = x.to(torch.float32) / 32768.0
+        if self.mesh is not None:
+            return self._sharded[0](x)
         h = self.enc_apply(self.enc_params["encoder"], x.to(self.dtype),
                            self.cfg)
         z = projector_apply(self.enc_params["projector"], h, self.cfg)
@@ -333,12 +378,28 @@ class BatchTranscoder:
 
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
         """indices (B, T', Q) -> waveform (B, T' * hop, 1), float32 or, with
-        pcm16, int16."""
-        zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
-        y = self.dec_apply(self.dec_params, zq, self.dec_cfg)
+        pcm16, int16; under a mesh, this rank's block of both."""
+        if self.mesh is not None:
+            y = self._sharded[1](idx)
+        else:
+            zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
+            y = self.dec_apply(self.dec_params, zq, self.dec_cfg)
         return _pcm16(y) if self.pcm16 else y.float()
 
     def __call__(self, x):
+        """A batch -> (indices, waveform); under a mesh, the batch is every
+        rank's whole batch and the results are this rank's blocks: PCM16
+        normalized on the host, the rows padded to a multiple of the data
+        axis, then the rank's rows and time shard cut out."""
+        if self.mesh is not None:
+            x = np.asarray(x)
+            if x.dtype == np.int16:
+                x = x.astype(np.float32) / 32768.0
+            pad = (-x.shape[0]) % self.mesh.shape["data"]
+            if pad:
+                x = np.concatenate(
+                    [x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+            x = local_block(self.mesh, ("data", "seq", None), x)
         idx = self.encode(x)
         return idx, self.decode(idx)
 
@@ -420,6 +481,10 @@ def _parser() -> argparse.ArgumentParser:
                         "into this directory")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--seq", type=int, default=1,
+                   help="sequence-parallel ranks per utterance")
+    add_parallel_flags(p, "data-parallel ranks (default: the rest of the "
+                          "world)")
     return p
 
 
@@ -462,9 +527,16 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    device = join_world(args, parser, require_device(args.device))
+    mesh = None
+    if world_size() > 1:
+        mesh = global_mesh(data=-1 if args.dp <= 1 else args.dp,
+                           seq=args.seq, device=device)
+    if args.precision == "exact" and mesh is not None:
+        parser.error("--precision exact is single-rank (unsharded) only")
     transcoder, config = load_codec(
         args.encoder, args.decoder, pcm16=not args.float_out,
-        device=args.device, **transcoder_options(args, parser))
+        device=device, mesh=mesh, **transcoder_options(args, parser))
     sr = config.get("sampling_rate", 48000)
 
     data_path = args.data_path or os.path.join(
@@ -486,19 +558,29 @@ def main(argv=None) -> dict:
             device_trace(args.profile, transcoder.device):
         def drain_one():
             uids, lens, batch_t, t_disp, y = inflight.popleft()
-            y_np = y.cpu().numpy()
+            if mesh is None:
+                lo, y_np = 0, y.cpu().numpy()
+            else:
+                # this rank's rows, whole in time; the seq line's first
+                # rank writes them
+                lo, y_np = host_local_rows(mesh, y)
+                if mesh.coords["seq"]:
+                    y_np = y_np[:0]
             dt = time.perf_counter() - t_disp
             logging.info("batch of %d (T=%d): ready %.3fs after dispatch, "
                          "RTF>=%.1fx", len(uids), batch_t, dt,
                          sum(lens) / sr / dt)
-            for j, uid in enumerate(uids):
-                writes.append(writer.submit(
-                    write_wav, os.path.join(outdir, f"{uid}_output.wav"),
-                    y_np[j, :lens[j]], sr))
+            for j in range(y_np.shape[0]):
+                if lo + j < len(uids):  # not a padding row of the data axis
+                    writes.append(writer.submit(
+                        write_wav,
+                        os.path.join(outdir, f"{uids[lo + j]}_output.wav"),
+                        y_np[j, :lens[lo + j]], sr))
 
         t_start = time.perf_counter()
         for uids, batch, lens in bucket_batches(
-                dataset, args.batch_size, transcoder.cfg.hop_length,
+                dataset, args.batch_size,
+                transcoder.cfg.hop_length * args.seq,
                 prefetch=args.inflight, pcm16_in=not args.float_in):
             _, y = transcoder(batch)
             inflight.append((uids, lens, batch.shape[1],
@@ -512,11 +594,15 @@ def main(argv=None) -> dict:
         total_time = time.perf_counter() - t_start  # end-to-end wall clock
         for w in writes:
             w.result()
+    # the slowest rank bounds the run; every rank transcoded every batch
+    # (its block of it), so the audio totals are global already
+    total_time = world_max(total_time)
     summary = {"utterances": n_utts, "audio_seconds": total_audio,
                "wall_seconds": total_time,
                "rtf": total_audio / total_time if total_time else 0.0,
-               "hosts": 1}
-    print(json.dumps(summary), flush=True)
+               "hosts": world_size()}
+    if process_index() == 0:
+        print(json.dumps(summary), flush=True)
     return summary
 
 

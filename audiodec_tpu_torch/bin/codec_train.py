@@ -18,12 +18,23 @@ ref codecTrain.py, bin/train.py) for every `train_mode` of a config:
         --config configs/autoencoder/symAD_vctk_48000_hop300.yaml \\
         --tag exp/autoencoder/mytag [--resume CKPT] [--device cpu]
 
+Data-parallel training over N ranks (one per device, parallel/distributed.py
+says which backend): start N processes with torchrun
+(`torchrun --nproc-per-node N -m audiodec_tpu_torch.bin.codec_train ...`)
+or each with `--coordinator host:port --num-processes N --process-id I`,
+all with the same arguments; `--dp N` names the data axis (default: the
+whole world).  `batch_size` is the global batch: every rank builds the same
+global batch from the same seeds (the loader draws the crops in batch order
+for any number of threads) and trains on its contiguous rows; the
+gradients, the RVQ's statistics and the records are averaged over the
+ranks, so N ranks train as one does at the same global batch.  Only the
+first rank writes config.yml, the metrics and the checkpoints.
+
 It writes config.yml, metrics.jsonl and the checkpoints (the JAX package's
 format: its `load_only_params` and the port's `codec_test` read them) under
 the tag.  Initial weights come from a torch.Generator seeded by --seed (not
 JAX's draw); a config's `initial:` checkpoint warm-starts the generator in
-every mode.  The card is the default device, with TF32 off.  Data-parallel
-and multi-host training are not ported yet and raise.
+every mode.  The card is the default device, with TF32 off.
 """
 
 from __future__ import annotations
@@ -43,12 +54,20 @@ from audiodec_tpu_torch.models import discriminators as D
 from audiodec_tpu_torch.models.autoencoder import generator_init
 from audiodec_tpu_torch.models.vocoder import vocoder_init
 from audiodec_tpu_torch.ops.norms import apply_weight_norm_tree
+from audiodec_tpu_torch.parallel.distributed import (
+    add_parallel_flags,
+    global_mesh,
+    join_world,
+    process_index,
+    world_size,
+)
 from audiodec_tpu_torch.train.checkpoint import load_params_into
 from audiodec_tpu_torch.train.criterion import build_criterion
 from audiodec_tpu_torch.train.steps import (
     make_autoencoder_steps,
     make_denoise_steps,
     make_vocoder_steps,
+    shard_steps,
     train_state,
 )
 from audiodec_tpu_torch.train.trainer import GanTrainer
@@ -63,7 +82,6 @@ from audiodec_tpu_torch.utils.config import (
 )
 
 TRAIN_MODES = ("autoencoder", "vocoder", "denoise")
-PARALLEL = "ROADMAP.md A7 (data-parallel and multi-host training)"
 
 
 def _subset_path(config, subset):
@@ -158,28 +176,29 @@ def build_trainer(argv=None) -> GanTrainer:
     parser.add_argument("--seed", type=int, default=1337)
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
-    for flag in ("--dp", "--num-processes", "--process-id"):
-        parser.add_argument(flag, type=int, default=None)
-    parser.add_argument("--coordinator", default=None)
+    add_parallel_flags(parser, "data-parallel ranks (default: the world)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    for flag in ("dp", "coordinator", "num_processes", "process_id"):
-        value = getattr(args, flag)
-        if value is not None and not (flag == "dp" and value == 1):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: not ported; see {PARALLEL}")
+    device = join_world(args, parser, require_device(args.device))
     config = load_config(args.config)
     train_mode = config.get("train_mode", "autoencoder")
     if train_mode not in TRAIN_MODES:
         raise NotImplementedError(f"train_mode {train_mode!r}")
-    device = require_device(args.device)
+    axis_name = None
+    if args.dp > 1 or world_size() > 1:
+        # grads, EMA statistics and records averaged over every rank, so
+        # N ranks train as one does at the same global batch
+        axis_name = global_mesh(data=-1 if args.dp <= 1 else args.dp,
+                                device=device).axis("data")
+    primary = process_index() == 0
     if args.exp_root:
         args.tag = os.path.join(args.exp_root, args.tag)
     os.makedirs(args.tag, exist_ok=True)
-    # snapshot the config beside the checkpoints (ref: bin/train.py:58-64)
-    with open(os.path.join(args.tag, "config.yml"), "w") as f:
-        f.write(dump_yaml(config))
+    if primary:
+        # snapshot the config beside the checkpoints (ref: bin/train.py:58-64)
+        with open(os.path.join(args.tag, "config.yml"), "w") as f:
+            f.write(dump_yaml(config))
 
     gen_cfg, gen, disc_apply, disc = build_models(config, train_mode,
                                                   device, args.seed)
@@ -191,15 +210,19 @@ def build_trainer(argv=None) -> GanTrainer:
     crit = build_criterion(config)
     if train_mode == "autoencoder":
         state = train_state(gen, disc, config)
-        steps = make_autoencoder_steps(gen_cfg, disc_apply, config, crit)
+        steps = make_autoencoder_steps(gen_cfg, disc_apply, config, crit,
+                                       axis_name=axis_name)
     elif train_mode == "vocoder":
         analyzer, an_cfg = load_analyzer(config["analyzer"], device)
         state = train_state(gen, disc, config, analyzer=analyzer)
         steps = make_vocoder_steps(gen_cfg, an_cfg, disc_apply, config,
-                                   crit)
+                                   crit, axis_name=axis_name)
     else:
         state = train_state(gen, None, config)
-        steps = make_denoise_steps(gen_cfg, config, crit)
+        steps = make_denoise_steps(gen_cfg, config, crit,
+                                   axis_name=axis_name)
+    if axis_name is not None:
+        steps = shard_steps(steps, axis_name)
 
     bl = config.get("batch_length", 9600)
     adv_bl = config.get("adv_batch_length", bl)
@@ -210,7 +233,7 @@ def build_trainer(argv=None) -> GanTrainer:
         steps_fns=steps, state=state, config=config, outdir=args.tag,
         train_iter=train_dl.infinite(), adv_train_iter=adv_dl.infinite(),
         eval_iter_fn=lambda: iter(valid_dl), device=device,
-        strict_start=(train_mode == "autoencoder"),
+        strict_start=(train_mode == "autoencoder"), primary=primary,
         steps_per_epoch=len(train_dl) or None,
         adv_steps_per_epoch=len(adv_dl) or None)
     if args.resume:

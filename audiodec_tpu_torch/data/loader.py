@@ -2,8 +2,12 @@
 audiodec_tpu/data/loader.py; ref codecTrain.py:68-86 num_workers).
 
 Worker threads read and collate batches while the training step runs; the
-batches come out in order.  With the same seeds the shuffle and the batches
-are the JAX package's.
+batches come out in order.  The collater's random crops are drawn in batch
+order whatever the number of threads (each thread reads its batch, then
+waits for its turn to collate), so the same seeds give the same batches for
+any `num_workers`: the JAX package's batches with one thread (its threads
+draw in whichever order they run), and the same global batch on every rank
+of a data-parallel run.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ class DataLoader:
         out: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         for i, b in enumerate(batches):
             work.put((i, b))
+        turn = [0]
+        turns = threading.Condition()
 
         def worker():
             while True:
@@ -54,8 +60,13 @@ class DataLoader:
                     i, b = work.get_nowait()
                 except queue.Empty:
                     return
-                out.put((i, self.collate_fn([self.dataset[int(j)]
-                                             for j in b])))
+                items = [self.dataset[int(j)] for j in b]
+                with turns:
+                    turns.wait_for(lambda: turn[0] == i)
+                    batch = self.collate_fn(items)
+                    turn[0] += 1
+                    turns.notify_all()
+                out.put((i, batch))
 
         for _ in range(self.num_workers):
             threading.Thread(target=worker, daemon=True).start()

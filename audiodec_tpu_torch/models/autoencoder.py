@@ -469,7 +469,7 @@ def _channel_fold(x, input_channels: int):
 
 
 def generator_forward(params, x, cfg: GeneratorConfig, *,
-                      train: bool = False, bn_train=None):
+                      train: bool = False, bn_train=None, axis_name=None):
     """The full train / eval forward on the plain residual stacks
     (ref: AudioDec.py:112-120).  x: (B, T, C) -> (y (B, T, C), zq, z
     (B, T', D), vqloss (Q,), perplexity (Q,), new_buffers), new_buffers =
@@ -480,6 +480,8 @@ def generator_forward(params, x, cfg: GeneratorConfig, *,
     bn_train (default: train) sets BN's mode apart from the codebook's: the
     reference's adversarial stage keeps a frozen BN projector in train mode
     while the codebook is in eval mode (ref: trainer/autoencoder.py:66-79).
+    axis_name: the data axis the RVQ's statistics are reduced over
+    (ops/vq.py `rvq_forward`), or None.
     """
     bn_train = train if bn_train is None else bn_train
     x = _channel_fold(x, cfg.input_channels).transpose(1, 2)
@@ -489,7 +491,8 @@ def generator_forward(params, x, cfg: GeneratorConfig, *,
     else:
         z, new_bn = projector_bct(params["projector"], h, cfg), None
     z = z.transpose(1, 2)
-    zq, vqloss, ppl, new_q = rvq_forward(z, params["quantizer"], train=train)
+    zq, vqloss, ppl, new_q = rvq_forward(z, params["quantizer"], train=train,
+                                         axis_name=axis_name)
     y = decoder_bct(params["decoder"], zq.transpose(1, 2), cfg,
                     res_stack_plain)
     new_buffers = {"quantizer": new_q}

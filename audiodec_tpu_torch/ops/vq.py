@@ -103,7 +103,7 @@ def rvq_lookup(idx: torch.Tensor, params: dict,
 
 def rvq_forward(z: torch.Tensor, params: dict, *, train: bool,
                 decay: float = 0.8, eps: float = 1e-5,
-                commitment: float = 1.0):
+                commitment: float = 1.0, axis_name=None):
     """Training / eval forward -> (zq, per-layer commitment losses (Q,),
     perplexities (Q,), new params).  z: (B, T, D).
 
@@ -115,6 +115,14 @@ def rvq_forward(z: torch.Tensor, params: dict, *, train: bool,
     computed from the codebooks as they were before the step and returned
     as new buffers (cluster_size, embed_avg, embed); without, `params` is
     returned as it is.  The buffers carry no gradient.
+
+    axis_name: None, or the data axis (parallel/distributed.py `Axis`)
+    over whose ranks JAX's `axis_name` reduces: each layer's average code
+    probabilities are averaged over it (pmean) and the EMA's code counts
+    and sums added (psum), so every rank computes the same perplexities and
+    codebooks from the global batch.  The layers' statistics go in one
+    buffer and one collective; the per-element sums are the same as one
+    collective per statistic.
     """
     embed = params["embed"]
     num_q, n_embed, dim = embed.shape
@@ -122,35 +130,62 @@ def rvq_forward(z: torch.Tensor, params: dict, *, train: bool,
     zq = torch.zeros_like(z)
     losses, perplexities = [], []
     new_cluster, new_avg, new_embed = [], [], []
+    stats = []  # per layer: avg_probs (and with train the EMA sums)
     for q in range(num_q):
         e_q = embed[q]
         with torch.no_grad():
             idx = vq_nearest(residual, e_q).reshape(-1).long()
             onehot = F.one_hot(idx, n_embed).to(z.dtype)
-            avg_probs = torch.mean(onehot, dim=0)
-            perplexities.append(torch.exp(-torch.sum(
-                avg_probs * torch.log(avg_probs + 1e-10))))
+            stats.append([torch.mean(onehot, dim=0)])
+            if train:
+                stats[-1] += [torch.sum(onehot, dim=0),
+                              onehot.transpose(0, 1)
+                              @ residual.reshape(-1, dim)]
         quant = e_q.detach()[idx].reshape(residual.shape)
         losses.append(commitment * torch.mean(torch.square(
             quant.detach() - residual)))
-        if train:
-            with torch.no_grad():
-                onehot_sum = torch.sum(onehot, dim=0)
-                embed_sum = onehot.transpose(0, 1) @ residual.reshape(-1, dim)
-                cs = (params["cluster_size"][q] * decay
-                      + (1 - decay) * onehot_sum)
-                ea = params["embed_avg"][q] * decay + (1 - decay) * embed_sum
-                total = torch.sum(cs)
-                smoothed = (cs + eps) / (total + n_embed * eps) * total
-                new_cluster.append(cs)
-                new_avg.append(ea)
-                new_embed.append(ea / smoothed[:, None])
         quant = residual + (quant - residual).detach()
         residual = residual - quant
         zq = zq + quant
+    if axis_name is not None and axis_name.size > 1:
+        stats = _reduce_stats(stats, axis_name)
+    with torch.no_grad():
+        for q, layer in enumerate(stats):
+            avg_probs = layer[0]
+            perplexities.append(torch.exp(-torch.sum(
+                avg_probs * torch.log(avg_probs + 1e-10))))
+            if not train:
+                continue
+            onehot_sum, embed_sum = layer[1], layer[2]
+            cs = (params["cluster_size"][q] * decay
+                  + (1 - decay) * onehot_sum)
+            ea = params["embed_avg"][q] * decay + (1 - decay) * embed_sum
+            total = torch.sum(cs)
+            smoothed = (cs + eps) / (total + n_embed * eps) * total
+            new_cluster.append(cs)
+            new_avg.append(ea)
+            new_embed.append(ea / smoothed[:, None])
     new_params = params
     if train:
         new_params = {"embed": torch.stack(new_embed),
                       "cluster_size": torch.stack(new_cluster),
                       "embed_avg": torch.stack(new_avg)}
     return zq, torch.stack(losses), torch.stack(perplexities), new_params
+
+
+@torch.no_grad()
+def _reduce_stats(stats: list, axis) -> list:
+    """The layers' statistics summed over the axis in one collective; the
+    average probabilities (each layer's first entry) divided by its size
+    after the sum, JAX's pmean."""
+    flat = torch.cat([t.reshape(-1) for layer in stats for t in layer])
+    flat = axis.all_reduce(flat, "sum")
+    out, at = [], 0
+    for layer in stats:
+        parts = []
+        for j, t in enumerate(layer):
+            part = flat[at:at + t.numel()].reshape(t.shape)
+            parts.append(part / axis.size if j == 0 else part)
+            at += t.numel()
+        out.append(parts)
+    return out

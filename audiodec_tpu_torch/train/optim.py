@@ -11,6 +11,12 @@ on optax.
 of the paths it is given only; the others keep `.grad` None, so Adam skips
 them (the JAX package zeroes their gradients and updates: the parameters
 come out the same, their moments do not).
+
+Data-parallel steps pass the data axis (parallel/distributed.py `Axis`):
+the gradients are averaged over its ranks after they are computed and
+before they are clipped, as JAX `pmean`s them before its optimizer chain
+clips, in one flat buffer and one collective per step.  Every rank then
+takes the same update, so the params and the moments stay identical.
 """
 
 from __future__ import annotations
@@ -33,6 +39,18 @@ def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     out = []
     for k, v in items:
         out.extend(tree_leaves(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _mean_over(grads: list, axis) -> list:
+    """The gradients averaged over the axis's ranks, flattened into one
+    buffer for one collective."""
+    flat = axis.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                           "mean")
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
     return out
 
 
@@ -76,14 +94,19 @@ class Optimizer:
             dict(config.get(f"{role}_scheduler_params", {})))
         self.clip = config.get(f"{role}_grad_norm", -1)
 
-    def step(self, loss: torch.Tensor, paths=None):
+    def step(self, loss: torch.Tensor, paths=None, axis=None):
         """Backpropagate `loss` to the leaves of `paths` (default: all),
-        clip, update them, and advance the schedule by one update."""
+        average the gradients over `axis` (None: no reduction), clip,
+        update them, and advance the schedule by one update."""
         paths = list(self.params) if paths is None else list(paths)
         leaves = [self.params[p] for p in paths]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        if axis is not None and axis.size > 1:
+            grads = _mean_over(grads, axis)
         for t, g in zip(leaves, grads):
-            t.grad = torch.zeros_like(t) if g is None else g
+            t.grad = g
         if self.clip and self.clip > 0:
             torch.nn.utils.clip_grad_norm_(leaves, self.clip)
         self.opt.step()

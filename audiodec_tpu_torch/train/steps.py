@@ -29,6 +29,17 @@ The semantics are JAX's, which are the reference's:
   target; quantizer and decoder frozen, the codebook in eval mode, a BN
   projector in train mode (eval mode in the eval step);
 - eval steps: eval mode, no update.
+
+Data parallelism (JAX's `axis_name`, `shard_steps`): each maker takes the
+data axis of a mesh (parallel/distributed.py `Axis`) as axis_name; every
+rank runs the step on its rows of the global batch (`shard_steps` cuts
+them), the optimizers average the gradients over the axis before they clip
+(train/optim.py), the autoencoder's metric step reduces the RVQ's
+statistics over it (ops/vq.py `rvq_forward`), and the records are averaged
+over it (`_psum_mean`).  A BN projector normalizes over each rank's rows
+and keeps the running statistics of its rows, as JAX's does: its
+shard_map returns the state with out_specs P() unchecked, so each device
+keeps its own, and the first one's is what is read and saved.
 """
 
 from __future__ import annotations
@@ -57,6 +68,33 @@ FROZEN = ("encoder", "projector", "quantizer")
 DENOISE_FROZEN = ("quantizer", "decoder")
 
 
+def shard_steps(steps: dict, axis) -> dict:
+    """The step functions fed this rank's contiguous rows of each global
+    batch argument (JAX's shard_map over a 1-D data mesh with the state
+    replicated); the batch size must divide over the axis."""
+    def rows(x):
+        if x.shape[0] % axis.size:
+            raise ValueError(f"batch {x.shape[0]} does not divide over "
+                             f"{axis.name}={axis.size}")
+        n = x.shape[0] // axis.size
+        return x[axis.index * n:(axis.index + 1) * n]
+
+    def wrap(fn):
+        return lambda state, *batch: fn(state, *map(rows, batch))
+
+    return {name: wrap(fn) for name, fn in steps.items()}
+
+
+def _psum_mean(record: dict, axis_name) -> dict:
+    """The records averaged over the axis, in one collective."""
+    if axis_name is None or axis_name.size == 1:
+        return record
+    keys = list(record)
+    mean = axis_name.all_reduce(torch.stack([record[k].float()
+                                             for k in keys]), "mean")
+    return dict(zip(keys, mean.unbind()))
+
+
 def _ppl_record(record, ppl):
     for i in range(ppl.shape[0]):
         record[f"ppl_{i}"] = ppl[i]
@@ -77,13 +115,13 @@ def _trained_paths(opt: Optimizer, frozen) -> list:
             if path.split("/")[0] not in frozen]
 
 
-def _disc_update(state, disc_apply, crit, y_, x, record):
+def _disc_update(state, disc_apply, crit, y_, x, record, axis_name=None):
     """The discriminator's step on fake y_ and real x; the spectral-norm
     `u` its loss advanced is kept."""
     disc_eff, new_disc = resolve_params(state["disc"])
     dloss = C.dis_loss(crit, disc_apply(disc_eff, y_),
                        disc_apply(disc_eff, x), record)
-    state["disc_opt"].step(dloss)
+    state["disc_opt"].step(dloss, axis=axis_name)
     state["disc"] = new_disc
 
 
@@ -101,11 +139,12 @@ def _adv_loss(state, disc_apply, crit, config, y, x, record):
 
 
 def _codec_losses(gen_cfg, config, crit, eff, x, target, record, *, train,
-                  bn_train=None):
+                  bn_train=None, axis_name=None):
     """generator_forward on x, its VQ loss and its metric losses against
     `target` -> (loss, y, new buffers)."""
     y, _, _, vql, ppl, new_buf = generator_forward(
-        eff, x, gen_cfg, train=train, bn_train=bn_train)
+        eff, x, gen_cfg, train=train, bn_train=bn_train,
+        axis_name=axis_name)
     _ppl_record(record, ppl)
     loss = C.vq_loss(config, vql, record)
     loss = loss + C.metric_loss(crit, config, y, target, record)
@@ -113,9 +152,10 @@ def _codec_losses(gen_cfg, config, crit, eff, x, target, record, *, train,
 
 
 def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
-                           config: dict, crit: dict):
+                           config: dict, crit: dict, axis_name=None):
     """-> {"metric": fn, "adv": fn, "eval": fn}, each fn(state, x) with x a
-    (B, T, C) batch on the state's device."""
+    (B, T, C) batch on the state's device; axis_name: the data axis, or
+    None."""
 
     def generator_losses(eff, x, record, **mode):
         return _codec_losses(gen_cfg, config, crit, eff, x, x, record, **mode)
@@ -123,11 +163,12 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
     def metric_step(state, x):
         record = {}
         eff, _ = resolve_params(state["gen"])
-        loss, _, new_buf = generator_losses(eff, x, record, train=True)
+        loss, _, new_buf = generator_losses(eff, x, record, train=True,
+                                            axis_name=axis_name)
         record["generator_loss"] = loss
-        state["gen_opt"].step(loss)
+        state["gen_opt"].step(loss, axis=axis_name)
         state["gen"] = merge_forward_buffers(state["gen"], new_buf)
-        return state, _detached(record)
+        return state, _psum_mean(_detached(record), axis_name)
 
     def adv_step(state, x):
         record = {}
@@ -138,7 +179,7 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
         loss = loss + _adv_loss(state, disc_apply, crit, config, y, x,
                                 record)
         record["generator_loss"] = loss
-        gen_opt.step(loss, _trained_paths(gen_opt, FROZEN))
+        gen_opt.step(loss, _trained_paths(gen_opt, FROZEN), axis=axis_name)
         gen = merge_forward_buffers(state["gen"], new_buf)
 
         # the discriminator's update, on y_ from the updated generator
@@ -147,8 +188,8 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
             y_, _, _, _, _, buf2 = generator_forward(
                 gen_eff, x, gen_cfg, train=False, bn_train=True)
         state["gen"] = merge_forward_buffers(gen, buf2)
-        _disc_update(state, disc_apply, crit, y_, x, record)
-        return state, _detached(record)
+        _disc_update(state, disc_apply, crit, y_, x, record, axis_name)
+        return state, _psum_mean(_detached(record), axis_name)
 
     @torch.no_grad()
     def eval_step(state, x):
@@ -156,7 +197,7 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
         eff, _ = resolve_params(state["gen"])
         loss, _, _ = generator_losses(eff, x, record, train=False)
         record["generator_loss"] = loss
-        return _detached(record)
+        return _psum_mean(_detached(record), axis_name)
 
     return {"metric": metric_step, "adv": adv_step, "eval": eval_step}
 
@@ -172,9 +213,11 @@ def analyzer_codes(analyzer: dict, x, gen_cfg: GeneratorConfig):
 
 
 def make_vocoder_steps(voc_cfg: VocoderConfig, gen_cfg: GeneratorConfig,
-                       disc_apply: Callable, config: dict, crit: dict):
+                       disc_apply: Callable, config: dict, crit: dict,
+                       axis_name=None):
     """-> {"metric": fn, "adv": fn, "eval": fn}, each fn(state, x) with x a
-    (B, T, 1) batch on the state's device; gen_cfg is the analyzer's."""
+    (B, T, 1) batch on the state's device; gen_cfg is the analyzer's;
+    axis_name: the data axis, or None."""
 
     def vocoder_losses(state, zq, x, record, adversarial: bool):
         eff, _ = resolve_params(state["gen"])
@@ -189,32 +232,36 @@ def make_vocoder_steps(voc_cfg: VocoderConfig, gen_cfg: GeneratorConfig,
     def metric_step(state, x):
         record = {}
         zq = analyzer_codes(state["analyzer"], x, gen_cfg)
-        state["gen_opt"].step(vocoder_losses(state, zq, x, record, False))
-        return state, _detached(record)
+        state["gen_opt"].step(vocoder_losses(state, zq, x, record, False),
+                              axis=axis_name)
+        return state, _psum_mean(_detached(record), axis_name)
 
     def adv_step(state, x):
         record = {}
         zq = analyzer_codes(state["analyzer"], x, gen_cfg)
-        state["gen_opt"].step(vocoder_losses(state, zq, x, record, True))
+        state["gen_opt"].step(vocoder_losses(state, zq, x, record, True),
+                              axis=axis_name)
         with torch.no_grad():
             gen_eff, _ = resolve_params(state["gen"])
             y_ = vocoder_apply(gen_eff, zq, voc_cfg)
-        _disc_update(state, disc_apply, crit, y_, x, record)
-        return state, _detached(record)
+        _disc_update(state, disc_apply, crit, y_, x, record, axis_name)
+        return state, _psum_mean(_detached(record), axis_name)
 
     @torch.no_grad()
     def eval_step(state, x):
         record = {}
         vocoder_losses(state, analyzer_codes(state["analyzer"], x, gen_cfg),
                        x, record, False)
-        return _detached(record)
+        return _psum_mean(_detached(record), axis_name)
 
     return {"metric": metric_step, "adv": adv_step, "eval": eval_step}
 
 
-def make_denoise_steps(gen_cfg: GeneratorConfig, config: dict, crit: dict):
+def make_denoise_steps(gen_cfg: GeneratorConfig, config: dict, crit: dict,
+                       axis_name=None):
     """-> {"train": fn, "eval": fn}, each fn(state, x_noisy, x_clean) with
-    (B, T, C) batches on the state's device."""
+    (B, T, C) batches on the state's device; axis_name: the data axis, or
+    None."""
 
     def denoise_losses(eff, x_n, x_c, record, bn_train: bool):
         # the codebook in eval mode (ref denoise.py:60)
@@ -230,16 +277,17 @@ def make_denoise_steps(gen_cfg: GeneratorConfig, config: dict, crit: dict):
         eff, _ = resolve_params(state["gen"])
         loss, new_buf = denoise_losses(
             _frozen_detached(eff, DENOISE_FROZEN), x_n, x_c, record, True)
-        gen_opt.step(loss, _trained_paths(gen_opt, DENOISE_FROZEN))
+        gen_opt.step(loss, _trained_paths(gen_opt, DENOISE_FROZEN),
+                     axis=axis_name)
         state["gen"] = merge_forward_buffers(state["gen"], new_buf)
-        return state, _detached(record)
+        return state, _psum_mean(_detached(record), axis_name)
 
     @torch.no_grad()
     def eval_step(state, x_n, x_c):
         record = {}
         eff, _ = resolve_params(state["gen"])
         denoise_losses(eff, x_n, x_c, record, False)
-        return _detached(record)
+        return _psum_mean(_detached(record), axis_name)
 
     return {"train": train_step, "eval": eval_step}
 

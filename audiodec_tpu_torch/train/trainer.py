@@ -14,7 +14,10 @@ The JSONL log, eval, checkpoint and epoch bookkeeping follow the JAX
 package's.  Step records stay on the device and are summed there; the
 host reads them once per log interval.  A checkpoint is written at every
 save interval and, on exit, `checkpoint-final.ckpt`; SIGTERM ends the run
-at the next step boundary with that checkpoint.
+at the next step boundary with that checkpoint.  In data-parallel training
+every rank runs every step and every eval (their collectives need all of
+them), and only the primary rank writes metrics and checkpoints: the state
+is the same on every rank, so one copy is the truth (JAX's `primary`).
 """
 
 from __future__ import annotations
@@ -53,6 +56,16 @@ class MetricsWriter:
         self._f.close()
 
 
+class NullWriter:
+    """The metrics sink of a rank that is not the primary one."""
+
+    def write(self, step, scalars, prefix=""):
+        pass
+
+    def close(self):
+        pass
+
+
 def _as_input(array, device: torch.device) -> torch.Tensor:
     x = torch.from_numpy(np.ascontiguousarray(array))
     if device.type == "cuda":
@@ -77,8 +90,10 @@ class GanTrainer:
                  device: torch.device,
                  adv_train_iter: Optional[Iterator] = None,
                  strict_start: bool = True,
+                 primary: bool = True,
                  steps_per_epoch: Optional[int] = None,
                  adv_steps_per_epoch: Optional[int] = None):
+        """primary: this rank writes metrics and checkpoints."""
         self.steps_fns = steps_fns
         self.state = state
         self.config = config
@@ -88,7 +103,8 @@ class GanTrainer:
         self.adv_train_iter = adv_train_iter or train_iter
         self.eval_iter_fn = eval_iter_fn
         self.steps = 0
-        self.writer = MetricsWriter(outdir)
+        self.primary = primary
+        self.writer = MetricsWriter(outdir) if primary else NullWriter()
         self.strict_start = strict_start
         self.discriminator_start = config.get(
             "discriminator_train_start_steps",
@@ -120,6 +136,8 @@ class GanTrainer:
         return os.path.join(self.outdir, f"checkpoint-{steps}steps.ckpt")
 
     def save(self, path=None):
+        if not self.primary:
+            return
         save_checkpoint(path or self._ckpt_path(self.steps), self.state,
                         self.steps, extra={"epochs": self.epochs})
         logging.info("Saved checkpoint @ %d steps (%d epochs)", self.steps,

@@ -197,6 +197,48 @@ at full width, warm-started from train_path's checkpoint) for 10 steps on
 noise, the quantizer and decoder bit-equal to the warm start, the encoder
 moved.
 
+The phases of slice 18 (parallelism: the ranks of bin/multihost_probe.py
+in child processes on the one card, bound to cuda:0; several ranks share
+it, so they take gloo, and the halo shifts and gathers go through the
+host; no kernel of the port, as JAX's sharded codecs and training run no
+pallas_call: every rank asserts all eleven wrapper counts and both
+libraries' CUDA counters 0 on every parallel path; files under
+build/chip_smoke_parallel/, removed afterwards), each printing a line
+`<phase> {...}` with the card's name and power limit, the backend and
+the collectives staged through the host:
+
+  - parallel_codec: one world of four ranks runs the tiny probe of
+    bin/multihost_probe.py (a 2 x 2 transcode, a 1 x 4 chained halo, two
+    data-parallel GAN steps with the params equal on every rank), then
+    symAD at its published widths with the trained golden on B = 4 x 10 s:
+    the chunk-halo sharded codec at data 2 x seq 2 in float32 and in mixed
+    mode, the AD v1 receiver's sharded decode (float32, seeded weights),
+    seq = 4 shards of 6000 samples (below the 7500-sample encoder halo and
+    the 28-frame decoder halo: the chained halo), and the channel-parallel
+    codec at data 2 x model 2 (one call, checked and timed).  Bars:
+    float32 indices equal to this
+    process's unsharded transcode of the same batch (`BatchTranscoder(
+    stack="plain")`, folds off), waveforms at tests/test_parallel.py:73's
+    rtol 1e-5 / atol 1e-6, the mixed mode's indices equal to float32's and
+    its waveform within 0.05.  Per case: each rank's ms per call (host
+    clock after a synchronize) beside the unsharded ms, the collectives
+    and bytes of one call, each rank's peak memory;
+  - parallel_train: one world of two ranks runs `codec_train --dp 2`,
+    symAD at its widths and batch (16 x 9600), 2 metric + 2 adversarial
+    steps, every rank stepping on one global batch with its params equal
+    to every other's after every step, then `codec_stats --dp 2` on its
+    final checkpoint; the final params against one rank at
+    the same global batch at tests/test_parallel_fullsize.py's bars
+    (median 5e-7, q99 5e-6, max 1.05 x 2 lr per leaf; the quantizer: at
+    most 1e-3 of its entries off by more than 1e-6, none by 0.05); step ms
+    of each rank beside the single rank's;
+  - parallel_cli: that world's `codec_stats --dp 2` equal to `--dp 1`
+    within 1e-5 of the largest entry; `codec_test` in a world of one rank
+    joined with --coordinator (nccl, asserted) within 1 LSB of the plain
+    command line.
+`python3 chip_smoke.py parallel` builds the kernels and runs only these
+phases.
+
 The checks of slice 6: `int8_kernel_vs_plain` gains folds with f * C =
 256 and 512 and bf16 storage; `int8_tile_kernel_vs_plain` (C = 32, 64,
 128, 256, ragged T under and over 256 folded rows, two folds and two
@@ -378,6 +420,7 @@ from audiodec_tpu_torch.bin import (
     folded_probe,
     fused_probe,
     kernel_bounds,
+    multihost_probe,
     mxu_rate_probe,
 )
 from audiodec_tpu_torch.bin.codec_test import BatchTranscoder, require_device
@@ -411,6 +454,10 @@ from audiodec_tpu_torch.ops.kernels import (
 from audiodec_tpu_torch.data.dataset import SingleDataset
 from audiodec_tpu_torch.data.wav import read_wav, read_wav_pcm16, write_wav
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
+from audiodec_tpu_torch.parallel.codec import (
+    decoder_halo_frames,
+    encoder_halo_samples,
+)
 from audiodec_tpu_torch.streaming import (
     DeviceStreamer,
     SimulatedStreamer,
@@ -4348,6 +4395,380 @@ def train_phases(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the parallel paths, in ranks of their own on the one card
+# (bin/multihost_probe.py; no kernel of the port, as JAX's sharded codecs
+# and training run no pallas_call)
+# ---------------------------------------------------------------------------
+
+PAR_DIR = ROOT / "build" / "chip_smoke_parallel"
+PAR_BATCH, PAR_SECONDS = 4, 10
+# the multi-hop case: seq = 4 shards of this many samples, below the
+# default config's 7500-sample encoder halo (and 20 frames, below its
+# 28-frame decoder halo)
+PAR_HOP_SHARD = 6000
+PAR_REPS = 3
+PAR_RTOL, PAR_ATOL = 1e-5, 1e-6   # tests/test_parallel.py:73
+PAR_MIXED = 0.05                   # tests/test_parallel.py's mixed bar
+PAR_STATS_REL = 1e-5
+# a world of one rank on a machine with a card of its own takes nccl
+# (parallel/distributed.py backend_for)
+PAR_ONE_RANK_BACKEND = "nccl"
+
+
+def par_ranks(n: int, argv: list, out: Path, timeout: float = 400) -> list:
+    """bin/multihost_probe.py's ranks on the card (each binds cuda:0), their
+    logs kept under `out`."""
+    out.mkdir(parents=True, exist_ok=True)
+    logs = multihost_probe.run_ranks(n, argv, timeout=timeout)
+    for i, log in enumerate(logs):
+        (out / f"rank{i}.log").write_text(log)
+    return [json.loads((out / f"rank{i}.json").read_text())
+            for i in range(n)]
+
+
+def no_rank_launches(phase: str, launches: dict):
+    """A rank's kernel counts, every one 0 (the library CUDA counters
+    too)."""
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: kernel launches in a rank "
+                             f"{launches}, expected none")
+
+
+def par_close(got: np.ndarray, ref: np.ndarray) -> dict:
+    """The waveform against its unsharded reference at
+    tests/test_parallel.py:73's rtol 1e-5 / atol 1e-6."""
+    err = np.abs(got.astype(np.float64) - ref)
+    over = err - (PAR_ATOL + PAR_RTOL * np.abs(ref))
+    return {"max_abs_err": float(err.max()),
+            "worst_over_bar": float(over.max()),
+            "within_bar": bool(over.max() <= 0)}
+
+
+def phase_parallel_codec(device, card: str) -> dict:
+    """The chunk-halo sharded codec and the channel-parallel codec on symAD
+    at its published widths with the trained golden, in one world of four
+    ranks on the one card (gloo, the halo shifts and gathers staged through
+    the host), after the tiny probe of bin/multihost_probe.py in the same
+    world: data 2 x seq 2 on B = 4 x 10 s in float32 and in mixed mode,
+    the AD v1 receiver's sharded decode (float32, seeded weights), seq = 4
+    shards of PAR_HOP_SHARD samples (the chained halo), and model = 2 x
+    data 2.  Bars: float32 indices equal to this process's unsharded
+    transcode of the same batch (`BatchTranscoder(stack="plain")`, folds
+    off), the mixed mode's equal to float32's, waveforms at rtol 1e-5 /
+    atol 1e-6 (the mixed mode within 0.05 of float32's); every rank's
+    kernel counts 0.  Prints per case each rank's ms per call (host clock
+    after a synchronize, PAR_REPS calls) beside the unsharded ms, the
+    collectives per call and their bytes, and each rank's peak memory."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    if not (PAR_HOP_SHARD < encoder_halo_samples(cfg)
+            and PAR_HOP_SHARD // cfg.hop_length < decoder_halo_frames(cfg)):
+        raise AssertionError("parallel_codec: the multi-hop shards are not "
+                             "shorter than the halos")
+    _, params = load_golden("gen_symad_trained")
+    vcfg = config_from_yaml(AD_V1_VOCODER, stats=True)
+    voc = vocoder_init(vcfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    x = (0.3 * rng.standard_normal((PAR_BATCH, int(PAR_SECONDS * SR), 1))
+         ).astype(np.float32)
+    x_hop = (0.3 * rng.standard_normal((PAR_BATCH, 4 * PAR_HOP_SHARD, 1))
+             ).astype(np.float32)
+    cases = [dict(name="d2_s2_f32", kind="sharded", data=2, seq=2),
+             dict(name="d2_s2_mixed", kind="sharded", data=2, seq=2,
+                  dtype="mixed"),
+             dict(name="d2_s2_ad_v1", kind="sharded", data=2, seq=2,
+                  vocoder=True),
+             dict(name="d1_s4_multi_hop", kind="sharded", data=1, seq=4,
+                  input="x_hop"),
+             dict(name="d2_model2_tp", kind="tp", data=2, model=2,
+                  reps=0)]
+    out = PAR_DIR / "codec"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save({"params": params, "cfg": cfg, "voc": (voc, vcfg), "x": x,
+                "x_hop": x_hop, "cases": cases, "reps": PAR_REPS,
+                "probe_seq": 2}, out / "in.pt")
+    t1 = time.perf_counter()
+    ranks = par_ranks(4, ["--worker", "codec_cases", "--in",
+                          str(out / "in.pt"), "--out", str(out), "--device",
+                          "cuda"], out)
+    world_s = time.perf_counter() - t1
+    got = torch.load(out / "rank0.pt", weights_only=False)
+    for r in ranks:
+        for name, st in r["cases"].items():
+            if st["member"]:
+                no_rank_launches(f"parallel_codec {name}", st["launches"])
+
+    # the unsharded references, on this process's card
+    ref = BatchTranscoder(params, cfg, stack="plain", encode_fold=False,
+                          decode_fold=False, device=device)
+    ref_v1 = BatchTranscoder(params, cfg, voc=(voc, vcfg), stack="plain",
+                             encode_fold=False, decode_fold=False,
+                             device=device)
+    reset_launches()
+    xs = {k: torch.from_numpy(v).to(device) for k, v in
+          (("x", x), ("x_hop", x_hop))}
+    idx_ref, y_ref = ref(xs["x"])
+    idx_hop, y_hop = ref(xs["x_hop"])
+    v1_ref = ref_v1.decode(idx_ref)
+    single_ms = {"d2_s2_f32": cuda_ms(lambda: ref(xs["x"]), PAR_REPS),
+                 "d2_s2_ad_v1": cuda_ms(lambda: ref_v1(xs["x"]), PAR_REPS),
+                 "d1_s4_multi_hop": cuda_ms(lambda: ref(xs["x_hop"]),
+                                            PAR_REPS)}
+    no_kernel_launches("parallel_codec (unsharded references)")
+    single_ms["d2_model2_tp"] = single_ms["d2_s2_f32"]
+    idx_ref, idx_hop = idx_ref.cpu().numpy(), idx_hop.cpu().numpy()
+    want = {"d2_s2_f32": (idx_ref, y_ref), "d2_s2_ad_v1": (idx_ref, v1_ref),
+            "d1_s4_multi_hop": (idx_hop, y_hop),
+            "d2_model2_tp": (idx_ref, y_ref)}
+    report = {}
+    for name, (ri, ry) in want.items():
+        flips = int(np.sum(got[name]["idx"] != ri))
+        wave = par_close(got[name]["y"], ry.double().cpu().numpy())
+        report[name] = {"index_flips": flips, **wave}
+        if flips or not wave["within_bar"]:
+            raise AssertionError(f"parallel_codec {name}: {flips} index "
+                                 f"flips, waveform {wave}")
+    mixed, f32 = got["d2_s2_mixed"], got["d2_s2_f32"]
+    mixed_err = float(np.abs(mixed["y"] - f32["y"]).max())
+    report["d2_s2_mixed"] = {"index_flips_vs_f32": int(np.sum(
+        mixed["idx"] != f32["idx"])), "max_abs_err_vs_f32": mixed_err}
+    if (report["d2_s2_mixed"]["index_flips_vs_f32"]
+            or not np.all(np.isfinite(mixed["y"]))
+            or not np.all(np.abs(mixed["y"] - f32["y"])
+                          <= PAR_MIXED + PAR_MIXED * np.abs(f32["y"]))):
+        raise AssertionError(f"parallel_codec mixed: {report['d2_s2_mixed']}")
+    per_case = {}
+    for c in cases:
+        name = c["name"]
+        members = [r["cases"][name] for r in ranks
+                   if r["cases"][name]["member"]]
+        per_case[name] = {
+            "ranks": len(members),
+            "ms_per_call_by_rank": [float(np.mean(m["ms"]))
+                                    for m in members],
+            "unsharded_ms": single_ms.get(name),
+            "collectives_per_call": members[0]["comm_per_call"]["calls"],
+            "bytes_per_call_by_rank": [m["comm_per_call"]["bytes"]
+                                       for m in members],
+            "staged": members[0]["comm_per_call"]["staged"]}
+    summary = {"card": card, "backend": ranks[0]["backend"],
+               "staged_through_host": ranks[0]["staged"],
+               "world_seconds": world_s,
+               "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+               "cases": per_case}
+    print("parallel_codec " + json.dumps(summary), flush=True)
+    emit("parallel_codec", t0, checks=report, **summary)
+    return summary
+
+
+def _par_train_config(root: Path) -> Path:
+    """symAD's config at its widths and batch (16 x 9600), 2 metric and 2
+    adversarial steps, a checkpoint at the end only."""
+    cfg = load_config(str(SYMAD_YAML))
+    cfg["data"] = {"path": str(root / "data"),
+                   "subset": {"train": "train", "valid": "valid"}}
+    cfg["start_steps"] = dict(cfg.get("start_steps", {}), discriminator=2)
+    cfg.update(train_max_steps=2, adv_train_max_steps=4,
+               save_interval_steps=4, eval_interval_steps=10 ** 6,
+               log_interval_steps=1)
+    path = root / "symad_dp.yaml"
+    path.write_text(dump_yaml(cfg))
+    return path
+
+
+def _synced_ms(trainer) -> dict:
+    """The trainer's steps timed as the ranks time theirs: host clock
+    around the step, after a synchronize on each side."""
+    marks = {}
+
+    def wrap(name, fn):
+        def step(state, *batch):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(state, *batch)
+            torch.cuda.synchronize()
+            marks.setdefault(name, []).append(
+                1e3 * (time.perf_counter() - t1))
+            return out
+        return step
+
+    trainer.steps_fns = {k: wrap(k, f) for k, f in trainer.steps_fns.items()}
+    return marks
+
+
+def _par_stats_argv(root: Path) -> list:
+    """codec_stats on the data-parallel run's final checkpoint."""
+    return ["--config", str(STATISTIC_YAML), "--analyzer",
+            str(root / "dp" / "checkpoint-final.ckpt"), "--data-path",
+            str(root / "data" / "train")]
+
+
+def phase_parallel_train(device, card: str) -> tuple:
+    """`codec_train --dp 2`, then `codec_stats --dp 2` on its checkpoint,
+    in one world of two ranks on the one card; the training against one
+    rank in this process at the same global batch (symAD at its widths,
+    B = 16 x 9600, 2 metric + 2 adversarial steps, one seed): every rank
+    steps on one global batch and holds equal params after every step
+    (checked in the ranks), the final params within
+    tests/test_parallel_fullsize.py's bars of the single rank's (median
+    5e-7, q99 5e-6, max 1.05 x 2 lr per leaf; the quantizer's
+    sparse-divergence gate: at most 1e-3 of its entries off by more than
+    1e-6, none by more than 0.05); no kernel launches -> (the final
+    checkpoint of the two ranks, their codec_stats records, the world's
+    seconds)."""
+    t0 = time.perf_counter()
+    root = PAR_DIR / "train"
+    train_corpus(root / "data", np.random.default_rng(SEED))
+    cfg_path = _par_train_config(root)
+    common = ["--config", str(cfg_path), "--seed", str(SEED)]
+    t1 = time.perf_counter()
+    both = par_ranks(2, ["--worker", "cli", "--cli", "codec_train", "--cli",
+                         "codec_stats", "--device", "cuda", "--out",
+                         str(root / "ranks"), "--"] + common
+                     + ["--tag", str(root / "dp"), "--dp", "2", "--"]
+                     + _par_stats_argv(root)
+                     + ["--dp", "2", "--out", str(PAR_DIR / "stats_dp.npy")],
+                     root / "ranks")
+    world_s = time.perf_counter() - t1
+    ranks = [r["codec_train"] for r in both]
+    for r in ranks:
+        no_rank_launches("parallel_train", r["launches"])
+        if not r["in_sync_after_every_step"] or r["steps"] != 4:
+            raise AssertionError(f"parallel_train: rank {r}")
+    reset_launches()
+    cuda = library_launches()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = codec_train.build_trainer(common + ["--tag",
+                                                  str(root / "one")])
+    single_ms = _synced_ms(trainer)
+    trainer.run()
+    no_training_launches("parallel_train (one rank)", cuda)
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    config = load_config(str(cfg_path))
+    lrs = {"gen": config["generator_optimizer_params"]["lr"],
+           "disc": config["discriminator_optimizer_params"]["lr"]}
+    dp_state, _ = load_checkpoint(str(root / "dp" / "checkpoint-final.ckpt"))
+    one_state, _ = load_checkpoint(str(root / "one" /
+                                       "checkpoint-final.ckpt"))
+    worst, quantizer = {}, {}
+    for key in ("gen", "disc"):
+        ours = dict(tree_leaves(dp_state[key]))
+        ref = dict(tree_leaves(one_state[key]))
+        if sorted(ours) != sorted(ref):
+            raise AssertionError("parallel_train: trees differ")
+        w = {"median": 0.0, "q99": 0.0, "max": 0.0}
+        for path in ours:
+            d = np.abs(np.asarray(ours[path], np.float64)
+                       - np.asarray(ref[path], np.float64))
+            if path.startswith("quantizer/"):
+                frac = float((d > 1e-6).mean())
+                quantizer[path] = {"frac_over_1e-6": frac,
+                                   "max": float(d.max())}
+                if frac > 1e-3 or d.max() > 0.05:
+                    raise AssertionError(f"parallel_train: quantizer "
+                                         f"{path} {quantizer[path]}")
+                continue
+            got = {"median": float(np.median(d)),
+                   "q99": float(np.quantile(d, 0.99)), "max": float(d.max())}
+            bars = {"median": 5e-7, "q99": 5e-6, "max": 1.05 * 2 * lrs[key]}
+            for k in got:
+                if got[k] > bars[k]:
+                    raise AssertionError(f"parallel_train: {key}/{path} "
+                                         f"{k} {got[k]} over {bars[k]}")
+                w[k] = max(w[k], got[k])
+        worst[key] = w
+    summary = {"card": card, "backend": ranks[0]["backend"],
+               "staged_through_host": ranks[0]["comm"]["staged"],
+               "collectives_per_step": {
+                   k: v / 4 for k, v in ranks[0]["comm"]["calls"].items()},
+               "bytes_per_step_by_rank": [r["comm"]["bytes"] / 4
+                                          for r in ranks],
+               "world_seconds_with_stats": world_s,
+               "step_ms_by_rank": [r["step_ms"] for r in ranks],
+               "single_rank_step_ms": single_ms,
+               "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+               "single_rank_peak_gib": single_peak,
+               "worst_per_leaf": worst, "quantizer": quantizer}
+    print("parallel_train " + json.dumps(summary), flush=True)
+    emit("parallel_train", t0, **summary)
+    return (root / "dp" / "checkpoint-final.ckpt",
+            [r["codec_stats"] for r in both])
+
+
+def phase_parallel_cli(device, card: str, ckpt: Path, stats_ranks: list):
+    """The data-parallel world's `codec_stats --dp 2` (phase_parallel_train)
+    against one rank in this process (within 1e-5 of the largest entry),
+    then codec_test in a world of one rank joined with --coordinator
+    --num-processes 1 --process-id 0, whose backend must be nccl, against
+    the plain command line in this process (PCM16 within 1 LSB); --stack
+    plain, so that no kernel launches."""
+    t0 = time.perf_counter()
+    root = PAR_DIR / "train"
+    data = root / "data"
+    for r in stats_ranks:
+        no_rank_launches("parallel_stats", r["launches"])
+    one = codec_stats.main(_par_stats_argv(root)
+                           + ["--out", str(PAR_DIR / "stats_1.npy")])
+    two = np.load(PAR_DIR / "stats_dp.npy")
+    stats_err = float(np.abs(two - one).max())
+    stats_tol = PAR_STATS_REL * float(np.abs(one).max())
+    if stats_err > stats_tol:
+        raise AssertionError(f"parallel_stats: --dp 2 off --dp 1 by "
+                             f"{stats_err} over {stats_tol}")
+
+    argv = ["--encoder", str(ckpt), "--decoder", str(ckpt), "--data-path",
+            str(data / "valid"), "--stack", "plain"]
+    t1 = time.perf_counter()
+    (nccl,) = par_ranks(1, ["--worker", "cli", "--cli", "codec_test",
+                            "--device", "cuda", "--out",
+                            str(PAR_DIR / "nccl"), "--"] + argv
+                        + ["--outdir", str(PAR_DIR / "nccl_out")],
+                        PAR_DIR / "nccl")
+    nccl = nccl["codec_test"]
+    nccl_s = time.perf_counter() - t1
+    no_rank_launches("parallel_nccl", nccl["launches"])
+    if (nccl["backend"] != PAR_ONE_RANK_BACKEND
+            or nccl["summary"]["hosts"] != 1):
+        raise AssertionError(f"parallel_nccl: {nccl}")
+    reset_launches()
+    plain = codec_test.main(argv + ["--outdir", str(PAR_DIR / "plain_out")])
+    no_kernel_launches("parallel_nccl (plain)")
+    files = sorted(p.name for p in (PAR_DIR / "plain_out").iterdir())
+    if (files != sorted(p.name for p in (PAR_DIR / "nccl_out").iterdir())
+            or not files):
+        raise AssertionError("parallel_nccl: the two runs wrote other files")
+    lsb = max(int(np.abs(
+        read_wav_pcm16(str(PAR_DIR / "nccl_out" / f))[0].astype(np.int32)
+        - read_wav_pcm16(str(PAR_DIR / "plain_out" / f))[0]).max())
+        for f in files)
+    if lsb > 1:
+        raise AssertionError(f"parallel_nccl: {lsb} LSB from the plain CLI")
+    summary = {"card": card,
+               "stats": {"backend": stats_ranks[0]["backend"],
+                         "collectives_by_rank": [r["comm"]
+                                                 for r in stats_ranks],
+                         "max_abs_err": stats_err, "tolerance": stats_tol},
+               "nccl_world_of_one": {"backend": nccl["backend"],
+                                     "seconds": nccl_s, "files": len(files),
+                                     "max_lsb_vs_plain": lsb,
+                                     "rtf": nccl["summary"]["rtf"],
+                                     "plain_rtf": plain["rtf"]}}
+    print("parallel_cli " + json.dumps(summary), flush=True)
+    emit("parallel_cli", t0, **summary)
+
+
+def parallel_phases(device, card: str):
+    """Slice 18's phases, their files under build/chip_smoke_parallel/
+    (removed afterwards)."""
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    phase_parallel_codec(device, card)
+    ckpt, stats_ranks = phase_parallel_train(device, card)
+    phase_parallel_cli(device, card, ckpt, stats_ranks)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -4396,8 +4817,8 @@ def summed(rows, key):
 
 
 def main():
-    if sys.argv[1:] not in ([], ["train"]):
-        sys.exit("usage: python3 chip_smoke.py [train]")
+    if sys.argv[1:] not in ([], ["train"], ["parallel"]):
+        sys.exit("usage: python3 chip_smoke.py [train | parallel]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -4415,6 +4836,9 @@ def main():
     phase_build()
     if sys.argv[1:] == ["train"]:
         train_phases(device, card)
+        return
+    if sys.argv[1:] == ["parallel"]:
+        parallel_phases(device, card)
         return
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
@@ -4468,6 +4892,7 @@ def main():
     serve_launches = phase_serve_path(device, params, card)
     phase_stream_tools_path(device, params, card)
     voc_train_launches = train_phases(device, card)
+    parallel_phases(device, card)
 
     by_path = {"main_path": ae_launches, "ad_v1_path": voc_launches,
                "int8_path": int8_launches, "fused_path": fused_launches,

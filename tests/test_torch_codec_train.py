@@ -302,10 +302,10 @@ def test_warm_start_from_a_jax_checkpoint(run, tmp_path):
 
 @pytest.mark.parametrize("workers", [1, 2])
 def test_collater_and_loader_match_jax(run, workers):
-    """Seeded crops and shuffles equal JAX's, batch for batch over two
-    epochs (one worker: the collater's draws in batch order; two: the
-    loader's order and its shuffle, crops drawn in whichever order the
-    threads take)."""
+    """Seeded crops and shuffles equal JAX's one-thread loader's, batch for
+    batch over two epochs, for one thread and for two (the port's threads
+    draw the crops in batch order; JAX's in whichever order they run), so
+    every rank of a data-parallel run builds the same global batch."""
     root = run[0]
     files = str(root / "data" / "train")
     ours = DataLoader(SingleDataset(files), CollaterAudio(1200, seed=4), 2,
@@ -314,24 +314,13 @@ def test_collater_and_loader_match_jax(run, workers):
 
     theirs = jax_loader.DataLoader(JaxDataset(files),
                                    jax_collate.CollaterAudio(1200, seed=4),
-                                   2, num_workers=workers, seed=7)
+                                   2, num_workers=1, seed=7)
     assert len(ours) == len(theirs) == 3
     a, b = ours.infinite(), theirs.infinite()
     for _ in range(2 * len(ours)):
         x, y = next(a), next(b)
         assert x.shape == y.shape == (2, 1200, 1)
-        if workers == 1:
-            np.testing.assert_array_equal(x, y)
-
-
-@pytest.mark.parametrize("argv", [
-    ["--dp", "2"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2"]])
-def test_unported_modes_raise(run, tmp_path, argv):
-    _, _, cfg_path, _, _ = run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        codec_train.main(["--config", cfg_path, "--tag",
-                          str(tmp_path / "x"), "--device", "cpu"] + argv)
+        np.testing.assert_array_equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +366,6 @@ def test_codec_stats_writes_the_analyzers_moments(run, stats):
     np.testing.assert_array_equal(written, codec_stats.extract_stats(
         params, cfg, SingleDataset(str(root / "data" / "train")),
         batch_size=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        codec_stats.main(["--config", cfg_path, "--dp", "2", "--device",
-                          "cpu"])
 
 
 def _voc_config(run, stats, **over):

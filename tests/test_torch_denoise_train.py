@@ -139,8 +139,9 @@ def _pair_corpus(root):
 @pytest.mark.parametrize("workers", [1, 2])
 def test_pair_batches_match_jax(tmp_path, workers):
     """MultiDataset and CollaterAudioPair through the loader: the same
-    shuffles, crops and drops as JAX's over two epochs (one worker: batch
-    for batch; two: the shapes, crops drawn in the threads' order)."""
+    shuffles, crops and drops as JAX's one-thread loader over two epochs,
+    batch for batch, for one thread and for two (the port's threads draw
+    the crops in batch order)."""
     _pair_corpus(str(tmp_path))
     dirs = [str(tmp_path / "noisy"), str(tmp_path / "clean")]
     ours = DataLoader(MultiDataset(dirs), CollaterAudioPair(1200, seed=4), 3,
@@ -148,16 +149,15 @@ def test_pair_batches_match_jax(tmp_path, workers):
     theirs = jax_loader.DataLoader(
         jax_dataset.MultiDataset(dirs),
         jax_collate.CollaterAudioPair(1200, seed=4), 3,
-        num_workers=workers, seed=7)
+        num_workers=1, seed=7)
     assert len(ours) == len(theirs) == 2
     a, b = ours.infinite(), theirs.infinite()
     for _ in range(2 * len(ours)):
         (n, c), (jn, jc) = next(a), next(b)
         assert n.shape == jn.shape and c.shape == jc.shape
         assert n.shape[1:] == (1200, 1)
-        if workers == 1:
-            np.testing.assert_array_equal(n, jn)
-            np.testing.assert_array_equal(c, jc)
+        np.testing.assert_array_equal(n, jn)
+        np.testing.assert_array_equal(c, jc)
 
 
 def test_multi_dataset_refuses_unequal_corpora(tmp_path):

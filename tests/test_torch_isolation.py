@@ -68,3 +68,21 @@ def test_entry_point_needs_cuda_unless_asked(monkeypatch):
                           codebook_num=4, codebook_size=32)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchTranscoder({}, cfg)
+
+
+def test_spawned_ranks_import_no_jax():
+    """The ranks that bin/multihost_probe.py starts (the tests' and
+    chip_smoke.py's workers) import neither JAX, PyYAML nor the JAX
+    package: two gloo ranks run the probe with Python's import log on."""
+    from audiodec_tpu_torch.bin.multihost_probe import run_ranks
+
+    outs = run_ranks(2, ["--worker", "probe", "--seq", "1", "--device",
+                         "cpu", "--threads", "1"], timeout=300,
+                     env=dict(os.environ, PYTHONPROFILEIMPORTTIME="1"))
+    for out in outs:
+        assert "OK" in out
+        imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                    for line in out.splitlines()
+                    if line.startswith("import time:")}
+        assert "torch" in imported
+        assert not imported & {"jax", "yaml", "audiodec_tpu"}
