@@ -1,17 +1,20 @@
-"""Encoder and decoder over the archived residual-stack kernel
-(counterpart of audiodec_tpu/archive/fast_experiments.py:
-`encoder_apply_fused`, `decoder_apply_fused`).
+"""Encoder and decoder over the archived residual stacks (counterpart of
+audiodec_tpu/archive/fast_experiments.py).
 
-Every residual stack, at every width (C = 32/64/128/256 for symAD), goes to
-archive/resunit_kernel.py's (B, C, T) entry; the other convs are plain.
-Equal to models/autoencoder.py `encoder_apply` / `decoder_apply` within
-f32 rounding, with the TPU kernel's ELU (exp(min(v, 0)) - 1) in the
-stacks.  The `*_blocked` wrappers need `archive/blocked.py`, which is not
-ported yet, and wait for it.
+`*_fused`: every residual stack, at every width (C = 32/64/128/256 for
+symAD), goes to archive/resunit_kernel.py's (B, C, T) entry; the other
+convs are plain.  Equal to models/autoencoder.py `encoder_apply` /
+`decoder_apply` within f32 rounding, with the TPU kernel's ELU
+(exp(min(v, 0)) - 1) in the stacks.
+
+`*_blocked`: every residual stack in archive/blocked.py's block-packed
+layout (plain convs; JAX's runs no Pallas kernel either), equal to the
+flat encoder and decoder within f32 rounding.
 """
 
 from __future__ import annotations
 
+from audiodec_tpu_torch.archive.blocked import blocked_res_stack
 from audiodec_tpu_torch.archive.resunit_kernel import (
     fused_residual_stack_bct,
     res_stack_params,
@@ -44,3 +47,24 @@ def decoder_apply_fused(p, z, cfg: GeneratorConfig):
     float32 -> (B, T, C_out)."""
     assert cfg.mode == "causal" and cfg.codec == "audiodec"
     return decoder_bct(p, z.transpose(1, 2), cfg, _stack).transpose(1, 2)
+
+
+def _blocked_stack(x, block_params, cfg: GeneratorConfig):
+    return blocked_res_stack(x, block_params["res"],
+                             dilations=tuple(cfg.res_dilations), act=cfg.act)
+
+
+def encoder_apply_blocked(p, x, cfg: GeneratorConfig):
+    """Batch causal encoder with block-packed residual stacks.
+    x: (B, T, C_in) -> (B, T', C_enc)."""
+    assert cfg.mode == "causal" and cfg.codec == "audiodec"
+    return encoder_bct(p, x.transpose(1, 2), cfg,
+                       _blocked_stack).transpose(1, 2)
+
+
+def decoder_apply_blocked(p, z, cfg: GeneratorConfig):
+    """Batch causal decoder with block-packed residual stacks.
+    z: (B, T', D) -> (B, T, C_out)."""
+    assert cfg.mode == "causal" and cfg.codec == "audiodec"
+    return decoder_bct(p, z.transpose(1, 2), cfg,
+                       _blocked_stack).transpose(1, 2)

@@ -33,7 +33,9 @@ Other workers, run by `run_ranks` (`--worker NAME`):
   cli: command lines (codec_test, codec_train, codec_stats), one after
       the other in one world, with the rendezvous flags added; codec_train's
       ranks also check that every rank steps on the same global batch and
-      holds the same params after each step.
+      holds the same params after each step;
+  dryrun: entry.py's dryrun_multichip (its three workloads on JAX's tiny
+      codec), each rank printing its summary line.
 
 The ranks run on the card (all bound to cuda:0 on a one-card machine)
 unless `--device cpu` asks for the CPU.
@@ -642,6 +644,12 @@ def worker_cli(args, device: torch.device, cli_argvs: list):
 # the command line
 # ---------------------------------------------------------------------------
 
+def worker_dryrun(args, device: torch.device):
+    """entry.py's dryrun_multichip, this rank's part."""
+    from audiodec_tpu_torch.entry import dryrun_rank
+    print(dryrun_rank(device), flush=True)
+
+
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nprocs", type=int, default=4)
@@ -652,7 +660,8 @@ def _parser():
                    help="cuda (default) or cpu, for every rank")
     p.add_argument("--timeout", type=float, default=600)
     p.add_argument("--worker", default="probe",
-                   choices=["probe", "codec_cases", "train_cases", "cli"])
+                   choices=["probe", "codec_cases", "train_cases", "cli",
+                            "dryrun"])
     p.add_argument("--cli", action="append", default=[],
                    help="with --worker cli: codec_test, codec_train or "
                         "codec_stats, once per command line; the command "
@@ -707,7 +716,8 @@ def main(argv=None) -> int:
     device = init_distributed(args.coordinator, args.num_processes,
                               args.process_id, device)
     {"probe": worker_probe, "codec_cases": worker_codec_cases,
-     "train_cases": worker_train_cases}[args.worker](args, device)
+     "train_cases": worker_train_cases,
+     "dryrun": worker_dryrun}[args.worker](args, device)
     dist.barrier()
     dist.destroy_process_group()
     return 0

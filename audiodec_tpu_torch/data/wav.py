@@ -1,16 +1,71 @@
-"""WAV I/O in numpy (the port's copy of the numpy path of
-audiodec_tpu/data/wav.py; the native csrc/wavio.cpp reader is not ported).
+"""WAV I/O (counterpart of audiodec_tpu/data/wav.py): the native codec
+csrc/wavio.cpp through ctypes, beside its plain numpy version.
 
-Reads PCM16/24/32 and float32 RIFF files to float32 (T, C) arrays in
-[-1, 1], or PCM16 files to their raw int16 samples; writes PCM16.
+Reads PCM16/24/32 and float32 RIFF files, WAVE_FORMAT_EXTENSIBLE headers
+included, to float32 (T, C) arrays in [-1, 1], or PCM16 files to their
+raw int16 samples; writes PCM16.  `read_wav`, `wav_info` and the float
+path of `write_wav` go through the native library, which
+ops/kernels/_build.py compiles with g++ at first use (a failed build
+raises; nothing falls back); `read_wav_plain` and `write_wav_plain` are
+the numpy versions it is held to, sample for sample and byte for byte.
+The header probes (`wav_is_pcm16`, `read_wav_pcm16`) and int16 writes
+are numpy, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 from typing import Tuple
 
 import numpy as np
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def native() -> ctypes.CDLL:
+    """The WAV codec's library, built at the first call (once per
+    process; the data loader's threads may race to it)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            from audiodec_tpu_torch.ops.kernels import _build
+            lib = _build.load("wavio")
+            lib.wav_info.argtypes = [ctypes.c_char_p,
+                                     ctypes.POINTER(ctypes.c_int),
+                                     ctypes.POINTER(ctypes.c_int),
+                                     ctypes.POINTER(ctypes.c_int64)]
+            lib.wav_info.restype = ctypes.c_int
+            lib.wav_read_f32.argtypes = [ctypes.c_char_p,
+                                         ctypes.POINTER(ctypes.c_float),
+                                         ctypes.c_int64]
+            lib.wav_read_f32.restype = ctypes.c_int64
+            lib.wav_write_pcm16.argtypes = [ctypes.c_char_p,
+                                            ctypes.POINTER(ctypes.c_float),
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int]
+            lib.wav_write_pcm16.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def _failed(path: str, what: str, rc: int):
+    # the open fails in Python too, with its own OSError; anything else
+    # is the file's content, as the numpy reader's ValueError
+    open(path, "rb").close()
+    raise ValueError(f"{path}: {what} failed (wavio error {rc}): not a "
+                     f"readable PCM16/24/32 or float32 WAV file")
+
+
+def _native_info(path: str) -> Tuple[int, int, int]:
+    sr, ch, fr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
+    rc = native().wav_info(path.encode(), ctypes.byref(sr), ctypes.byref(ch),
+                           ctypes.byref(fr))
+    if rc != 0:
+        _failed(path, "wav_info", rc)
+    return sr.value, ch.value, fr.value
 
 
 def _parse_header(f) -> Tuple[int, int, int, int, int, int]:
@@ -46,6 +101,11 @@ def _parse_header(f) -> Tuple[int, int, int, int, int, int]:
 
 def wav_info(path: str) -> Tuple[int, int, int]:
     """-> (sample_rate, channels, frames), from the header only."""
+    return _native_info(path)
+
+
+def wav_info_plain(path: str) -> Tuple[int, int, int]:
+    """wav_info in numpy."""
     with open(path, "rb") as f:
         tag, ch, sr, bits, off, size = _parse_header(f)
     return sr, ch, size // (bits // 8) // ch
@@ -79,7 +139,20 @@ def read_wav_pcm16(path: str):
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """-> (float32 array (T, C) in [-1, 1], sample_rate)"""
+    """-> (float32 array (T, C) in [-1, 1], sample_rate), read by the
+    native codec."""
+    sr, ch, frames = _native_info(path)
+    out = np.empty((frames, ch), np.float32)
+    got = native().wav_read_f32(
+        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        frames)
+    if got < 0:
+        _failed(path, "wav_read_f32", got)
+    return out[:got], sr
+
+
+def read_wav_plain(path: str) -> Tuple[np.ndarray, int]:
+    """read_wav in numpy."""
     with open(path, "rb") as f:
         tag, ch, sr, bits, off, size = _parse_header(f)
         f.seek(off)
@@ -103,27 +176,47 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return x.reshape(-1, ch), sr
 
 
-def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
-    """Write (T,) or (T, C) data as PCM16: float input is scaled by 32768,
-    rounded half away from zero and clipped; int16 input (already
-    quantized, e.g. on the device) is written as it is."""
-    data = np.asarray(data)
-    if data.dtype != np.int16:
-        data = data.astype(np.float32)
-    if data.ndim == 1:
-        data = data[:, None]
-    data = np.ascontiguousarray(data)
-    frames, ch = data.shape
-    if data.dtype == np.int16:
-        q = data.astype("<i2", copy=False)
-    else:
-        v = data * 32768.0
-        q = np.clip(np.trunc(v + np.where(v >= 0, 0.5, -0.5)),
-                    -32768, 32767).astype("<i2")
-    payload = q.tobytes()
+def _pcm16_file(path: str, q: np.ndarray, sample_rate: int) -> None:
+    frames, ch = q.shape
+    payload = q.astype("<i2", copy=False).tobytes()
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", 36 + len(payload)) + b"WAVE")
         f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, ch, sample_rate,
                                       sample_rate * ch * 2, ch * 2, 16))
         f.write(b"data" + struct.pack("<I", len(payload)))
         f.write(payload)
+
+
+def _as_frames(data) -> np.ndarray:
+    data = np.asarray(data)
+    if data.dtype != np.int16:
+        data = data.astype(np.float32)
+    if data.ndim == 1:
+        data = data[:, None]
+    return np.ascontiguousarray(data)
+
+
+def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
+    """Write (T,) or (T, C) data as PCM16: float input is scaled by 32768,
+    rounded half away from zero and clipped, by the native codec; int16
+    input (already quantized, e.g. on the device) is written as it is."""
+    data = _as_frames(data)
+    if data.dtype == np.int16:
+        _pcm16_file(path, data, sample_rate)
+        return
+    frames, ch = data.shape
+    rc = native().wav_write_pcm16(
+        path.encode(), data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        frames, ch, sample_rate)
+    if rc != 0:
+        raise OSError(f"{path}: wav_write_pcm16 failed (wavio error {rc})")
+
+
+def write_wav_plain(path: str, data: np.ndarray, sample_rate: int) -> None:
+    """write_wav in numpy."""
+    data = _as_frames(data)
+    if data.dtype != np.int16:
+        v = data * 32768.0
+        data = np.clip(np.trunc(v + np.where(v >= 0, 0.5, -0.5)),
+                       -32768, 32767).astype("<i2")
+    _pcm16_file(path, data, sample_rate)

@@ -370,19 +370,29 @@ def encoder_apply_batchfold(p, x, cfg: GeneratorConfig, *, fold=None,
     x (B, T, C) -> (B, T / hop, C_enc); run the projector and RVQ on it.
 
     Each chunk carries an `encoder_halo_samples` left halo (hop-aligned, so
-    every frame keeps its stride phase).  The encoder has no transposed
-    conv, so chunk 0's zero halo is the batch path's zero padding and no
-    head patch is needed.  fold: None picks `batchfold_auto(T / hop)`; 1
-    or less runs the direct encoder.  unfold_after: run conv0 and the first
-    `unfold_after` blocks folded, then drop each chunk's halo at that rate,
-    join the chunks and run the deeper blocks directly; "auto" is
-    `encoder_unfold_auto`, None folds the whole encoder."""
+    every frame keeps its stride phase).  Chunk 0's halo is zeros, which is
+    not the batch path's padding: each conv pads its own input with zeros,
+    and a biased conv of the zero halo gives its bias, not zeros, to the
+    next layer.  So the frames whose receptive field reaches before the
+    first sample (the first `encoder_halo_samples(cfg)` samples' worth)
+    are encoded again directly from those samples and written over the
+    fold's (the decoder fold's head patch, for the encoder; JAX's fold
+    keeps them as the zero halo gives them).  fold: None picks
+    `batchfold_auto(T / hop)`; 1 or less runs the direct encoder, and so
+    does an input of no more frames than the head patch replaces.
+    unfold_after: run conv0 and the first `unfold_after` blocks folded,
+    then drop each chunk's halo at that rate, join the chunks and run the
+    deeper blocks directly; "auto" is `encoder_unfold_auto`, None folds
+    the whole encoder."""
     b, t, _ = x.shape
     hop = cfg.hop_length
     n = t // hop
     f = batchfold_auto(n) if fold is None else fold
     if f <= 1:
         return encoder_apply(p, x, cfg)
+    if n <= encoder_halo_samples(cfg) // hop:
+        # the head patch would replace every frame of the fold
+        return encoder_apply(p, x[:, :n * hop], cfg)[:, :n]
     if unfold_after == "auto":
         unfold_after = encoder_unfold_auto(cfg)
     n_blocks = len(cfg.enc_strides)
@@ -392,7 +402,8 @@ def encoder_apply_batchfold(p, x, cfg: GeneratorConfig, *, fold=None,
     chunks = _fold(x.transpose(1, 2), h, f, hop)
     if u == n_blocks:
         hh = encoder_apply(p, chunks.transpose(1, 2), cfg).transpose(1, 2)
-        return _unfold(hh, b, h // hop)[..., :n].transpose(1, 2)
+        return _encoder_head_patch(p, x, cfg,
+                                   _unfold(hh, b, h // hop)[..., :n])
 
     y = causal_conv1d(chunks, p["conv"])
     h_rate = h
@@ -406,7 +417,17 @@ def encoder_apply_batchfold(p, x, cfg: GeneratorConfig, *, fold=None,
         bp = p["blocks"][i]
         y = causal_conv1d(res_stack_plain(y, bp, cfg), bp["conv"],
                           stride=cfg.enc_strides[i])
-    return y[..., :n].transpose(1, 2)
+    return _encoder_head_patch(p, x, cfg, y[..., :n])
+
+
+def _encoder_head_patch(p, x, cfg: GeneratorConfig, y):
+    """The folded encoder's frames y (B, C_enc, n) with the first
+    `encoder_halo_samples(cfg) / hop` of them replaced, in a new tensor, by
+    the direct encoder's on the first samples (a causal encoder's frames
+    depend only on the samples before them) -> (B, n, C_enc)."""
+    k = min(encoder_halo_samples(cfg) // cfg.hop_length, y.shape[-1])
+    head = encoder_apply(p, x[:, :k * cfg.hop_length], cfg)[:, :k]
+    return torch.cat([head, y[..., k:].transpose(1, 2)], dim=1)
 
 
 def decode_batchfold(dec_params, q_params, idx, cfg: GeneratorConfig, *,

@@ -1,5 +1,7 @@
 """Residual vector quantization (counterpart of audiodec_tpu/ops/vq.py): the
-inference path and the training forward with its EMA codebook update.
+inference path, the training forward with its EMA codebook update, and the
+exact distances that hold the two-pass argmin's shortlist
+(`vq_distances_exact`, `rvq_shortlist_ranks`).
 
 params = {"embed": (Q, N, D)[, "cluster_size": (Q, N), "embed_avg":
 (Q, N, D)]}; z is (..., D) rows, as in JAX.  The distance
@@ -32,11 +34,59 @@ def rvq_init(gen: torch.Generator, num_quantizers: int, codebook_size: int,
 
 def vq_distances(z: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances in f32, |z|^2 - 2 z.E^T + |E|^2 in that order.
-    z: (..., D); embed: (N, D) -> (..., N)."""
+    z: (..., D); embed: (N, D) -> (..., N).  As in JAX, the squared norms
+    are summed in the inputs' dtype and the cross term is taken in f32."""
     z2 = torch.sum(torch.square(z), dim=-1, keepdim=True)
     e2 = torch.sum(torch.square(embed), dim=-1)
-    cross = torch.matmul(z, embed.transpose(0, 1))
+    cross = torch.matmul(z.float(), embed.float().transpose(0, 1))
     return z2 - 2.0 * cross + e2
+
+
+def vq_distances_exact(z: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """vq_distances with the cross term in true f32 whatever the TF32
+    setting (JAX's HIGHEST precision; with TF32 off, as the port's entry
+    points set it, the same as vq_distances).  The oracle the two-pass
+    argmin's shortlist is held to."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return vq_distances(z, embed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def rvq_shortlist_ranks(z: torch.Tensor, params: dict,
+                        pass1_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """The rank of each layer's exact argmin among the first-pass distances
+    that vq_nearest_2pass draws its shortlist from (0: the first pass
+    already ranks it best; ties count the lower indices before it, the
+    order of top-k).  vq_nearest_2pass(k) is exact for a frame iff every
+    rank is below k, so the largest rank over a corpus is the least safe k.
+
+    pass1_dtype: a cast of the residual and the codebook for the first
+    pass only (a lower-precision first pass, as bf16 multiplies are in the
+    JAX package on the TPU).  The residuals follow the exact indices.
+    z: (B, T, D) float32 -> ranks (B, T, Q) int32."""
+    embed = params["embed"]
+    residual = z
+    ranks = []
+    for q in range(embed.shape[0]):
+        e_q = embed[q]
+        if pass1_dtype is not None:
+            d1 = vq_distances(residual.to(pass1_dtype),
+                              e_q.to(pass1_dtype))
+        else:
+            d1 = vq_distances(residual, e_q)
+        true_idx = torch.argmin(vq_distances_exact(residual, e_q), dim=-1)
+        d1_true = torch.gather(d1, -1, true_idx.unsqueeze(-1))
+        ids = torch.arange(e_q.shape[0], device=z.device)
+        below = torch.sum(d1 < d1_true, dim=-1)
+        tie_before = torch.sum((d1 == d1_true)
+                               & (ids < true_idx.unsqueeze(-1)), dim=-1)
+        ranks.append(below + tie_before)
+        residual = residual - e_q[true_idx]
+    return torch.stack(ranks, dim=-1).to(torch.int32)
 
 
 def vq_nearest(z: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

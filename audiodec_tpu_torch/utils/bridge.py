@@ -1,8 +1,10 @@
 """Weights carried into the port: from the JAX package's param tree, and from
-the reference implementation's state dict (the port's own copy of
+the reference implementation's checkpoints (`load_reference_checkpoint`,
+`load_reference_meta`) and state dicts (the port's own copy of
 audiodec_tpu/utils/torch_import.py `fold_weight_norm`, `import_autoencoder`,
-`import_vocoder` and `import_hifigan_discriminator` with either fold,
-`import_univnet_mrsd` and `import_univnet_discriminator`); and back to the
+`import_vocoder`, `import_hifigan_discriminator` with either fold,
+`import_univnet_mrsd` and `import_univnet_discriminator`, under the names
+`*_params_from_reference_sd`); and back to the
 JAX tree (`params_to_jax`, `vocoder_params_to_jax`,
 `disc_params_to_jax`), so that port weights can be written as a JAX-format
 checkpoint (utils/checkpoint.py).  A conv carried either way keeps its norm
@@ -451,3 +453,45 @@ def mrsd_params_from_reference_sd(sd: Dict[str, np.ndarray], cfg,
         {"layers": [_conv_from_sd(sd, _layer_key(
             f"{prefix}discriminators.{i}", j, n)) for j in range(n)]}
         for i in range(len(cfg.fft_sizes))]}
+
+
+def univnet_disc_params_from_reference_sd(sd: Dict[str, np.ndarray],
+                                          cfg) -> dict:
+    """Reference UnivNet MRSD + MPD discriminator state dict -> the port's
+    params, weight norm folded (JAX: `import_univnet_discriminator`,
+    audiodec_tpu/utils/torch_import.py:325).  cfg:
+    UnivNetDiscriminatorConfig."""
+    sd = fold_weight_norm(sd)
+    return {"mrsd": mrsd_params_from_reference_sd(sd, cfg.mrsd,
+                                                  prefix="mrsd."),
+            "mpd": _period_discs(sd, cfg.mpd, partial(_conv_from_sd, sd))}
+
+
+# ---------------------------------------------------------------------------
+# reference checkpoints (.pkl)
+# ---------------------------------------------------------------------------
+
+def _torch_load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A reference checkpoint (.pkl) -> its generator's state dict as numpy
+    arrays (JAX: `load_torch_checkpoint`, torch_import.py:343).  Takes the
+    reference trainer's layout {"model": {"generator": sd, ...}, "steps",
+    "epochs", ...} or a bare state dict."""
+    obj = _torch_load(path)
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+        obj = obj.get("generator", obj)
+    return {k: v.detach().cpu().numpy() for k, v in obj.items()}
+
+
+def load_reference_meta(path: str) -> Dict[str, int]:
+    """The training progress a reference checkpoint keeps beside its
+    weights: `steps` and `epochs`, where present (JAX: `load_torch_meta`,
+    torch_import.py:357)."""
+    obj = _torch_load(path)
+    if not isinstance(obj, dict):
+        return {}
+    return {k: int(obj[k]) for k in ("steps", "epochs") if k in obj}

@@ -385,6 +385,37 @@ The phases of slice 15, the serving surface, each with a line
     `DeviceStreamer` on a stand-in audio driver for 1 s; no kernel
     launched.
 
+The phases of slice 19, after cli_path (which since then also reads its
+wavs through the native WAV codec, csrc/wavio.cpp, bit-equal to the numpy
+reader, and runs the command line with --float-in once with each reader,
+in turns), each with a line `<phase> {...}` that carries the card's name
+and power limit where it times anything:
+
+  - import_path: reference-layout .pkl files ({"model": {"generator":
+    sd}, "steps", "epochs"}) written with torch.save from the goldens'
+    state dicts, converted by bin/import_ckpt.py with
+    tools/ref_configs/symAD_short.yaml and vocoder_v1_small.yaml; the
+    symAD checkpoint through codec_test's loader and the default
+    stack="folded" in true f32, the golden's indices with 0 flips and y
+    within golden_parity's bars, B1's true-f32 route launched; the vocoder
+    through vocoder_apply_folded in true f32, y within voc_golden's bar;
+  - blocked_path: archive/fast_experiments.py's blocked encoder and
+    decoder (archive/blocked.py, plain convs) on main_path's input in f32:
+    ms, peak memory, no launch; held to the plain f32 transcode of the
+    same input (features and the blocked decoder's waveform on the plain
+    codes within 1e-4 of the peak, at most 0.1% index flips); the flips
+    against main_path's indices printed;
+  - entry_path: entry.py's entry() fn on the card against the same fn on
+    the CPU (rtol 1e-4, atol 1e-4 of each output's peak), on the example's
+    zero input and on a seeded one, then dryrun_multichip(4), four ranks
+    of the card on gloo;
+  - pipeline_path: bin/codec_pipeline.py --start 0 --stop 4, five
+    processes, on the shipped configs cut to a few steps on batches of 4,
+    each stage's output read back.
+
+`python3 chip_smoke.py modules` runs, after the build, main_path,
+cli_path, these four phases and batchfold_path.
+
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
@@ -410,7 +441,9 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from audiodec_tpu_torch.archive import fast_experiments, resunit_kernel
 from audiodec_tpu_torch.archive import vq_kernel
+from audiodec_tpu_torch import entry
 from audiodec_tpu_torch.bin import (
+    codec_pipeline,
     codec_serve,
     codec_stats,
     codec_test,
@@ -419,6 +452,7 @@ from audiodec_tpu_torch.bin import (
     folded_ablate,
     folded_probe,
     fused_probe,
+    import_ckpt,
     kernel_bounds,
     multihost_probe,
     mxu_rate_probe,
@@ -430,6 +464,7 @@ from audiodec_tpu_torch.models import fast
 from audiodec_tpu_torch.models.autoencoder import (
     GeneratorConfig,
     codec_state_init,
+    decoder_apply,
     decoder_stream_bct,
     encoder_apply,
     encoder_stream_bct,
@@ -452,7 +487,13 @@ from audiodec_tpu_torch.ops.kernels import (
     folded_stack,
 )
 from audiodec_tpu_torch.data.dataset import SingleDataset
-from audiodec_tpu_torch.data.wav import read_wav, read_wav_pcm16, write_wav
+from audiodec_tpu_torch.data import dataset as dataset_module
+from audiodec_tpu_torch.data.wav import (
+    read_wav,
+    read_wav_pcm16,
+    read_wav_plain,
+    write_wav,
+)
 from audiodec_tpu_torch.ops.vq import rvq_forward_index, rvq_lookup
 from audiodec_tpu_torch.parallel.codec import (
     decoder_halo_frames,
@@ -480,10 +521,12 @@ from audiodec_tpu_torch.utils.bridge import (
     params_from_reference_sd,
     params_to_jax,
     tree_map,
+    vocoder_params_from_jax,
     vocoder_params_from_reference_sd,
 )
 from audiodec_tpu_torch.utils.checkpoint import (
     load_checkpoint,
+    load_only_params,
     save_checkpoint,
 )
 from audiodec_tpu_torch.utils.config import (
@@ -1938,8 +1981,40 @@ def phase_cli_path(params):
             raise AssertionError(f"--dtype {dtype}: {launches}")
         runs[dtype] = {"cli": summary, "launches": launches,
                        "files": len(files)}
+    runs["readers"] = cli_readers(ckpt, wavs)
+    print("cli_path " + json.dumps(runs["readers"]), flush=True)
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     emit("cli_path", t0, runs=runs)
+
+
+def cli_readers(ckpt: Path, wavs: Path) -> dict:
+    """The native WAV codec on cli_path's wavs: its samples bit-equal to the
+    numpy reader's; then the command line with --float-in (every read
+    through data/wav.py read_wav), --dtype mixed, once with the native
+    reader and once with the numpy one -> each run's RTF."""
+    paths = sorted(str(p) for p in wavs.iterdir())
+    for path in paths:
+        got, sr = read_wav(path)
+        want, sr_plain = read_wav_plain(path)
+        if sr != sr_plain or not np.array_equal(got, want):
+            raise AssertionError(f"cli_path: the native read of {path} "
+                                 f"differs from the numpy one")
+    readers = {"native": read_wav, "plain": read_wav_plain}
+    rtf = {name: [] for name in readers}
+    for name in ("native", "plain", "plain", "native"):
+        dataset_module.read_wav = readers[name]
+        try:
+            summary = codec_test.main([
+                "--encoder", str(ckpt), "--decoder", str(ckpt),
+                "--data-path", str(wavs), "--outdir",
+                str(CLI_DIR / f"out_{name}"), "--dtype", "mixed",
+                "--batch-size", "16", "--float-in"])
+        finally:
+            dataset_module.read_wav = read_wav
+        rtf[name].append(summary["rtf"])
+    return {"bit_equal_files": len(paths),
+            "order": "native, plain, plain, native",
+            **{f"{name}_rtf": v for name, v in rtf.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -3880,15 +3955,14 @@ def host_census() -> dict:
             "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
 
 
-def train_run(yaml_path: Path, tag: str, metric: int, adv: int, **over):
-    """codec_train's trainer on a config with only the data and checkpoint
-    paths, step counts and intervals changed, each step timed -> (trainer,
-    config, seconds, peak GiB, launches, {stage: step ms}, host census
-    before the run).  The adversarial stage starts at step `metric`."""
-    argv = over.pop("argv", [])
+def cut_config(yaml_path: Path, corpus: Path, metric: int, adv: int,
+               **over) -> dict:
+    """A shipped config with only the data paths (train, valid and test
+    under `corpus`), step counts and `over` changed; the adversarial stage
+    starts at step `metric`."""
     cfg = load_config(str(yaml_path))
-    cfg["data"] = {"path": str(TRAIN_DIR / "data"),
-                   "subset": {"train": "train", "valid": "valid"}}
+    cfg["data"] = {"path": str(corpus), "subset": {
+        "train": "train", "valid": "valid", "test": "test"}}
     cfg["start_steps"] = dict(cfg.get("start_steps", {}),
                               discriminator=metric)
     if "discriminator_train_start_steps" in cfg:
@@ -3896,6 +3970,16 @@ def train_run(yaml_path: Path, tag: str, metric: int, adv: int, **over):
         cfg["discriminator_train_start_steps"] = metric - 1
     cfg.update(train_max_steps=metric, adv_train_max_steps=metric + adv,
                **over)
+    return cfg
+
+
+def train_run(yaml_path: Path, tag: str, metric: int, adv: int, **over):
+    """codec_train's trainer on a config with only the data and checkpoint
+    paths, step counts and intervals changed, each step timed -> (trainer,
+    config, seconds, peak GiB, launches, {stage: step ms}, host census
+    before the run).  The adversarial stage starts at step `metric`."""
+    argv = over.pop("argv", [])
+    cfg = cut_config(yaml_path, TRAIN_DIR / "data", metric, adv, **over)
     cfg_path = TRAIN_DIR / f"{tag}.yaml"
     cfg_path.write_text(dump_yaml(cfg))
     census = host_census()
@@ -4769,6 +4853,285 @@ def parallel_phases(device, card: str):
     shutil.rmtree(PAR_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 19: reference checkpoints, the blocked archive, the entry points,
+# the five-stage pipeline (the native WAV codec is in cli_path)
+# ---------------------------------------------------------------------------
+
+IMPORT_DIR = ROOT / "build" / "chip_smoke_import"
+PIPE_DIR = ROOT / "build" / "chip_smoke_pipeline"
+REF_CONFIGS = ROOT / "tools" / "ref_configs"
+ENTRY_RTOL = 1e-4                 # and an atol of 1e-4 of each output's peak
+# the blocked codec against the plain f32 one: f32 sums in another order
+BLOCKED_ATOL = 1e-4               # of the plain output's peak
+BLOCKED_FLIPS = 204               # 0.1% of B = 16 x 10 s's 204800 indices
+PIPE_STEPS = (1, 1)               # metric, adversarial steps per training
+PIPE_BATCH = 4                    # of the configs' 16 (x 9600 samples)
+
+
+def reference_pkl(path: Path, name: str, steps: int, epochs: int):
+    """A golden's reference state dict written as the reference trainer
+    writes a checkpoint: {"model": {"generator": sd}, "steps", "epochs"}."""
+    data = np.load(GOLDEN / f"{name}.npz")
+    sd = {k[len("sd__"):]: torch.from_numpy(data[k]) for k in data.files
+          if k.startswith("sd__")}
+    torch.save({"model": {"generator": sd}, "steps": steps,
+                "epochs": epochs}, path)
+    return data
+
+
+def phase_import_path(device):
+    """bin/import_ckpt.py on reference-layout .pkl files written from the
+    goldens' state dicts, then the imported checkpoints on the card: the
+    trained symAD (tools/ref_configs/symAD_short.yaml) through the CLI's
+    loader and its default stack="folded" in true f32, the golden's
+    indices with 0 flips and y within golden_parity's bars, B1's true-f32
+    route launched; the trained HiFiGAN vocoder (vocoder_v1_small.yaml)
+    through vocoder_apply_folded in true f32 on the golden's codes, y
+    within voc_golden's bar.  Returns the launch counts of the phase."""
+    t0 = time.perf_counter()
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    IMPORT_DIR.mkdir(parents=True)
+    cfg = GeneratorConfig()
+    results = {}
+    reset_launches()
+    data = reference_pkl(IMPORT_DIR / "symad.pkl", "gen_symad_trained",
+                         steps=3000, epochs=12)
+    ckpt = IMPORT_DIR / "symad" / "checkpoint-3000steps.ckpt"
+    import_ckpt.main(["--torch", str(IMPORT_DIR / "symad.pkl"), "--config",
+                      str(REF_CONFIGS / "symAD_short.yaml"), "--out",
+                      str(ckpt)])
+    _, header = load_checkpoint(str(ckpt))
+    if header != {"steps": 3000, "imported_from": "symad.pkl",
+                  "epochs": 12}:
+        raise AssertionError(f"import_path: header {header}")
+    tc, _ = codec_test.load_codec(str(ckpt), str(ckpt), stack="folded",
+                                  bf16_dots=False, device=device)
+    before = read_launches()["resunit_f32"]
+    idx, y = tc(data["x"].transpose(0, 2, 1))
+    torch.cuda.synchronize()
+    b1 = read_launches()["resunit_f32"] - before
+    flat = np.arange(cfg.codebook_num)[:, None] * cfg.codebook_size
+    flips = int((idx[0].cpu().numpy().T + flat != data["idx_stream"]).sum())
+    y = y.cpu().numpy().transpose(0, 2, 1)
+    if flips or b1 == 0:
+        raise AssertionError(f"import_path: {flips} index flips, {b1} B1 "
+                             f"launches")
+    np.testing.assert_allclose(y, data["y"], rtol=1e-3, atol=1e-4)
+    results["gen_symad_trained"] = {
+        "index_flips": flips, "frames": int(data["idx_stream"].shape[1]),
+        "max_abs_err": float(np.abs(y - data["y"]).max()),
+        "resunit_f32_launches": b1}
+
+    data = reference_pkl(IMPORT_DIR / "voc.pkl", "voc_v1_small_trained",
+                         steps=3000, epochs=12)
+    vckpt = IMPORT_DIR / "voc" / "checkpoint-3000steps.ckpt"
+    import_ckpt.main(["--torch", str(IMPORT_DIR / "voc.pkl"), "--config",
+                      str(REF_CONFIGS / "vocoder_v1_small.yaml"), "--out",
+                      str(vckpt)])
+    vcfg = generator_config(load_config(str(vckpt.parent / "config.yml")))
+    tree, _ = load_only_params(str(vckpt))
+    p = tree_map(lambda a: a.to(device), vocoder_params_from_jax(tree))
+    before = read_launches()["resunit_f32"]
+    yv = fast.vocoder_apply_folded(
+        p, torch.from_numpy(data["zq"].transpose(0, 2, 1)).to(device), vcfg,
+        bf16_dots=False)
+    torch.cuda.synchronize()
+    b1 = read_launches()["resunit_f32"] - before
+    yv = yv.cpu().numpy().transpose(0, 2, 1)
+    if b1 == 0:
+        raise AssertionError("import_path: the vocoder launched no B1")
+    np.testing.assert_allclose(yv, data["y"], rtol=1e-3, atol=1e-5)
+    results["voc_v1_small_trained"] = {
+        "samples": int(data["y"].shape[-1]),
+        "max_abs_err": float(np.abs(yv - data["y"]).max()),
+        "resunit_f32_launches": b1}
+    launches = read_launches()
+    if launches != launch_counts(resunit_f32=launches["resunit_f32"]):
+        raise AssertionError(f"import_path: kernel launches {launches}")
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    emit("import_path", t0, imported=results, launches=launches)
+    return launches
+
+
+def phase_blocked_path(device, params, x, idx_main, card: str):
+    """archive/fast_experiments.py's blocked encoder and decoder
+    (archive/blocked.py's block-packed stacks, plain convs) on main_path's
+    input in f32: ms and peak memory; no kernel launched, as JAX's blocked
+    path runs no pallas_call.  Held to the plain f32 transcode
+    (autoencoder.py's encoder_apply / decoder_apply) of the same input:
+    the encoder's features within BLOCKED_ATOL of their peak, at most
+    BLOCKED_FLIPS index flips, and the blocked decoder on the plain
+    transcode's codes within BLOCKED_ATOL of the plain waveform's peak.
+    The flips of both against main_path's indices are printed."""
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig()
+    p = on_device(params, device)
+    blocked = (fast_experiments.encoder_apply_blocked,
+               fast_experiments.decoder_apply_blocked)
+
+    @torch.no_grad()
+    def transcode(v, enc, dec):
+        h = enc(p["encoder"], v, cfg)
+        z = projector_apply(p["projector"], h, cfg)
+        zq, i = rvq_forward_index(z, p["quantizer"])
+        return h, zq, i, dec(p["decoder"], zq, cfg)
+
+    reset_launches()
+    h, _, idx, y = transcode(x, *blocked)
+    torch.cuda.synchronize()
+    launches = no_kernel_launches("blocked_path")
+    check_transcode(idx, y, x, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: transcode(x, *blocked), reps=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del y
+    h_plain, zq_plain, idx_plain, y_plain = transcode(x, encoder_apply,
+                                                      decoder_apply)
+    with torch.no_grad():
+        y_cross = blocked[1](p["decoder"], zq_plain, cfg)
+    errs = {"features": float((h - h_plain).abs().max()
+                              / h_plain.abs().max()),
+            "waveform": float((y_cross - y_plain).abs().max()
+                              / y_plain.abs().max())}
+    flips = int((idx != idx_plain).sum())
+    summary = {"card": card, "transcode_ms": ms,
+               "rtf": BATCH * SECONDS / (ms / 1e3),
+               "peak_memory_gib": peak,
+               "max_abs_err_over_peak_vs_plain_f32": errs,
+               "index_flips_vs_plain_f32": flips,
+               "index_flips_vs_main_path": int((idx != idx_main).sum()),
+               "plain_f32_index_flips_vs_main_path": int(
+                   (idx_plain != idx_main).sum()),
+               "indices": int(idx.numel())}
+    print("blocked_path " + json.dumps(summary), flush=True)
+    if max(errs.values()) > BLOCKED_ATOL or flips > BLOCKED_FLIPS:
+        raise AssertionError(
+            f"blocked_path: against the plain f32 transcode {errs} (bar "
+            f"{BLOCKED_ATOL} of the peak), {flips} index flips (bar "
+            f"{BLOCKED_FLIPS})")
+    emit("blocked_path", t0, **summary, launches=launches)
+    return launches
+
+
+def phase_entry_path(device, card: str):
+    """entry.py on the card: entry()'s fn (symAD's eval forward at full
+    width) on the example's zero input and on a seeded input of its shape
+    (with the zero biases of generator_init the zero input codes every
+    frame alike), each against the same fn on the CPU within ENTRY_RTOL
+    and an atol of 1e-4 of each output's peak, timed on the seeded input;
+    then dryrun_multichip(4), four ranks of this card on gloo."""
+    t0 = time.perf_counter()
+    fn, (params, x) = entry.entry(device)
+    seeded = torch.from_numpy((0.1 * np.random.default_rng(SEED)
+                               .standard_normal(tuple(x.shape)))
+                              .astype(np.float32)).to(device)
+    reset_launches()
+    outs = [fn(params, v) for v in (x, seeded)]
+    torch.cuda.synchronize()
+    launches = no_kernel_launches("entry_path")
+    ms = cuda_ms(lambda: fn(params, seeded), reps=3)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    errs = {}
+    for which, v, out in zip(("example", "seeded"), (x, seeded), outs):
+        ref = fn(cpu_params, v.cpu())
+        for name, got, want in zip(("y", "zq", "vqloss"), out, ref):
+            got, want = got.cpu().numpy(), want.numpy()
+            np.testing.assert_allclose(got, want, rtol=ENTRY_RTOL,
+                                       atol=1e-4 * np.abs(want).max(),
+                                       err_msg=f"entry_path {which} {name}")
+            errs[f"{which}_{name}"] = float(np.abs(got - want).max())
+    zq = outs[1][1].reshape(-1, outs[1][1].shape[-1])
+    codes = int(torch.unique(zq, dim=0).shape[0])
+    if codes < 2:
+        raise AssertionError("entry_path: the seeded input coded every "
+                             "frame alike")
+    t1 = time.perf_counter()
+    lines = entry.dryrun_multichip(4, device)
+    summary = {"card": card, "forward_ms_seeded": ms,
+               "max_abs_err_vs_cpu": errs, "distinct_codes_seeded": codes,
+               "dryrun_seconds": time.perf_counter() - t1,
+               "dryrun": lines[0]}
+    print("entry_path " + json.dumps(summary), flush=True)
+    emit("entry_path", t0, **summary, launches=launches)
+
+
+def phase_pipeline_path(card: str):
+    """bin/codec_pipeline.py --start 0 --stop 4 on the card: the shipped
+    symAD, statistic and AD v1 vocoder configs at their full widths, cut to
+    PIPE_STEPS steps of each training stage on batches of PIPE_BATCH, over
+    train_path's seeded corpus (and 2 test wavs of 1 s); each stage a
+    process of its own.  Every stage's output is read back: the final
+    checkpoints, the statistics, the two decodes' wavs (finite, the test
+    wavs' lengths)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    data = PIPE_DIR / "data"
+    rng = np.random.default_rng(SEED + 19)
+    train_corpus(data, rng)
+    (data / "test").mkdir()
+    for i in range(2):
+        write_wav(str(data / "test" / f"t{i}.wav"), 0.3 * np.sin(
+            np.arange(SR) * rng.uniform(0.01, 0.2))[:, None], SR)
+    metric, adv = PIPE_STEPS
+    steps = dict(save_interval_steps=metric + adv,
+                 eval_interval_steps=metric + adv, log_interval_steps=1)
+    ae_tag, voc_tag = PIPE_DIR / "ae", PIPE_DIR / "voc"
+    stats = PIPE_DIR / "stats.npy"
+    ae = cut_config(SYMAD_YAML, data, metric, adv, batch_size=PIPE_BATCH,
+                    **steps)
+    st = dict(load_config(str(STATISTIC_YAML)), data=ae["data"],
+              stats=str(stats))
+    voc = cut_config(VOCODER_YAML, data, metric, adv, batch_size=PIPE_BATCH,
+                     analyzer=str(ae_tag / "checkpoint-final.ckpt"),
+                     **steps)
+    voc["generator_params"] = dict(voc["generator_params"], stats=str(stats))
+    paths = {}
+    for name, cfg in (("ae", ae), ("stats", st), ("voc", voc)):
+        paths[name] = PIPE_DIR / f"{name}.yaml"
+        paths[name].write_text(dump_yaml(cfg))
+    out = ROOT / "checkpoint-final-checkpoint-final"  # codec_test's default
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        ran = codec_pipeline.main([
+            "--start", "0", "--stop", "4", "--ae_config", str(paths["ae"]),
+            "--voc_config", str(paths["voc"]), "--stats_config",
+            str(paths["stats"]), "--ae_tag", str(ae_tag), "--voc_tag",
+            str(voc_tag)])
+        if ran != [0, 1, 2, 3, 4]:
+            raise AssertionError(f"pipeline_path: ran stages {ran}")
+        headers = {tag.name: load_checkpoint(
+            str(tag / "checkpoint-final.ckpt"))[1]["steps"]
+            for tag in (ae_tag, voc_tag)}
+        if headers != {"ae": metric + adv, "voc": metric + adv}:
+            raise AssertionError(f"pipeline_path: final steps {headers}")
+        written = np.load(stats)
+        if written.shape != (2, 64) or not np.all(np.isfinite(written)):
+            raise AssertionError(f"pipeline_path: stats {written.shape}")
+        for i in range(2):
+            y, sr = read_wav(str(out / f"t{i}_output.wav"))
+            if y.shape != (SR, 1) or sr != SR or not np.all(np.isfinite(y)):
+                raise AssertionError(f"pipeline_path: t{i} decoded to "
+                                     f"{y.shape}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    summary = {"card": card, "stages": ran, "steps": list(PIPE_STEPS),
+               "seconds": time.perf_counter() - t0}
+    print("pipeline_path " + json.dumps(summary), flush=True)
+    emit("pipeline_path", t0, **summary)
+
+
+def module_phases(device, card: str, params, x, idx_main) -> dict:
+    """Slice 19's phases after cli_path -> their launch counts by path."""
+    launches = {"import_path": phase_import_path(device),
+                "blocked_path": phase_blocked_path(device, params, x,
+                                                   idx_main, card)}
+    phase_entry_path(device, card)
+    phase_pipeline_path(card)
+    return launches
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -4817,8 +5180,9 @@ def summed(rows, key):
 
 
 def main():
-    if sys.argv[1:] not in ([], ["train"], ["parallel"]):
-        sys.exit("usage: python3 chip_smoke.py [train | parallel]")
+    if sys.argv[1:] not in ([], ["train"], ["parallel"], ["modules"]):
+        sys.exit("usage: python3 chip_smoke.py [train | parallel | "
+                 "modules]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -4839,6 +5203,13 @@ def main():
         return
     if sys.argv[1:] == ["parallel"]:
         parallel_phases(device, card)
+        return
+    if sys.argv[1:] == ["modules"]:
+        _, _, tc, x, idx, params = phase_main_path(device)
+        del tc
+        phase_cli_path(params)
+        module_phases(device, card, params, x, idx)
+        phase_batchfold_path(device, params, x, card)
         return
     _, trained = load_golden("gen_symad_trained")
     phase_kernel_vs_plain(trained, device)
@@ -4870,6 +5241,7 @@ def main():
     phase_profile("int8_path", tc_int8, x)
     del tc_int8
     phase_cli_path(params)
+    module_launches = module_phases(device, card, params, x, idx)
     fused_launches, resunit_rows, rvq_rows, fused = phase_fused_path(
         device, params, x, z_main)
     phase_profile("fused_path", fused, x)
@@ -4903,7 +5275,7 @@ def main():
                "golden_parity": golden_launches,
                "voc_golden": voc_golden_launches,
                "mma_kernel_vs_plain": mma_counts,
-               "wide_kernel_vs_plain": wide_counts}
+               "wide_kernel_vs_plain": wide_counts, **module_launches}
     folded = "audiodec_tpu/ops/pallas/folded_stack.py:372"
     mma = "audiodec_tpu_torch/csrc/folded_stack_mma.cu"
     print(json.dumps({"kernels": [
