@@ -1,0 +1,1 @@
+"""Benchmark of audiodec_tpu_torch (see benchmark/README.md)."""
