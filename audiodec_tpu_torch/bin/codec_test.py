@@ -96,7 +96,7 @@ from audiodec_tpu_torch.utils.config import (
     generator_config,
     load_config_near_checkpoint,
 )
-from audiodec_tpu_torch.utils.profiling import device_trace
+from audiodec_tpu_torch.utils.profiling import device_trace, span
 
 
 def require_device(device=None) -> torch.device:
@@ -364,27 +364,36 @@ class BatchTranscoder:
     def encode(self, x) -> torch.Tensor:
         """x: (B, T, 1) float, or int16 PCM -> indices (B, T/hop, Q)
         int32; under a mesh, this rank's block of both."""
-        x = self._to_device(x)
-        if x.dtype == torch.int16:
-            x = x.to(torch.float32) / 32768.0
-        if self.mesh is not None:
-            return self._sharded[0](x)
-        h = self.enc_apply(self.enc_params["encoder"], x.to(self.dtype),
-                           self.cfg)
-        z = projector_apply(self.enc_params["projector"], h, self.cfg)
-        _, idx = rvq_forward_index(z.float(), self.quantizer,
-                                   exact_k=self.exact_k)
-        return idx
+        with span("encode", self.device):
+            x = self._to_device(x)
+            if x.dtype == torch.int16:
+                x = x.to(torch.float32) / 32768.0
+            if self.mesh is not None:
+                return self._sharded[0](x)
+            with span("encoder", self.device):
+                h = self.enc_apply(self.enc_params["encoder"],
+                                   x.to(self.dtype), self.cfg)
+            with span("projector", self.device):
+                z = projector_apply(self.enc_params["projector"], h,
+                                    self.cfg)
+            with span("rvq", self.device):
+                _, idx = rvq_forward_index(z.float(), self.quantizer,
+                                           exact_k=self.exact_k)
+            return idx
 
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
         """indices (B, T', Q) -> waveform (B, T' * hop, 1), float32 or, with
         pcm16, int16; under a mesh, this rank's block of both."""
-        if self.mesh is not None:
-            y = self._sharded[1](idx)
-        else:
-            zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
-            y = self.dec_apply(self.dec_params, zq, self.dec_cfg)
-        return _pcm16(y) if self.pcm16 else y.float()
+        with span("decode", self.device):
+            if self.mesh is not None:
+                y = self._sharded[1](idx)
+                return _pcm16(y) if self.pcm16 else y.float()
+            with span("lookup", self.device):
+                zq = rvq_lookup(idx, self.quantizer).to(self.dec_dtype)
+            with span("decoder", self.device):
+                y = self.dec_apply(self.dec_params, zq, self.dec_cfg)
+            with span("pcm16", self.device):
+                return _pcm16(y) if self.pcm16 else y.float()
 
     def __call__(self, x):
         """A batch -> (indices, waveform); under a mesh, the batch is every

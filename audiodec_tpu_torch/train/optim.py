@@ -26,6 +26,8 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from audiodec_tpu_torch.utils.profiling import span
+
 
 def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     """[(path, tensor)] of a tree of dicts and lists, in order; list items
@@ -100,18 +102,20 @@ class Optimizer:
         update them, and advance the schedule by one update."""
         paths = list(self.params) if paths is None else list(paths)
         leaves = [self.params[p] for p in paths]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
-        if axis is not None and axis.size > 1:
-            grads = _mean_over(grads, axis)
-        for t, g in zip(leaves, grads):
-            t.grad = g
-        if self.clip and self.clip > 0:
-            torch.nn.utils.clip_grad_norm_(leaves, self.clip)
-        self.opt.step()
-        self.sched.step()
-        self.opt.zero_grad(set_to_none=True)
+        with span("backward", loss.device):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, grads)]
+        with span("update", loss.device):
+            if axis is not None and axis.size > 1:
+                grads = _mean_over(grads, axis)
+            for t, g in zip(leaves, grads):
+                t.grad = g
+            if self.clip and self.clip > 0:
+                torch.nn.utils.clip_grad_norm_(leaves, self.clip)
+            self.opt.step()
+            self.sched.step()
+            self.opt.zero_grad(set_to_none=True)
 
     @property
     def lr(self) -> float:

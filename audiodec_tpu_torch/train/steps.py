@@ -61,6 +61,7 @@ from audiodec_tpu_torch.ops.vq import rvq_forward
 from audiodec_tpu_torch.train import criterion as C
 from audiodec_tpu_torch.train.optim import Optimizer, tree_leaves
 from audiodec_tpu_torch.utils.bridge import tree_map
+from audiodec_tpu_torch.utils.profiling import span
 
 # the subtrees the autoencoder's adversarial stage freezes
 FROZEN = ("encoder", "projector", "quantizer")
@@ -115,12 +116,18 @@ def _trained_paths(opt: Optimizer, frozen) -> list:
             if path.split("/")[0] not in frozen]
 
 
+def _disc_loss(state, disc_apply, crit, y_, x, record):
+    """The discriminator's loss on fake y_ and real x -> (loss, the
+    discriminator's tree with the spectral-norm `u` the loss advanced)."""
+    disc_eff, new_disc = resolve_params(state["disc"])
+    return C.dis_loss(crit, disc_apply(disc_eff, y_),
+                      disc_apply(disc_eff, x), record), new_disc
+
+
 def _disc_update(state, disc_apply, crit, y_, x, record, axis_name=None):
     """The discriminator's step on fake y_ and real x; the spectral-norm
     `u` its loss advanced is kept."""
-    disc_eff, new_disc = resolve_params(state["disc"])
-    dloss = C.dis_loss(crit, disc_apply(disc_eff, y_),
-                       disc_apply(disc_eff, x), record)
+    dloss, new_disc = _disc_loss(state, disc_apply, crit, y_, x, record)
     state["disc_opt"].step(dloss, axis=axis_name)
     state["disc"] = new_disc
 
@@ -171,25 +178,38 @@ def make_autoencoder_steps(gen_cfg: GeneratorConfig, disc_apply: Callable,
         return state, _psum_mean(_detached(record), axis_name)
 
     def adv_step(state, x):
-        record = {}
-        gen_opt = state["gen_opt"]
-        eff, _ = resolve_params(state["gen"])
-        loss, y, new_buf = generator_losses(
-            _frozen_detached(eff), x, record, train=False, bn_train=True)
-        loss = loss + _adv_loss(state, disc_apply, crit, config, y, x,
-                                record)
-        record["generator_loss"] = loss
-        gen_opt.step(loss, _trained_paths(gen_opt, FROZEN), axis=axis_name)
-        gen = merge_forward_buffers(state["gen"], new_buf)
+        dev = x.device
+        with span("adv_step", dev):
+            record = {}
+            gen_opt = state["gen_opt"]
+            with span("generator", dev):
+                eff, _ = resolve_params(state["gen"])
+                loss, y, new_buf = generator_losses(
+                    _frozen_detached(eff), x, record, train=False,
+                    bn_train=True)
+            with span("adversarial", dev):
+                loss = loss + _adv_loss(state, disc_apply, crit, config, y,
+                                        x, record)
+            record["generator_loss"] = loss
+            with span("gen_update", dev):
+                gen_opt.step(loss, _trained_paths(gen_opt, FROZEN),
+                             axis=axis_name)
+                gen = merge_forward_buffers(state["gen"], new_buf)
 
-        # the discriminator's update, on y_ from the updated generator
-        with torch.no_grad():
-            gen_eff, _ = resolve_params(gen)
-            y_, _, _, _, _, buf2 = generator_forward(
-                gen_eff, x, gen_cfg, train=False, bn_train=True)
-        state["gen"] = merge_forward_buffers(gen, buf2)
-        _disc_update(state, disc_apply, crit, y_, x, record, axis_name)
-        return state, _psum_mean(_detached(record), axis_name)
+            # the discriminator's update, on y_ from the updated generator
+            with span("regenerate", dev):
+                with torch.no_grad():
+                    gen_eff, _ = resolve_params(gen)
+                    y_, _, _, _, _, buf2 = generator_forward(
+                        gen_eff, x, gen_cfg, train=False, bn_train=True)
+                state["gen"] = merge_forward_buffers(gen, buf2)
+            with span("discriminate", dev):
+                dloss, new_disc = _disc_loss(state, disc_apply, crit, y_, x,
+                                             record)
+            with span("disc_update", dev):
+                state["disc_opt"].step(dloss, axis=axis_name)
+                state["disc"] = new_disc
+            return state, _psum_mean(_detached(record), axis_name)
 
     @torch.no_grad()
     def eval_step(state, x):

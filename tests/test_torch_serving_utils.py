@@ -1,13 +1,13 @@
 """The port's serving helpers against the JAX package's: the quality
-metrics (`utils/metrics.py`), the analytic FLOP counts (`utils/flops.py`)
-and the profiling helpers (`utils/profiling.py`, and `codec_test
---profile`).
+metrics (`utils/metrics.py`) and the analytic FLOP counts
+(`utils/flops.py`); and the Chrome trace of `utils/profiling.py`
+`device_trace` and `codec_test --profile` (the spans:
+tests/test_torch_spans.py).
 """
 
 import glob
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -16,14 +16,13 @@ import torch
 from audiodec_tpu.utils import config as jax_config
 from audiodec_tpu.utils import flops as jax_flops
 from audiodec_tpu.utils import metrics as jax_metrics
-from audiodec_tpu.utils import profiling as jax_profiling
 from audiodec_tpu_torch.bin import codec_test as cli
 from audiodec_tpu_torch.data.wav import write_wav
 from audiodec_tpu_torch.models.vocoder import VocoderConfig
 from audiodec_tpu_torch.utils import config, flops, metrics
 from audiodec_tpu_torch.utils.bridge import params_to_jax
 from audiodec_tpu_torch.utils.checkpoint import save_checkpoint
-from audiodec_tpu_torch.utils.profiling import Timers, device_trace
+from audiodec_tpu_torch.utils.profiling import device_trace
 
 torch.set_num_threads(1)
 
@@ -101,21 +100,6 @@ def test_flops_match_jax(path):
             theirs, n)
         assert flops.transcode_flops(ours, t) == jax_flops.transcode_flops(
             theirs, t)
-
-
-def test_timers_summary_keeps_jax_keys():
-    ours, theirs = Timers(), jax_profiling.Timers()
-    for timers in (ours, theirs):
-        for name in ("encode", "decode", "encode"):
-            with timers.scope(name):
-                time.sleep(0.001)
-    got, want = ours.summary(), theirs.summary()
-    assert got.keys() == want.keys() == {"encode", "decode"}
-    for k in got:
-        assert got[k].keys() == want[k].keys()
-        assert got[k]["count"] == want[k]["count"]
-        assert got[k]["mean_ms"] >= 1.0
-        assert isinstance(got[k]["std_ms"], float)
 
 
 def _traces(d):
