@@ -27,9 +27,11 @@ at any width C.  On the card (`route` picks):
     2 n_units + 1 CUDA launches), counted in `int8_tile_launches`;
     arithmetic at `folded_residual_stack_int8_tile_plain`.
 Each kernel holds every channel of a time tile and its halo in one block's
-shared memory; the geometry functions raise a ValueError naming the shape
-where nothing fits (a halo of thousands of samples, or widths past those
-above), which no shipped config reaches (ROADMAP §C).
+shared memory (csrc/folded_stack_mma.cu streams a row's tiles in time order
+and holds each unit's look-back instead); the geometry functions raise a
+ValueError naming the shape where nothing fits (a halo of thousands of
+samples, or widths past those above), which no shipped config reaches
+(ROADMAP §C).
 
 `fold` and `tile_rows` are the TPU kernel's (0 means f = max(1, 128 // C)).
 They define the int8 modes' functions: a "row" scale covers one folded row
@@ -97,13 +99,24 @@ KERNEL_SIZE = 7
 RESBLOCK_KERNEL_SIZES = (3, 7, 11)
 DEFAULT_TILE_ROWS = 1024
 # csrc/folded_stack_mma.cu: its padded widths, units, the samples a warp
-# takes per step, the largest tile, and the shared memory one block may use
-# on an H100 (227 KB)
+# owns, the warps of each of two blocks that share an SM and the most of
+# one block (of a wgmma block with k2 > 1: its register budget), the unit
+# shapes (k, k2) whose taps it unrolls and runs on wgmma at cp = 32, and
+# the shared memory one block may use on an H100 (227 KB), or each of two
+# blocks of an SM (half the SM's 228 KiB less the 1 KiB each reserves).
+# (Chosen on the card, PERF.md §6: 16 warps an SM ran the autoencoder units
+# 1.5x faster than 8 warps with the next tile's input loaded into registers
+# during this one; wgmma ran them 5% and the vocoder units 14% faster than
+# mma.sync.)
 MMA_CHANNELS = (16, 32)
 MMA_MAX_UNITS = 256
-MMA_STEP = 32
-MMA_MAX_TILE = 1024
+MMA_WARP_ROWS = 32
+MMA_PAIR_WARPS = 8
+MMA_MAX_WARPS = 16
+MMA_WG_WARPS = 12
+MMA_WG_SHAPES = ((7, 1), (11, 11))
 BLOCK_SMEM = 232448
+MMA_PAIR_SMEM = 233472 // 2 - 1024
 MMA_ACT = {"elu": 0, "leaky_relu": 1}
 # csrc/resunit_stack.cu: a thread's output channels and samples, the most
 # threads a block has, the input channels a stage may hold (powers of two,
@@ -485,12 +498,17 @@ def folded_residual_stack_int8_tile_plain(
 @functools.cache
 def _mma_kernel():
     fn = _build.load("folded_stack_mma").folded_stack_mma_forward
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -572,6 +590,38 @@ def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
 
     return (taps([w for w, _ in unit_params]),
             taps([w for _, w in unit_params]), _pack_biases(biases, c, cp))
+
+
+def _pack_mma_frag(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/folded_stack_mma.cu's operands: each unit's taps, its first
+    conv's k then its second's k2, as (n, k + k2, cp / 8, 32, cp / 4) bf16,
+    the B fragments of mma.m16n8k16 in lane order: for n8 tile nt and lane
+    4 g + t, the pairs of input channels 16 kk + 8 h + 2 t (+1) of output
+    channel 8 nt + g, by kk then h, so that a lane's fragments of one n8
+    tile are one 16-byte load (8 bytes at cp = 16); and the biases
+    (`_pack_biases`)."""
+    w1, w2, bias = _pack_mma(unit_params, biases, c, cp, _rounded)
+    w = torch.cat([w1, w2], 1)
+    n, taps = w.shape[:2]
+    # [u, tap, nt, g, kk, h, t, e] -> [u, tap, nt, g, t, kk, h, e]
+    w = w.reshape(n, taps, cp // 8, 8, cp // 16, 2, 4, 2)
+    return (w.permute(0, 1, 2, 3, 6, 4, 5, 7).reshape(n, taps, cp // 8, 32,
+                                                       cp // 4).contiguous(),
+            bias)
+
+
+def _pack_mma_wg(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/folded_stack_mma.cu's operands for its wgmma form: each unit's
+    taps, the first conv's k then the second's k2, as (n, k + k2, cp / 8,
+    cp / 8, 8, 8) bf16, each tap's B (output channel n, input channel k)
+    in K-major core matrices of 8 n x 8 k, those of k block kb and n block
+    nb at kb * cp / 8 + nb; and the biases (`_pack_biases`)."""
+    w1, w2, bias = _pack_mma(unit_params, biases, c, cp, _rounded)
+    w = torch.cat([w1, w2], 1)
+    n, taps = w.shape[:2]
+    # [u, tap, nb, i, kb, e] -> [u, tap, kb, nb, i, e]
+    w = w.reshape(n, taps, cp // 8, 8, cp // 8, 8).permute(0, 1, 4, 2, 3, 5)
+    return w.contiguous(), bias
 
 
 def _pack_unit(unit_params, biases, c: int, cp: int, _rounded: bool):
@@ -671,6 +721,12 @@ def _packed_mma(unit_params, biases, c: int, cp: int):
                        True, unit_params, biases)
 
 
+def _packed_mma_taps(unit_params, biases, c: int, cp: int, wgmma: bool):
+    return cached_pack(_pack_mma_wg if wgmma else _pack_mma_frag,
+                       _unit_tensors(unit_params, biases), c, cp, True,
+                       unit_params, biases)
+
+
 def _packed_unit(unit_params, biases, c: int, cp: int):
     return cached_pack(_pack_unit, _unit_tensors(unit_params, biases), c, cp,
                        False, unit_params, biases)
@@ -721,13 +777,32 @@ def route(mode: str, c: int, bf16_storage: bool, bf16_dots: bool) -> str:
 
 
 class MmaGeometry(NamedTuple):
-    """A launch of csrc/folded_stack_mma.cu: channels padded to cp, tile
-    output samples per block behind a halo of look-back, and the block's
-    shared memory in bytes."""
+    """A launch of csrc/folded_stack_mma.cu: channels padded to cp, blocks
+    of `warps` warps that step through time by `tile` samples carrying a
+    look-back of the stack's `halo`, every unit's weights in shared memory
+    at once (`resident`) or one unit's at a time, `blocks` blocks per SM,
+    the block's shared memory in bytes, whether the products run on wgmma
+    (else mma.sync), and with a 1x1 second conv the first conv's operand
+    buffers (2: one barrier a unit, 1: two)."""
     cp: int
+    warps: int
     tile: int
     halo: int
+    resident: bool
+    blocks: int
     smem: int
+    wgmma: bool = False
+    ybufs: int = 2
+
+
+class MmaSplit(NamedTuple):
+    """The work of one launch of csrc/folded_stack_mma.cu: each batch row
+    cut into `nseg` segments of `seg` samples, each segment's stream
+    started `warm` samples early, walked by `grid` blocks."""
+    seg: int
+    nseg: int
+    warm: int
+    grid: int
 
 
 def mma_width(c: int) -> int:
@@ -735,37 +810,80 @@ def mma_width(c: int) -> int:
     return next(p for p in MMA_CHANNELS if c <= p)
 
 
-def mma_smem(cp: int, k: int, k2: int, rows: int) -> int:
-    """Shared memory of a block holding `rows` samples (csrc/
-    folded_stack_mma.cu `smem_bytes`): the staged taps (k + 1 with the
-    1x1 second conv, else the wider conv's, restaged between the convs) as
-    bf16 rows of cp + 8, act(v) in the same rows, with k2 > 1 the second
-    conv's operand too, the biases, and v as f32 rows of cp + 1."""
-    rs, vs = cp + 8, cp + 1
-    wtaps = k + 1 if k2 == 1 else max(k, k2)
-    return (2 * (wtaps * cp * rs + rows * rs * (1 if k2 == 1 else 2))
-            + 4 * (2 * cp + rows * vs))
+def mma_smem(cp: int, k: int, k2: int, dilations: Sequence[int],
+             resident: bool, tile: int, ybufs: int = 2) -> int:
+    """Shared memory of a block (csrc/folded_stack_mma.cu `smem_bytes`):
+    the weights (k + k2 taps of cp x cp bf16) and biases of every unit or
+    of one; tile buffers of rows of cp + 8 bf16 (the first conv's operand
+    `ybufs` times with the 1x1 second conv, else once and the second
+    conv's), each behind the rows of its conv's longest look-back; and the
+    look-backs kept from tile to tile, (k - 1) d rows per unit, and k2 - 1
+    with k2 > 1."""
+    rb = (cp + 8) * 2
+    units = len(dilations) if resident else 1
+    h1 = sum((k - 1) * d for d in dilations)
+    hy = max((k - 1) * d for d in dilations)
+    bufs = ybufs * (tile + hy) if k2 == 1 else 2 * tile + hy + k2 - 1
+    return (units * ((k + k2) * cp * cp * 2 + 2 * cp * 4) + bufs * rb
+            + h1 * rb + len(dilations) * (k2 - 1) * rb)
 
 
 def mma_geometry(c: int, kernel_size: int, kernel_size2: int,
                  dilations: Sequence[int]) -> MmaGeometry:
-    """How csrc/folded_stack_mma.cu runs these units: one block of 16 warps
-    per SM with the largest tile, a multiple of MMA_STEP up to
-    MMA_MAX_TILE, whose samples and halo fit the block's shared memory.
-    Raises ValueError where no tile fits beside the halo."""
+    """How csrc/folded_stack_mma.cu runs these units: on wgmma for the
+    MMA_WG_SHAPES at cp = 32 (whole warpgroups), else mma.sync; two blocks
+    per SM of MMA_PAIR_WARPS warps (tiles of 256 samples) with every unit's
+    weights resident where both fit MMA_PAIR_SMEM; else one block of the
+    most warps (up to MMA_MAX_WARPS; on wgmma, k2 > 1 only, whole
+    warpgroups up to MMA_WG_WARPS) that fit beside every unit's weights, or
+    beside one unit's where all of them do not fit, with the 1x1 second
+    conv in one operand buffer where two do not fit.  Raises ValueError
+    where even one warp's tile does not fit beside the look-back."""
     cp = mma_width(c)
     k, k2 = kernel_size, kernel_size2
     halo = sum((k - 1) * d + k2 - 1 for d in dilations)
-    fixed = mma_smem(cp, k, k2, 0)
-    rows = (BLOCK_SMEM - fixed) // (mma_smem(cp, k, k2, 1) - fixed)
-    tile = min(MMA_MAX_TILE, (rows - halo) // MMA_STEP * MMA_STEP)
-    if tile < MMA_STEP:
-        raise ValueError(
-            f"csrc/folded_stack_mma.cu: a halo of {halo} samples (k={k}, "
-            f"k2={k2}, dilations={tuple(dilations)}) leaves no tile of "
-            f"{MMA_STEP} samples in a block's {BLOCK_SMEM} bytes of shared "
-            f"memory at C={c}")
-    return MmaGeometry(cp, tile, halo, mma_smem(cp, k, k2, tile + halo))
+    wg = cp == 32 and (k, k2) in MMA_WG_SHAPES
+
+    def geometry(wgmma, warps, resident, blocks, ybufs=2):
+        tile = warps * MMA_WARP_ROWS
+        return MmaGeometry(cp, warps, tile, halo, resident, blocks,
+                           mma_smem(cp, k, k2, dilations, resident, tile,
+                                    ybufs), wgmma, ybufs)
+
+    for wgmma in (True, False) if wg else (False,):
+        g = geometry(wgmma, MMA_PAIR_WARPS, True, 2)
+        if g.smem <= MMA_PAIR_SMEM:
+            return g
+        if wgmma and k2 == 1:  # its launch bounds keep two blocks' registers
+            continue
+        most, step = (MMA_WG_WARPS, 4) if wgmma else (MMA_MAX_WARPS, 1)
+        for resident in (True, False):
+            for ybufs in (2, 1) if k2 == 1 else (2,):
+                for warps in range(most, 0, -step):
+                    g = geometry(wgmma, warps, resident, 1, ybufs)
+                    if g.smem <= BLOCK_SMEM:
+                        return g
+    raise ValueError(
+        f"csrc/folded_stack_mma.cu: a halo of {halo} samples (k={k}, "
+        f"k2={k2}, dilations={tuple(dilations)}) leaves no tile of "
+        f"{MMA_WARP_ROWS} samples in a block's {BLOCK_SMEM} bytes of shared "
+        f"memory at C={c}")
+
+
+def mma_split(g: MmaGeometry, b: int, t: int, sms: int) -> MmaSplit:
+    """How one launch cuts (b, t): each row into as many segments as the
+    SMs' blocks (g.blocks per SM) hold rows of, at most one per tile, each
+    a whole number of tiles; a segment's stream starts its halo, rounded up
+    to tiles, early.  One block per work item while they fit the card, each
+    then walking its segment's tiles."""
+    def tiles(n):  # whole tiles covering n samples
+        return -(-n // g.tile)
+
+    slots = g.blocks * sms
+    nseg = max(1, min(slots // b, tiles(t)))
+    seg = tiles(-(-t // nseg)) * g.tile
+    nseg = -(-t // seg)
+    return MmaSplit(seg, nseg, tiles(g.halo) * g.tile, min(b * nseg, slots))
 
 
 class UnitGeometry(NamedTuple):
@@ -1039,15 +1157,18 @@ def _mma_stack(x, unit_params, dilations, kernel_size, kernel_size2, act,
         raise ValueError(f"csrc/folded_stack_mma.cu takes up to "
                          f"{MMA_MAX_UNITS} units, got {n} ({shape})")
     g = mma_geometry(c, kernel_size, kernel_size2, dilations)
-    w1, w2, bias = _packed_mma(unit_params, biases, c, g.cp)
+    sp = mma_split(g, b, t, _sm_count(x.device.index))
+    w, bias = _packed_mma_taps(unit_params, biases, c, g.cp, g.wgmma)
     dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _mma_kernel()(
-            x.data_ptr(), out.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            x.data_ptr(), out.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), b, c, t, g.cp, n, dil,
             kernel_size, kernel_size2, MMA_ACT[act], float(act_param),
-            g.tile, int(x.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), g.warps, int(g.wgmma),
+            int(g.resident), g.ybufs,
+            sp.seg, sp.nseg, sp.warm, sp.grid,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tensor-core residual stack kernel ({shape}): "

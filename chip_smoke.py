@@ -416,12 +416,20 @@ and power limit where it times anything:
 `python3 chip_smoke.py modules` runs, after the build, main_path,
 cli_path, these four phases and batchfold_path.
 
+`python3 chip_smoke.py mma` builds csrc/folded_stack_mma.cu alone, runs
+`mma_kernel_vs_plain` and then `mma_parent_ab`: the streamed kernel timed
+against the one-block-per-SM kernel it replaced (PARENT_MMA_COMMIT's
+source, from git or placed beforehand in build/parent_mma/ where the
+checkout has no git, and refused unless its sha256 is PARENT_MMA_SHA256).
+
 Needs only torch, numpy and the repo's `audiodec_tpu_torch` package (no
 JAX, no PyYAML) and nvcc; the builds go to build/audiodec_tpu_torch/.
 """
 
 import contextlib
+import ctypes
 import gc
+import hashlib
 import io
 import json
 import shutil
@@ -671,6 +679,29 @@ MMA_OTHER_SHAPES = {
     "elu k=k2=3, biases": ("elu", 3, 3, True, (1, 3, 5)),
     "leaky_relu k=k2=5, biases": ("leaky_relu", 5, 5, True, (1, 3, 5)),
 }
+# the streamed tensor-core kernel: a look-back longer than a tile
+# (dilation 150: 900 samples, with one operand buffer), and a stack whose
+# weights do not all fit in shared memory, staged one unit at a time (six
+# k = 11 units, on wgmma)
+MMA_STREAM_SHAPES = {
+    "elu, dilation 150": ("elu", 7, 1, False, (1, 150)),
+    "leaky_relu k=k2=11, six units, biases": (
+        "leaky_relu", 11, 11, True, (1, 3, 5, 1, 3, 5)),
+}
+# the A/B against the kernel the streamed one replaced: the commit that
+# holds it last and its sha256, where it is built, its launch interface
+# (x, out, w1, w2, bias, B, C, T, cp, n_units, dil, k, k2, act, slope,
+# tile, storage_bf16, stream) and its planner's tiles for the shipped unit
+# shapes (cp, k, k2), dilations DILATIONS and VOC_DILATIONS
+PARENT_MMA_COMMIT = "c78f23f"
+PARENT_MMA_SHA256 = ("f8b0fbc1e8d78370c4d5d1bb44da71aa"
+                     "99dffdbf99851add67bb4be2795e3819")
+PARENT_MMA = ROOT / "build" / "parent_mma"
+PARENT_MMA_TILES = {(32, 7, 1): 896, (16, 7, 1): 1024, (32, 11, 11): 576}
+PARENT_MMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
 # the tensor-core kernel's launch counts, by unit shape
 MMA_COUNTERS = {"autoencoder": "mma", "vocoder": "mma_voc",
                 "other": "mma_other"}
@@ -1008,7 +1039,11 @@ def phase_mma_kernel_vs_plain(params, device):
     units at k = 3, 7, 11 with and without biases; the unit shapes no
     shipped config uses (MMA_OTHER_SHAPES) at C = 8 and 32; each of these
     in f32 and bf16 storage; and at full size (16, 32, 480000) the
-    autoencoder units in f32 and bf16 and the vocoder units in bf16.
+    autoencoder units in f32 and bf16 and the vocoder units in bf16.  For
+    the streamed design: T = 250 (under one tile) and 513 (one past two),
+    B = 1, B = 300 (more rows than the card's blocks, so a block walks
+    several items), a look-back longer than a tile and weights staged one
+    unit at a time (MMA_STREAM_SHAPES).
     Returns the launch counts of the phase and the `kernels` line's rows of
     the other shapes: two of them timed at full size in bf16."""
     t0 = time.perf_counter()
@@ -1053,6 +1088,23 @@ def phase_mma_kernel_vs_plain(params, device):
                 x = torch.randn(2, c, t, generator=gen,
                                 device=device).to(dtype)
                 case(x, units, kw, stack=name)
+    for bsz, t in ((8, 250), (2, 513), (1, 48001), (300, 4801)):
+        for dtype in storages:
+            x = torch.randn(bsz, 32, t, generator=gen, device=device) \
+                .to(dtype)
+            case(x, random_units(32, device, dtype, gen), {},
+                 stack="autoencoder")
+            units, kw = shape_units(32, "leaky_relu", 11, 11, True,
+                                    VOC_DILATIONS, device, dtype, gen)
+            case(x, units, kw, stack="vocoder k=11")
+    for name, (act, k, k2, bias, dil) in MMA_STREAM_SHAPES.items():
+        for c, t in ((8, 1920), (32, 4801)):
+            for dtype in storages:
+                units, kw = shape_units(c, act, k, k2, bias, dil, device,
+                                        dtype, gen)
+                x = torch.randn(2, c, t, generator=gen, device=device) \
+                    .to(dtype)
+                case(x, units, kw, stack=name)
     b, c, t = BATCH, 32, SECONDS * SR
     for dtype, where in ((torch.float32, "encoder"),
                          (torch.bfloat16, "decoder")):
@@ -1086,6 +1138,102 @@ def phase_mma_kernel_vs_plain(params, device):
          short_cases_pooled=check_pool(pool), launches=launches, cases=cases,
          other_shape_rows=rows)
     return launches, rows
+
+
+def parent_mma_kernel():
+    """The replaced kernel (PARENT_MMA_COMMIT's csrc/folded_stack_mma.cu)
+    built into PARENT_MMA, its source from git or a copy already there.
+    Exits where neither is at hand or the source is another."""
+    src = PARENT_MMA / "folded_stack_mma.cu"
+    path = "audiodec_tpu_torch/csrc/folded_stack_mma.cu"
+    if not src.exists() and shutil.which("git"):
+        proc = subprocess.run(["git", "show", f"{PARENT_MMA_COMMIT}:{path}"],
+                              cwd=ROOT, capture_output=True)
+        if proc.returncode == 0:
+            PARENT_MMA.mkdir(parents=True, exist_ok=True)
+            src.write_bytes(proc.stdout)
+    if not src.exists():
+        sys.exit(f"chip_smoke mma: no {src}: place {PARENT_MMA_COMMIT}'s "
+                 f"{path} there")
+    if hashlib.sha256(src.read_bytes()).hexdigest() != PARENT_MMA_SHA256:
+        sys.exit(f"chip_smoke mma: {src} is not {PARENT_MMA_COMMIT}'s "
+                 f"{path}, whose launch interface PARENT_MMA_ARGS states")
+    lib = PARENT_MMA / "libfolded_stack_mma.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).folded_stack_mma_forward
+    fn.argtypes = PARENT_MMA_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase_mma_parent_ab(params, device):
+    """The shipped unit shapes at full size (16, C, 480000), ms of one call
+    of the replaced kernel (parent_mma_kernel) and of this one, in turns
+    (parent, new, new, parent), 5 calls each: at C = 32 the autoencoder
+    units with the golden's weights in f32 (encoder block 0) and bf16
+    storage (decoder block 3) and the vocoder units at k = 11 in bf16; at
+    C = 16 (the C = 16 autoencoder's first encoder and last decoder
+    blocks) seeded autoencoder units in f32 and bf16.  With each output's
+    relative L2 from the plain version and whether the two outputs are
+    equal bit for bit."""
+    t0 = time.perf_counter()
+    parent = parent_mma_kernel()
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    b, t = BATCH, SECONDS * SR
+    rows = []
+    for name, c, dtype in (("autoencoder, golden encoder", 32, torch.float32),
+                           ("autoencoder, golden decoder", 32, torch.bfloat16),
+                           ("vocoder k=11", 32, torch.bfloat16),
+                           ("autoencoder", 16, torch.float32),
+                           ("autoencoder", 16, torch.bfloat16)):
+        x = torch.randn(b, c, t, generator=gen, device=device).to(dtype)
+        if name.startswith("vocoder"):
+            units, kw = shape_units(c, "leaky_relu", 11, 11, True,
+                                    VOC_DILATIONS, device, dtype, gen)
+        elif c == 32:
+            where = "encoder" if dtype == torch.float32 else "decoder"
+            units, kw = stack_units(params, where, device, dtype), {}
+        else:
+            units, kw = random_units(c, device, dtype, gen), {}
+        cp = folded_stack.mma_width(c)
+        k, k2 = units[0][0].shape[-1], units[0][1].shape[-1]
+        dil = kw.get("dilations", DILATIONS)
+        biases = kw.get("biases")
+        w1, w2, bias = folded_stack._packed_mma(units, biases, c, cp)
+        cdil = (ctypes.c_int * len(dil))(*dil)
+        out = torch.empty_like(x)
+
+        def old():
+            err = parent(x.data_ptr(), out.data_ptr(), w1.data_ptr(),
+                         w2.data_ptr(),
+                         None if bias is None else bias.data_ptr(), b, c, t,
+                         cp, len(dil), cdil, k, k2,
+                         folded_stack.MMA_ACT[kw.get("act", "elu")],
+                         float(kw.get("act_param", 0.0)),
+                         PARENT_MMA_TILES[cp, k, k2],
+                         int(dtype == torch.bfloat16),
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"parent kernel: CUDA error {err}")
+            return out
+
+        def new():
+            return folded_stack.folded_residual_stack(x, units, **kw)
+
+        ref = plain_of(x, units, kw)
+        rl2 = {"parent_rel_l2": (sq(old(), ref) / sq(ref)) ** 0.5,
+               "new_rel_l2": (sq(new(), ref) / sq(ref)) ** 0.5,
+               "bit_equal": torch.equal(old(), new())}
+        ms = [cuda_ms(fn, reps=5) for fn in (old, new, new, old)]
+        rows.append({"units": name, "shape": [b, c, t],
+                     "storage": str(dtype)[6:], "parent_ms": [ms[0], ms[3]],
+                     "new_ms": [ms[1], ms[2]], **rl2,
+                     "bound_ms": kernel_bounds.mma_stack(
+                         b, t, c, k=k, k2=k2, storage=x.element_size(),
+                         bias=biases is not None, units=len(dil))["bound_ms"]})
+        del x, out, ref
+    emit("mma_parent_ab", t0, commit=PARENT_MMA_COMMIT, rows=rows)
 
 
 def phase_golden(device):
@@ -5132,7 +5280,7 @@ def module_phases(device, card: str, params, x, idx_main) -> dict:
     return launches
 
 
-def phase_build():
+def phase_build(kernels=KERNELS):
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
 
@@ -5142,8 +5290,8 @@ def phase_build():
         _build.load(name)
         return {"library": str(lib), "seconds": time.perf_counter() - t1}
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = dict(zip(kernels, pool.map(build, kernels)))
     emit("build", t0, kernels=built)
 
 
@@ -5180,9 +5328,10 @@ def summed(rows, key):
 
 
 def main():
-    if sys.argv[1:] not in ([], ["train"], ["parallel"], ["modules"]):
+    if sys.argv[1:] not in ([], ["train"], ["parallel"], ["modules"],
+                            ["mma"]):
         sys.exit("usage: python3 chip_smoke.py [train | parallel | "
-                 "modules]")
+                 "modules | mma]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -5197,6 +5346,12 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvidia_smi=card)
 
+    if sys.argv[1:] == ["mma"]:
+        phase_build(("folded_stack_mma",))
+        params = load_golden("gen_symad_trained")[1]
+        phase_mma_kernel_vs_plain(params, device)
+        phase_mma_parent_ab(params, device)
+        return
     phase_build()
     if sys.argv[1:] == ["train"]:
         train_phases(device, card)

@@ -273,32 +273,188 @@ def test_mma_pack_is_cached_until_changed():
     assert not torch.equal(port._packed_mma(tu, tb, 8, 16)[2], first[2])
 
 
-@pytest.mark.parametrize("k,k2,dilations,cp,tile", [
-    (7, 1, (1, 3, 9), 32, 896),                # the autoencoder units
-    (11, 11, (1, 3, 5), 32, 576),              # the vocoder units at k = 11
-    (3, 3, (1, 3, 5), 32, 736),                # ... at k = 3
-    (7, 1, (1, 3, 9, 27), 16, 1024),           # four units, C <= 16
+def test_mma_frag_pack_is_the_lanes_b_fragments():
+    """csrc/folded_stack_mma.cu's weights for mma.sync: lane 4 g + t of n8
+    tile nt holds, by kk then h, the input channels 16 kk + 8 h + 2 t (+1)
+    of output channel 8 nt + g, the first conv's taps then the second's,
+    zero-padded from C to cp; cached like the other packs."""
+    for name, c, cp in (("leaky_k5_k2_5", 20, 32), ("elu_four_units", 8, 16)):
+        units, biases = _units(name, c, seed=4)
+        tu, tb = _torch_units(units, biases)
+        w, b = port._packed_mma_taps(tu, tb, c, cp, False)
+        w1, w2, b_ref = port._pack_mma(tu, tb, c, cp, True)
+        taps = torch.cat([w1, w2], 1).float()
+        assert tuple(w.shape) == (len(tu), taps.shape[1], cp // 8, 32,
+                                  cp // 4)
+        g, t = np.divmod(np.arange(32), 4)
+        for kk in range(cp // 16):
+            for h in range(2):
+                for e in range(2):
+                    ci = 16 * kk + 8 * h + 2 * t + e
+                    co = 8 * np.arange(cp // 8)[:, None] + g[None, :]
+                    want = taps[:, :, co, ci[None, :]]
+                    assert torch.equal(w[..., 4 * kk + 2 * h + e].float(),
+                                       want)
+        assert (b is None) == (b_ref is None)
+        assert b is None or torch.equal(b, b_ref)
+        assert all(x is y for x, y in
+                   zip((w, b), port._packed_mma_taps(tu, tb, c, cp, False)))
+
+
+def test_mma_wgmma_pack_is_k_major_core_matrices():
+    """csrc/folded_stack_mma.cu's weights for wgmma: each tap's B as
+    K-major core matrices of 8 output x 8 input channels (128 bytes), the
+    one of input block kb and output block nb at kb * cp / 8 + nb, as its
+    no-swizzle descriptor reads them (k-adjacent 512 bytes apart,
+    n-adjacent 128); cached apart from the mma.sync pack."""
+    units, biases = _units("leaky_k5_k2_5", 20, seed=5)
+    tu, tb = _torch_units(units, biases)
+    w, _ = port._packed_mma_taps(tu, tb, 20, 32, True)
+    w1, w2, _ = port._pack_mma(tu, tb, 20, 32, True)
+    taps = torch.cat([w1, w2], 1)
+    flat = w.reshape(len(tu), taps.shape[1], -1)
+    co, ci = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    off = ((ci // 8) * 4 + co // 8) * 64 + (co % 8) * 8 + ci % 8
+    assert torch.equal(flat[:, :, torch.from_numpy(off)], taps)
+    assert w is not port._packed_mma_taps(tu, tb, 20, 32, False)[0]
+
+
+def _mma_smem(cp, k, k2, dilations, resident, tile, ybufs=2):
+    """csrc/folded_stack_mma.cu's buffers summed: the weights and biases of
+    every unit (or one), the tile buffers each behind its longest look-back
+    (the first conv's operand `ybufs` times with a 1x1 second conv), one
+    look-back per conv."""
+    rb = (cp + 8) * 2
+    units = len(dilations) if resident else 1
+    h1 = [(k - 1) * d for d in dilations]
+    bufs = (ybufs * (tile + max(h1)) if k2 == 1
+            else 2 * tile + max(h1) + k2 - 1)
+    return (units * ((k + k2) * cp * cp * 2 + 2 * cp * 4) + bufs * rb
+            + sum(h1) * rb + len(dilations) * (k2 - 1) * rb)
+
+
+@pytest.mark.parametrize("k,k2,dilations,cp,warps,resident,blocks,wgmma", [
+    (7, 1, (1, 3, 9), 32, 8, True, 2, True),        # the autoencoder units
+    (11, 11, (1, 3, 5), 32, 12, True, 1, True),     # the vocoder units, k = 11
+    (3, 3, (1, 3, 5), 32, 8, True, 2, False),       # ... at k = 3
+    (7, 1, (1, 3, 9, 27), 16, 8, True, 2, False),   # four units, C <= 16
+    (7, 1, (1, 64), 32, 16, True, 1, False),        # a look-back past a tile
+    (11, 11, (1, 3, 5, 1, 3, 5), 32, 12, False, 1, True),  # a unit at a time
 ])
-def test_mma_geometry(k, k2, dilations, cp, tile):
-    """One block per SM with the largest tile of whole warp steps (up to
-    MMA_MAX_TILE) whose samples and halo fit the block's 227 KB; the
-    shared memory sums csrc/folded_stack_mma.cu's buffers."""
+def test_mma_geometry(k, k2, dilations, cp, warps, resident, blocks, wgmma):
+    """Two blocks of 8 warps (tiles of 256 samples) per SM with every
+    unit's weights resident where both fit half the SM; else one block of
+    the most warps that fit (whole warpgroups up to 12 on wgmma, which
+    takes k2 = 1 only in the pair); one unit's weights at a time only where
+    all of them do not fit; wgmma for the unrolled shapes (k = 7 with a 1x1
+    second conv, k = k2 = 11) at cp = 32.  The shared memory sums
+    csrc/folded_stack_mma.cu's buffers."""
     c = 32 if cp == 32 else 8
     g = port.mma_geometry(c, k, k2, dilations)
     halo = sum((k - 1) * d + k2 - 1 for d in dilations)
-    assert (g.cp, g.tile, g.halo) == (cp, tile, halo)
-    rs, vs = cp + 8, cp + 1
-    per_row = rs * 2 * (1 if k2 == 1 else 2) + vs * 4
-    taps = (k + 1 if k2 == 1 else max(k, k2)) * cp * rs * 2
-    assert g.smem == (tile + halo) * per_row + taps + 2 * cp * 4
-    assert g.smem <= port.BLOCK_SMEM
-    assert (tile == port.MMA_MAX_TILE
-            or port.BLOCK_SMEM < g.smem + port.MMA_STEP * per_row)
+    assert (g.cp, g.warps, g.tile, g.halo, g.resident, g.blocks,
+            g.wgmma) == (cp, warps, warps * port.MMA_WARP_ROWS, halo,
+                         resident, blocks, wgmma)
+    assert g.smem == _mma_smem(cp, k, k2, dilations, resident, g.tile)
+    assert g.smem <= (port.MMA_PAIR_SMEM if blocks == 2
+                      else port.BLOCK_SMEM)
+    if blocks == 1:
+        assert _mma_smem(cp, k, k2, dilations, True, 256) \
+            > port.MMA_PAIR_SMEM
+        most, step = ((port.MMA_WG_WARPS, 4) if wgmma
+                      else (port.MMA_MAX_WARPS, 1))
+        assert warps == most or _mma_smem(
+            cp, k, k2, dilations, resident,
+            (warps + step) * port.MMA_WARP_ROWS) > port.BLOCK_SMEM
+    if not resident:
+        assert _mma_smem(cp, k, k2, dilations, True, 128) > port.BLOCK_SMEM
 
 
 def test_mma_geometry_raises_where_the_halo_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         port.mma_geometry(32, 11, 11, (64, 128, 256))
+
+
+# the C <= 32 stacks of the shipped configs: symAD's encoder block 0 and
+# decoder block 3 (C = 32; C = 16 in symAD_c16_vctk_48000_hop320), and the
+# vocoders' last stage (C = 512 / 16 = 32) at each resblock kernel size of
+# AudioDec v0-v3, dilations 1, 3, 5
+@pytest.mark.parametrize("c,k,k2,dilations,warps,blocks,wgmma", [
+    (32, 7, 1, (1, 3, 9), 8, 2, True),
+    (16, 7, 1, (1, 3, 9), 8, 2, False),
+    (32, 11, 11, (1, 3, 5), 12, 1, True),
+    (32, 7, 7, (1, 3, 5), 16, 1, False),
+    (32, 3, 3, (1, 3, 5), 8, 2, False),
+])
+def test_mma_geometry_of_the_shipped_stacks(c, k, k2, dilations, warps,
+                                            blocks, wgmma):
+    """Every shipped config's C <= 32 stack keeps all its units' weights in
+    shared memory within the 232,448 bytes a block may use, with 16 warps
+    an SM or 12: two blocks of 8 (each one's loads and barriers under the
+    other's work) where they fit, else one block of the most warps; the
+    taps of k = 7 (1x1 second conv) and k = k2 = 11 on wgmma."""
+    g = port.mma_geometry(c, k, k2, dilations)
+    assert g.smem <= port.BLOCK_SMEM and g.resident
+    assert (g.warps, g.blocks, g.wgmma) == (warps, blocks, wgmma)
+    assert g.warps * g.blocks >= 12
+
+
+def _old_mma_tile(cp, k, k2, dilations):
+    """The tile of the kernel this one replaced (one block of halo and
+    tile per SM, f32 v in shared memory), or 0 where it raised."""
+    rs, vs = cp + 8, cp + 1
+    wtaps = k + 1 if k2 == 1 else max(k, k2)
+    halo = sum((k - 1) * d + k2 - 1 for d in dilations)
+
+    def smem(rows):
+        return (2 * (wtaps * cp * rs + rows * rs * (1 if k2 == 1 else 2))
+                + 4 * (2 * cp + rows * vs))
+
+    rows = (port.BLOCK_SMEM - smem(0)) // (smem(1) - smem(0))
+    tile = min(1024, (rows - halo) // 32 * 32)
+    return tile if tile >= 32 else 0
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_mma_geometry_takes_every_shape_the_old_kernel_took(c):
+    """No unit shape that the kernel before the streamed design took is
+    refused now: k = 1-11, k2 = 1 or 3 or k, one to 12 units, dilations up
+    to 150 (the longest look-backs with one operand buffer)."""
+    dil_sets = [(1,), (1, 3, 9), (1, 3, 9, 27), (1, 64), (81,), (150,),
+                (1, 3, 5) * 4, (40, 80), (1, 2, 4, 8, 16, 32, 64)]
+    for k in (1, 2, 3, 5, 7, 11):
+        for k2 in sorted({1, 3, k}):
+            for dil in dil_sets:
+                cp = port.mma_width(c)
+                if not _old_mma_tile(cp, k, k2, dil):
+                    continue
+                g = port.mma_geometry(c, k, k2, dil)
+                assert g.smem <= port.BLOCK_SMEM, (k, k2, dil)
+                assert g.smem == _mma_smem(cp, k, k2, dil, g.resident,
+                                           g.tile, g.ybufs)
+
+
+@pytest.mark.parametrize("shape,b,t,want", [
+    ((7, 1, (1, 3, 9)), 16, 480000, (30208, 16, 256, 256)),
+    ((11, 11, (1, 3, 5)), 16, 480000, (60288, 8, 384, 128)),
+    ((11, 11, (1, 3, 5)), 1, 480000, (3840, 125, 384, 125)),
+    ((7, 1, (1, 3, 9)), 2, 50, (256, 1, 256, 2)),
+    ((7, 1, (1, 3, 9)), 300, 4801, (4864, 1, 256, 264)),
+    ((7, 1, (1, 64)), 2, 513, (512, 2, 512, 4)),
+])
+def test_mma_split(shape, b, t, want):
+    """Each row cut into whole tiles' segments, as many as the card's
+    blocks hold rows of (132 SMs), at most one per tile; each stream starts
+    its halo, in whole tiles, before its segment; the segments cover the
+    row once; one block per item while they fit the card."""
+    k, k2, dilations = shape
+    g = port.mma_geometry(32, k, k2, dilations)
+    sp = port.mma_split(g, b, t, 132)
+    assert (sp.seg, sp.nseg, sp.warm, sp.grid) == want
+    assert sp.seg % g.tile == 0 and sp.warm % g.tile == 0
+    assert sp.warm >= g.halo
+    assert sp.seg * (sp.nseg - 1) < t <= sp.seg * sp.nseg
+    assert sp.grid == min(b * sp.nseg, g.blocks * 132)
 
 
 @pytest.mark.parametrize("mode,c,bf16_storage,bf16_dots,want", [
