@@ -40,6 +40,7 @@ from audiodec_tpu_torch.ops.conv import (
     conv1d_init,
     conv_transpose1d_init,
 )
+from audiodec_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +168,8 @@ def fusion_bct(p, x, cfg: VocoderConfig, resblock: Resblock):
     grouped resblock as `groups` dense resblocks on weight slices of the
     (untiled) input, as the JAX batch path does: the same math as the
     reference's channel repeat and grouped conv, since each input group is
-    a copy of x.  MultiReceptiveField is the mean of its resblocks."""
+    a copy of x.  MultiReceptiveField is the mean of its resblocks, under
+    the spans `mrf` and `mrf_k<kernel size>` (utils/profiling.py)."""
     if cfg.grouped:
         c = x.shape[1]
         outs = [resblock(group_params(p, g, c), x,
@@ -177,10 +179,12 @@ def fusion_bct(p, x, cfg: VocoderConfig, resblock: Resblock):
         return causal_conv1d(torch.cat(outs, dim=1), p["conv_out"])
     n = len(cfg.resblock_kernel_sizes)
     cs = 0.0
-    for i in range(n):
-        cs = cs + resblock(p["blocks"][i], x, cfg.resblock_kernel_sizes[i],
-                           cfg.resblock_dilations[i], cfg.groups)
-    return cs / n
+    with span("mrf", x.device):
+        for i, k in enumerate(cfg.resblock_kernel_sizes):
+            with span(f"mrf_k{k}", x.device):
+                cs = cs + resblock(p["blocks"][i], x, k,
+                                   cfg.resblock_dilations[i], cfg.groups)
+        return cs / n
 
 
 def _fusion_apply(p, x, cfg: VocoderConfig):

@@ -10,7 +10,8 @@ at any width C.  On the card (`route` picks):
     shape, counted by shape: `mma_launches` (the autoencoder units: ELU,
     k=7, 1x1 second conv, no biases), `mma_voc_launches` (the vocoder
     units: LeakyReLU with slope `act_param`, k = k2 in {3, 7, 11},
-    optional biases) and `mma_other_launches` (any other shape);
+    optional biases; by k in `mma_voc_launches_by_k`) and
+    `mma_other_launches` (any other shape);
   - C > 32 with bf16 operands (`bf16_dots`, or bf16 storage):
     `csrc/wide_stack_mma.cu` (bf16 `mma.sync`, one CUDA launch per unit)
     at every unit shape, C up to 512, counted in `wide_launches`;
@@ -77,7 +78,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -160,6 +161,7 @@ INT8_TILE_WORK = {2: 8192, 4: 16384}
 
 mma_launches = 0        # csrc/folded_stack_mma.cu, autoencoder units
 mma_voc_launches = 0    # csrc/folded_stack_mma.cu, vocoder units
+mma_voc_launches_by_k: Dict[int, int] = {}  # the same, by kernel size k
 mma_other_launches = 0  # csrc/folded_stack_mma.cu, any other unit shape
 wide_launches = 0       # C > 32, bf16 operands, csrc/wide_stack_mma.cu
 resunit_launches = 0    # true f32, FMA, csrc/resunit_stack.cu
@@ -1177,6 +1179,8 @@ def _mma_stack(x, unit_params, dilations, kernel_size, kernel_size2, act,
         mma_launches += 1
     elif mode == "vocoder":
         mma_voc_launches += 1
+        mma_voc_launches_by_k[kernel_size] = (
+            mma_voc_launches_by_k.get(kernel_size, 0) + 1)
     else:
         mma_other_launches += 1
     return out
