@@ -22,6 +22,10 @@ F32, BF16, INT8, INT32 = 4, 2, 1, 4
 # (C, T) of the symAD residual stacks at B=16 x 10 s: encoder block i, and
 # decoder block 3 - i
 SYMAD_STACKS = ((32, SAMPLES), (64, 160000), (128, 40000), (256, 8000))
+# (C, T) of the 48 kHz HiFiGAN vocoders' stages above C = 32 at B=16 x
+# 10 s, whose resblocks (k = k2 = 11 in AD v1; 3, 7 and 11 in AD v0) take
+# csrc/wide_stack_mma.cu in bf16
+VOC_WIDE_STAGES = ((256, 8000), (128, 40000), (64, 160000))
 
 
 def bound_ms(nbytes: float, ops: float, peak: str) -> dict:
@@ -127,6 +131,14 @@ def rows():
                        "(AD v1, per group)", [BATCH, SAMPLES, 32],
                 mma_stack(BATCH, SAMPLES, 32, k=11, k2=11, storage=BF16,
                           bias=True)))
+    # the vocoders' resblocks above C = 32 (csrc/wide_stack_mma.cu)
+    for c, t in VOC_WIDE_STAGES:
+        for k in (11, 7, 3):
+            out.append((stack, f"tensor cores, vocoder units above C = 32, "
+                               f"k={k}, bf16 storage (one resblock)",
+                        [BATCH, t, c],
+                        mma_stack(BATCH, t, c, k=k, k2=k, storage=BF16,
+                                  bias=True)))
     # int8 mode: every symAD decoder stack, f32 storage, int8 dots
     for c, t in reversed(SYMAD_STACKS):
         out.append((stack, f"int8, decoder stack at C={c}", [BATCH, t, c],

@@ -10,8 +10,9 @@ path
 `_decoder_direct`).
 
 The stacks and resblocks that the JAX package sends to its folded kernel go
-to the CUDA kernels; the rest stay plain cuDNN convs.  With int8=True every
-decoder stack, of any width, goes to the kernel's int8 mode.
+to the CUDA kernels, and so do a bf16 vocoder's resblocks above C = 32; the
+rest stay plain cuDNN convs.  With int8=True every decoder stack, of any
+width, goes to the kernel's int8 mode.
 
 The batch folds cut each utterance's time axis into F chunks, each with a
 left halo of real context (parallel/codec.py), and run them as F times the
@@ -46,6 +47,7 @@ from audiodec_tpu_torch.models.vocoder import (
 from audiodec_tpu_torch.ops.activations import get_activation
 from audiodec_tpu_torch.ops.conv import causal_conv1d, causal_conv_transpose1d
 from audiodec_tpu_torch.ops.kernels.folded_stack import (
+    WIDE_CHANNELS,
     folded_residual_stack,
     res_stack_params,
 )
@@ -146,6 +148,16 @@ def _voc_use_folded(cfg: VocoderConfig, c: int, t: int) -> bool:
             and f >= 4 and t % f == 0)
 
 
+def _voc_use_wide(cfg: VocoderConfig, x) -> bool:
+    """A bf16 stage above C = 32 (every dot operand already bf16) takes
+    csrc/wide_stack_mma.cu, the port's own route: JAX's rule sends it to
+    plain convs, and only the order of the f32 sums changes."""
+    return (x.dtype == torch.bfloat16
+            and WIDE_CHANNELS[0] < x.shape[1] <= WIDE_CHANNELS[1]
+            and cfg.use_additional_convs
+            and cfg.nonlinear_activation == "LeakyReLU")
+
+
 def _voc_resblock_folded(p_block, x, *, kernel_size, dilations, slope,
                          bf16_dots):
     units, biases = _voc_resblock_params(p_block)
@@ -159,9 +171,10 @@ def _voc_fusion_auto(p, x, cfg: VocoderConfig, bf16_dots: bool = True):
     """Fusion block (MultiGroupConv1d: the groups' dense resblocks on weight
     slices; MultiReceptiveField: the mean of its resblocks) with the
     resblocks in the kernel where the JAX package uses its folded kernel,
-    plain convs otherwise.  x: (B, C, T)."""
+    and in a bf16 vocoder above C = 32 (`_voc_use_wide`); plain convs
+    otherwise.  x: (B, C, T)."""
     _, c, t = x.shape
-    if not _voc_use_folded(cfg, c, t):
+    if not (_voc_use_folded(cfg, c, t) or _voc_use_wide(cfg, x)):
         return _fusion_apply(p, x, cfg)
     slope = dict(cfg.nonlinear_activation_params).get("negative_slope", 0.01)
 
@@ -175,7 +188,8 @@ def _voc_fusion_auto(p, x, cfg: VocoderConfig, bf16_dots: bool = True):
 
 def vocoder_apply_folded(p, c, cfg: VocoderConfig, bf16_dots: bool = True):
     """Batch vocoder decode with its low-channel, high-rate resblocks in
-    the kernel.  c: (B, T, D) codes -> (B, T * hop, out_channels)."""
+    the kernel, and in bf16 its resblocks above C = 32 too.  c: (B, T, D)
+    codes -> (B, T * hop, out_channels)."""
     fusion = partial(_voc_fusion_auto, bf16_dots=bf16_dots)
     return vocoder_bct(p, c.transpose(1, 2), cfg, fusion).transpose(1, 2)
 

@@ -13,8 +13,9 @@ at any width C.  On the card (`route` picks):
     optional biases; by k in `mma_voc_launches_by_k`) and
     `mma_other_launches` (any other shape);
   - C > 32 with bf16 operands (`bf16_dots`, or bf16 storage):
-    `csrc/wide_stack_mma.cu` (bf16 `mma.sync`, one CUDA launch per unit)
-    at every unit shape, C up to 512, counted in `wide_launches`;
+    `csrc/wide_stack_mma.cu` (bf16 `wgmma`, streamed tiles, one CUDA launch
+    per unit) at every unit shape, C up to 512, counted in
+    `wide_launches`;
   - true f32 (f32 storage, `bf16_dots=False`), any C and any unit shape
     and count: `csrc/resunit_stack.cu` (f32 FMA, one CUDA launch per unit,
     the archived stack's kernel), counted in `resunit_launches`;
@@ -127,16 +128,22 @@ UNIT_TM, UNIT_TN = 16, 8
 UNIT_THREADS = 256
 UNIT_KC = (16, 8, 4, 2, 1)
 UNIT_ACT = {"elu_exp": 0, "elu": 1, "leaky_relu": 2}
-# csrc/wide_stack_mma.cu: the samples a warp row takes (4 m16 tiles), a
-# warp's output channels, the most warps and samples a block has, and the
-# stage widths (input channels), largest first.  (Chosen on the card,
-# PERF.md §6: at C = 64, 8 warps over 256 samples, two blocks per SM, ran
-# faster than 16 warps over 512.)
-WIDE_WARP_ROWS = 64
-WIDE_WARP_N = 32
-WIDE_MAX_WARPS = 16
-WIDE_MAX_ROWS = 256
-WIDE_KC = (128, 64, 32)
+# csrc/wide_stack_mma.cu: the output channels of one wgmma (its M, the
+# multiple the channels are padded to), the samples a consumer warpgroup
+# takes (in wgmmas of 64, the larger preferred), the most consumer
+# warpgroups of a block, the input channels of a weight stage, and the
+# fewest and most ring stages
+WIDE_M = 64
+WIDE_CHANNELS = (32, 512)   # it takes 32 < C <= 512
+WIDE_N = (128, 64)
+WIDE_MAX_WG = 2
+WIDE_KC = 64
+WIDE_MIN_STAGES, WIDE_MAX_STAGES = 2, 8
+# bytes of a warpgroup's epilogue staging (32 channels x 72 f32), and the
+# rows the first conv's operand holds beyond the tile and its look-back
+# (its rows start at a multiple of 4 samples, for 16-byte loads along time)
+WIDE_EPILOGUE = 32 * 72 * 4
+WIDE_ALIGN = 4
 
 INT8_QMAX = 127.0
 # csrc/int8_mma_stack.cu: each warp owns INT8_MMA_MT M tiles of 16 folded
@@ -551,7 +558,7 @@ def _wide_kernel():
     fn = _build.load("wide_stack_mma").wide_stack_forward
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -582,7 +589,8 @@ def _pack_biases(biases, c: int, cp: int):
 
 
 def _pack_mma(unit_params, biases, c: int, cp: int, _rounded: bool):
-    """csrc/folded_stack_mma.cu's and csrc/wide_stack_mma.cu's operands:
+    """csrc/folded_stack_mma.cu's operands before their fragment orders
+    (and the replaced wide kernel's, which chip_smoke.py times against):
     each conv's taps as (n, k, cp, cp) bf16 [u][tap][c_out][c_in],
     zero-padded from C to cp channels, and the biases (`_pack_biases`)."""
     def taps(ws):
@@ -624,6 +632,25 @@ def _pack_mma_wg(unit_params, biases, c: int, cp: int, _rounded: bool):
     # [u, tap, nb, i, kb, e] -> [u, tap, kb, nb, i, e]
     w = w.reshape(n, taps, cp // 8, 8, cp // 8, 8).permute(0, 1, 4, 2, 3, 5)
     return w.contiguous(), bias
+
+
+def _pack_wide(unit_params, biases, c: int, cp: int, _rounded: bool):
+    """csrc/wide_stack_mma.cu's operands: each conv as (n, cp / 64, k,
+    cp / 8, 8, 8, 8) bf16, zero-padded from C to cp channels: for each 64
+    output channels (its wgmma's M) and tap, the 8 x 8 core matrices of 8
+    output x 8 input channels, input channels outer, so that a weight stage
+    (WIDE_KC input channels of one tap) is one contiguous run whose core
+    matrices lie 128 bytes apart in M and 1024 in K; and the biases
+    (`_pack_biases`)."""
+    w1, w2, bias = _pack_mma(unit_params, biases, c, cp, _rounded)
+
+    def blocks(w):
+        n, taps = w.shape[:2]
+        # [u, tap, ob, mb, o, kb, i] -> [u, ob, tap, kb, mb, o, i]
+        w = w.reshape(n, taps, cp // WIDE_M, WIDE_M // 8, 8, cp // 8, 8)
+        return w.permute(0, 2, 1, 5, 3, 4, 6).contiguous()
+
+    return blocks(w1), blocks(w2), bias
 
 
 def _pack_unit(unit_params, biases, c: int, cp: int, _rounded: bool):
@@ -727,6 +754,11 @@ def _packed_mma_taps(unit_params, biases, c: int, cp: int, wgmma: bool):
     return cached_pack(_pack_mma_wg if wgmma else _pack_mma_frag,
                        _unit_tensors(unit_params, biases), c, cp, True,
                        unit_params, biases)
+
+
+def _packed_wide(unit_params, biases, c: int, cp: int):
+    return cached_pack(_pack_wide, _unit_tensors(unit_params, biases), c, cp,
+                       True, unit_params, biases)
 
 
 def _packed_unit(unit_params, biases, c: int, cp: int):
@@ -949,62 +981,88 @@ def unit_geometry(c: int, kernel_size: int, kernel_size2: int,
 
 
 class WideGeometry(NamedTuple):
-    """A launch of csrc/wide_stack_mma.cu: channels padded to cp, blocks
-    of `warps` warps (warps_m along time x cp / 32 along the channels) that
-    run the first conv over `rows` samples and write `tile` output samples
-    behind a halo of look-back, weight stages of kc input channels in
-    `buffers` ring buffers, the block's shared memory in bytes, and the
-    CUDA launches per wrapper call (one per unit)."""
+    """A launch of csrc/wide_stack_mma.cu: channels padded to cp, blocks of
+    `warpgroups` consumer warpgroups of `n` samples each (a tile of `tile`
+    samples) and one producer warpgroup, stepping through time with the
+    look-back of a unit's first conv restaged and its second conv's
+    carried, weight stages of WIDE_KC input channels in `stages` ring
+    stages, the block's shared memory in bytes, and the CUDA launches per
+    wrapper call (one per unit)."""
     cp: int
-    warps_m: int
-    warps: int
-    rows: int
+    n: int
+    warpgroups: int
     tile: int
     halo: int
-    kc: int
-    buffers: int
+    stages: int
     smem: int
     launches: int
 
 
-def wide_smem(cp: int, yrows: int, kc: int, buffers: int) -> int:
+class WideSplit(NamedTuple):
+    """The work of one launch of csrc/wide_stack_mma.cu: each batch row cut
+    into `nseg` segments of `seg` samples (whole tiles), walked by `grid`
+    blocks; a segment after a row's first starts with one tile of the first
+    conv alone, for the second conv's look-back."""
+    seg: int
+    nseg: int
+    grid: int
+
+
+def wide_smem(cp: int, yrows: int, arows: int, warpgroups: int,
+              stages: int) -> int:
     """Shared memory of a block (csrc/wide_stack_mma.cu `smem_bytes`): the
-    staged act(v), later a2, as `yrows` bf16 rows of cp + 8, and the ring
-    of weight stages, cp bf16 rows of kc + 8 each."""
-    return 2 * (yrows * (cp + 8) + buffers * cp * (kc + 8))
+    ring of weight stages (64 output x WIDE_KC input channels of bf16, and
+    two mbarriers each), the first conv's operand act(v) over `yrows` rows
+    and a2 over `arows`, both cp bf16 a row, and each warpgroup's epilogue
+    staging."""
+    return (stages * (WIDE_M * WIDE_KC * 2 + 16) + 2 * cp * (yrows + arows)
+            + warpgroups * WIDE_EPILOGUE)
 
 
 def wide_geometry(c: int, kernel_size: int, kernel_size2: int,
                   dilations: Sequence[int]) -> WideGeometry:
     """How csrc/wide_stack_mma.cu runs these units: channels padded to a
-    multiple of 32, one warp per 32 output channels along them and as many
-    rows of warps (64 samples each) as make up to WIDE_MAX_WARPS warps and
-    WIDE_MAX_ROWS samples;
-    the widest weight stage (WIDE_KC, dividing cp) and the most buffers
-    (3, then 2) that fit beside the staged rows, halving the warp rows
-    where none fits.  Raises ValueError where nothing fits a block's
-    shared memory."""
+    multiple of WIDE_M; the most warpgroups (up to WIDE_MAX_WG), then the
+    first of WIDE_N samples a warpgroup, whose tile, with its rows of
+    look-back (the first conv's at the largest dilation and WIDE_ALIGN,
+    k2 - 1 of a2), leaves room for WIDE_MIN_STAGES weight stages; then as
+    many stages as fit, up to WIDE_MAX_STAGES.  (Two warpgroups of 64
+    samples ran C = 256 1.2-1.3x faster than one of 128: each one's f32
+    adds run under the other's products.)  Raises ValueError where nothing
+    fits a block's shared memory."""
     k, k2, d = kernel_size, kernel_size2, max(dilations)
-    cp = -(-c // WIDE_WARP_N) * WIDE_WARP_N
-    wn = cp // WIDE_WARP_N
+    cp = -(-c // WIDE_M) * WIDE_M
     halo = (k - 1) * d + k2 - 1
-    for wm in range(min(WIDE_MAX_WARPS // wn,
-                        WIDE_MAX_ROWS // WIDE_WARP_ROWS), 0, -1):
-        rows = WIDE_WARP_ROWS * wm
-        if rows <= k2 - 1:
-            break
-        yrows = max(rows + (k - 1) * d, rows + k2 - 1)
-        for kc in (v for v in WIDE_KC if cp % v == 0):
-            for buffers in (3, 2):
-                smem = wide_smem(cp, yrows, kc, buffers)
-                if smem <= BLOCK_SMEM:
-                    return WideGeometry(cp, wm, wm * wn, rows,
-                                        rows - (k2 - 1), halo, kc, buffers,
-                                        smem, len(dilations))
+    for wgs in range(WIDE_MAX_WG, 0, -1):
+        for n in WIDE_N:
+            tile = n * wgs
+            if tile < k2 - 1:
+                continue
+            rows = (tile + (k - 1) * d + WIDE_ALIGN, tile + k2 - 1)
+            fixed = wide_smem(cp, *rows, wgs, 0)
+            stages = min(WIDE_MAX_STAGES,
+                         (BLOCK_SMEM - fixed) // (WIDE_M * WIDE_KC * 2 + 16))
+            if stages >= WIDE_MIN_STAGES and rows[0] < 1 << 14:
+                return WideGeometry(cp, n, wgs, tile, halo, stages,
+                                    wide_smem(cp, *rows, wgs, stages),
+                                    len(dilations))
     raise ValueError(
         f"csrc/wide_stack_mma.cu: a halo of {halo} samples (k={k}, k2={k2}, "
         f"dilations={tuple(dilations)}) leaves no tile in a block's "
         f"{BLOCK_SMEM} bytes of shared memory at C={c}")
+
+
+def wide_split(g: WideGeometry, b: int, t: int, sms: int) -> WideSplit:
+    """How one launch cuts (b, t): each row into as many segments as the
+    SMs (one block each) hold rows of, at most one per tile, each a whole
+    number of tiles; one block per work item while they fit the card."""
+    def tiles(n):  # whole tiles covering n samples
+        return -(-n // g.tile)
+
+    nseg = max(1, min(sms // b, tiles(t)))
+    seg = tiles(-(-t // nseg)) * g.tile
+    nseg = -(-t // seg)
+    return WideSplit(seg, nseg, min(b * nseg, sms))
 
 
 def folded_residual_stack(x: torch.Tensor, unit_params: Sequence, *,
@@ -1101,7 +1159,8 @@ def _wide_stack(x, unit_params, dilations, act, act_param, biases, shape):
     n = len(dilations)
     k, k2 = unit_params[0][0].shape[-1], unit_params[0][1].shape[-1]
     g = wide_geometry(c, k, k2, dilations)
-    w1, w2, bias = _packed_mma(unit_params, biases, c, g.cp)
+    sp = wide_split(g, b, t, _sm_count(x.device.index))
+    w1, w2, bias = _packed_wide(unit_params, biases, c, g.cp)
     dil = (ctypes.c_int * n)(*(int(d) for d in dilations))
     out = torch.empty_like(x)
     # the f32 sum s crosses the launches (storage_residual)
@@ -1113,9 +1172,9 @@ def _wide_stack(x, unit_params, dilations, act, act_param, biases, shape):
             x.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), w1.data_ptr(),
             w2.data_ptr(), None if bias is None else bias.data_ptr(), b, c,
-            t, g.cp, n, dil, k, k2, MMA_ACT[act], float(act_param),
-            g.warps_m, g.kc, g.buffers, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            t, g.cp, n, dil, k, k2, MMA_ACT[act], float(act_param), g.n,
+            g.warpgroups, g.stages, int(x.dtype == torch.bfloat16),
+            sp.seg, sp.nseg, sp.grid, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"wide tensor-core residual stack kernel "
                            f"({shape}): CUDA error {err}")

@@ -416,6 +416,16 @@ and power limit where it times anything:
 `python3 chip_smoke.py modules` runs, after the build, main_path,
 cli_path, these four phases and batchfold_path.
 
+`python3 chip_smoke.py wide` builds csrc/wide_stack_mma.cu and the kernels
+its phases compare, runs `wide_kernel_vs_plain`, `wide_c_kernel_vs_plain`,
+`wide_voc_kernel_vs_plain` (the vocoders' resblocks above C = 32 at their
+own shapes, checked and timed beside their bounds) and `wide_parent_ab`:
+the streamed wgmma kernel timed against the per-unit mma.sync kernel it
+replaced (PARENT_WIDE_COMMIT's source, from git or placed beforehand in
+build/parent_wide/ where the checkout has no git, refused unless its
+sha256 and its header's are PARENT_WIDE_SHA256 and
+PARENT_WIDE_HEADER_SHA256).
+
 `python3 chip_smoke.py mma` builds csrc/folded_stack_mma.cu alone, runs
 `mma_kernel_vs_plain` and then `mma_parent_ab`: the streamed kernel timed
 against the one-block-per-SM kernel it replaced (PARENT_MMA_COMMIT's
@@ -698,6 +708,26 @@ PARENT_MMA_SHA256 = ("f8b0fbc1e8d78370c4d5d1bb44da71aa"
                      "99dffdbf99851add67bb4be2795e3819")
 PARENT_MMA = ROOT / "build" / "parent_mma"
 PARENT_MMA_TILES = {(32, 7, 1): 896, (16, 7, 1): 1024, (32, 11, 11): 576}
+# the vocoders' resblocks above C = 32 (csrc/wide_stack_mma.cu in bf16) at
+# B = 16 x 10 s: (C, T) of AD v1's and AD v0's upsampling stages, and the
+# resblocks' kernel sizes (AD v1: 11; AD v0: 3, 7 and 11)
+WIDE_VOC_STAGES = kernel_bounds.VOC_WIDE_STAGES
+WIDE_VOC_KS = (11, 7, 3)
+# the A/B against the wide kernel the streamed wgmma one replaced: the
+# commit that holds it last, the sha256 of its source and of the header it
+# includes (csrc/wide_mma.cuh, which B4 still uses), where it is built, and
+# its launch interface (x, out, scratch, w1, w2, bias, B, C, T, cp,
+# n_units, dil, k, k2, act, slope, warps_m, kc, nbuf, storage_bf16, stream)
+PARENT_WIDE_COMMIT = "8923040"
+PARENT_WIDE_SHA256 = ("cd777757364b74700fb88be17998503b"
+                      "42b998de88848efb59f4013c6c91a9ef")
+PARENT_WIDE_HEADER_SHA256 = ("38c6273711b1c78506a0bae72da75796"
+                             "97900892a1c14849a297c572ecf0fbbf")
+PARENT_WIDE = ROOT / "build" / "parent_wide"
+PARENT_WIDE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                    + [ctypes.c_float] + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p])
 PARENT_MMA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -1510,10 +1540,11 @@ def phase_ad_v1_path(device, params, x, idx_symad):
     idx, y = tc(x)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != launch_counts(mma=1, mma_voc=3):
+    if launches != launch_counts(mma=1, mma_voc=3, wide=9):
         raise AssertionError(f"kernel launches {launches}, expected 4 of "
                              f"the tensor-core kernel (1 autoencoder and 3 "
-                             f"vocoder units) and no other")
+                             f"vocoder units), 9 of the wide one (3 groups "
+                             f"at each stage above C = 32) and no other")
     check_transcode(idx, y, x, cfg)
     if not torch.equal(idx, idx_symad):
         raise AssertionError("the AD v1 path's indices differ from the "
@@ -1980,6 +2011,154 @@ def phase_wide_c_kernel_vs_plain(device):
                     "int8": f"max error <= {INT8_REL} x peak (bit-equal "
                             f"expected)"},
          cases=cases, timed=times)
+
+
+def phase_wide_voc_kernel_vs_plain(device):
+    """The vocoders' resblocks above C = 32 at their own shapes, B = 16 x
+    10 s at WIDE_VOC_STAGES, k = k2 in WIDE_VOC_KS, dilations 1, 3, 5, seeded
+    biases, LeakyReLU 0.1, bf16 storage: csrc/wide_stack_mma.cu against its
+    plain version at check_wide's bars, each case alone; then ms of one
+    call beside its bound and the F.leaky_relu / F.conv1d chain's in bf16
+    (what the vocoder's plain route runs)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    rows = []
+    for c, t in WIDE_VOC_STAGES:
+        for k in WIDE_VOC_KS:
+            units, kw = shape_units(c, "leaky_relu", k, k, True,
+                                    VOC_DILATIONS, device, torch.bfloat16,
+                                    gen)
+            x = torch.randn(BATCH, c, t, generator=gen, device=device) \
+                .to(torch.bfloat16)
+            row = {"units": f"vocoder k={k}, biases", "shape": [BATCH, c, t],
+                   "storage": "bfloat16", **check_wide(x, units, **kw),
+                   "ms": cuda_ms(lambda: folded_stack.folded_residual_stack(
+                       x, units, **kw), reps=5),
+                   "chain_ms": cuda_ms(lambda: chain(
+                       x, units, VOC_DILATIONS, "leaky_relu", VOC_SLOPE,
+                       kw["biases"]), reps=3),
+                   **kernel_bounds.mma_stack(BATCH, t, c, k=k, k2=k,
+                                             storage=2, bias=True)}
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+            rows.append(row)
+            del x
+    emit("wide_voc_kernel_vs_plain", t0,
+         tolerance=f"check_wide: rel_l2 and exact_rl2 <= max({WIDE_RL2}, "
+                   f"{ABLATE_FLOOR_FACTOR} x plain_exact_rl2), max error <= "
+                   f"{WIDE_MAX_REL} x peak",
+         ms_ad_v1=sum(r["ms"] for r in rows if r["units"].startswith(
+             "vocoder k=11")) * 3,
+         ms_ad_v0=sum(r["ms"] for r in rows), rows=rows)
+    return rows
+
+
+def parent_wide_geometry(c, k, k2, dilations):
+    """The replaced kernel's planner (PARENT_WIDE_COMMIT's
+    ops/kernels/folded_stack.py wide_geometry): channels padded to a
+    multiple of 32, a warp per 32 output channels, rows of 4 m16 tiles up
+    to 16 warps and 256 samples, the widest stage of (128, 64, 32) input
+    channels and the most buffers (3, then 2) that fit.  Returns (cp,
+    warps_m, kc, nbuf)."""
+    d = max(dilations)
+    cp = -(-c // 32) * 32
+    wn = cp // 32
+    for wm in range(min(16 // wn, 4), 0, -1):
+        rows = 64 * wm
+        yrows = max(rows + (k - 1) * d, rows + k2 - 1)
+        for kc in (v for v in (128, 64, 32) if cp % v == 0):
+            for nbuf in (3, 2):
+                if 2 * (yrows * (cp + 8) + nbuf * cp * (kc + 8)) <= 232448:
+                    return cp, wm, kc, nbuf
+    raise ValueError(f"the replaced wide kernel takes no C={c}, k={k}")
+
+
+def parent_wide_kernel():
+    """The replaced wide kernel (PARENT_WIDE_COMMIT's
+    csrc/wide_stack_mma.cu, with the csrc/wide_mma.cuh it includes) built
+    into PARENT_WIDE, its source from git or a copy already there.  Exits
+    where neither is at hand or a file is another."""
+    path = "audiodec_tpu_torch/csrc/wide_stack_mma.cu"
+    src = PARENT_WIDE / "wide_stack_mma.cu"
+    if not src.exists() and shutil.which("git"):
+        proc = subprocess.run(["git", "show", f"{PARENT_WIDE_COMMIT}:{path}"],
+                              cwd=ROOT, capture_output=True)
+        if proc.returncode == 0:
+            PARENT_WIDE.mkdir(parents=True, exist_ok=True)
+            src.write_bytes(proc.stdout)
+    if not src.exists():
+        sys.exit(f"chip_smoke wide: no {src}: place {PARENT_WIDE_COMMIT}'s "
+                 f"{path} there")
+    header = _build.CSRC / "wide_mma.cuh"
+    for f, want in ((src, PARENT_WIDE_SHA256),
+                    (header, PARENT_WIDE_HEADER_SHA256)):
+        if hashlib.sha256(f.read_bytes()).hexdigest() != want:
+            sys.exit(f"chip_smoke wide: {f} is not {PARENT_WIDE_COMMIT}'s, "
+                     f"whose launch interface PARENT_WIDE_ARGS states")
+    lib = PARENT_WIDE / "libwide_stack_mma.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                    f"-I{_build.CSRC}", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).wide_stack_forward
+    fn.argtypes = PARENT_WIDE_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase_wide_parent_ab(device):
+    """The vocoders' resblocks above C = 32 at full size (WIDE_VOC_STAGES,
+    k = k2 in WIDE_VOC_KS, bf16 storage, seeded biases): ms of one call of
+    the replaced wide kernel (parent_wide_kernel) and of this one, in turns
+    (parent, new, new, parent), 5 calls each, with each output's relative
+    L2 from the plain version."""
+    t0 = time.perf_counter()
+    parent = parent_wide_kernel()
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    rows = []
+    for c, t in WIDE_VOC_STAGES:
+        for k in WIDE_VOC_KS:
+            units, kw = shape_units(c, "leaky_relu", k, k, True,
+                                    VOC_DILATIONS, device, torch.bfloat16,
+                                    gen)
+            x = torch.randn(BATCH, c, t, generator=gen, device=device) \
+                .to(torch.bfloat16)
+            cp, wm, kc, nbuf = parent_wide_geometry(c, k, k, VOC_DILATIONS)
+            w1, w2, bias = folded_stack._packed_mma(units, kw["biases"], c,
+                                                    cp)
+            cdil = (ctypes.c_int * 3)(*VOC_DILATIONS)
+            out = torch.empty_like(x)
+            scratch = torch.empty((2,) + tuple(x.shape), device=device)
+
+            def old():
+                err = parent(x.data_ptr(), out.data_ptr(),
+                             scratch.data_ptr(), w1.data_ptr(),
+                             w2.data_ptr(), bias.data_ptr(), BATCH, c, t,
+                             cp, 3, cdil, k, k,
+                             folded_stack.MMA_ACT["leaky_relu"], VOC_SLOPE,
+                             wm, kc, nbuf, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"parent wide kernel: CUDA error "
+                                       f"{err}")
+                return out
+
+            def new():
+                return folded_stack.folded_residual_stack(x, units, **kw)
+
+            ref = plain_of(x, units, kw)
+            rl2 = {"parent_rel_l2": (sq(old(), ref) / sq(ref)) ** 0.5,
+                   "new_rel_l2": (sq(new(), ref) / sq(ref)) ** 0.5}
+            ms = [cuda_ms(fn, reps=5) for fn in (old, new, new, old)]
+            bound = kernel_bounds.mma_stack(BATCH, t, c, k=k, k2=k,
+                                            storage=2, bias=True)
+            rows.append({"units": f"vocoder k={k}, biases",
+                         "shape": [BATCH, c, t], "storage": "bfloat16",
+                         "parent_ms": [ms[0], ms[3]],
+                         "new_ms": [ms[1], ms[2]], **rl2,
+                         "bound_ms": bound["bound_ms"],
+                         "speedup": (ms[0] + ms[3]) / (ms[1] + ms[2])})
+            del x, out, scratch, ref
+    emit("wide_parent_ab", t0, commit=PARENT_WIDE_COMMIT, rows=rows)
+    return rows
 
 
 def phase_f32_unit_kernel_vs_plain(device):
@@ -5329,9 +5508,9 @@ def summed(rows, key):
 
 def main():
     if sys.argv[1:] not in ([], ["train"], ["parallel"], ["modules"],
-                            ["mma"]):
+                            ["mma"], ["wide"]):
         sys.exit("usage: python3 chip_smoke.py [train | parallel | "
-                 "modules | mma]")
+                 "modules | mma | wide]")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     t0 = time.perf_counter()
@@ -5351,6 +5530,14 @@ def main():
         params = load_golden("gen_symad_trained")[1]
         phase_mma_kernel_vs_plain(params, device)
         phase_mma_parent_ab(params, device)
+        return
+    if sys.argv[1:] == ["wide"]:
+        phase_build(("wide_stack_mma", "resunit_stack", "int8_mma_stack",
+                     "int8_tile_mma"))
+        phase_wide_kernel_vs_plain(device)
+        phase_wide_c_kernel_vs_plain(device)
+        phase_wide_voc_kernel_vs_plain(device)
+        phase_wide_parent_ab(device)
         return
     phase_build()
     if sys.argv[1:] == ["train"]:
@@ -5374,6 +5561,7 @@ def main():
     phase_int8_tile_kernel_vs_plain(trained, device)
     wide_counts = phase_wide_kernel_vs_plain(device)
     phase_wide_c_kernel_vs_plain(device)
+    phase_wide_voc_kernel_vs_plain(device)
     phase_f32_unit_kernel_vs_plain(device)
     phase_resunit_kernel_vs_plain(trained, device)
     z_main = phase_rvq_kernel_vs_plain(trained, device)

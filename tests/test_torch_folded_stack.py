@@ -331,8 +331,9 @@ def test_wide_autoencoder_cpu_and_device_checks():
 @pytest.mark.parametrize("rounded", [True, False])
 def test_packed_resunit_layout(rounded):
     """The weights of the kernels above C = 32: with bf16 operands
-    csrc/wide_stack_mma.cu's (n, k, cp, cp) bf16 [u][tap][c_out][c_in],
-    channels padded to a multiple of 32; in true f32
+    csrc/wide_stack_mma.cu's (n, cp / 64, k, cp / 8, 8, 8, 8) bf16
+    [u][c_out / 64][tap][c_in / 8][c_out % 64 / 8][c_out % 8][c_in % 8],
+    channels padded to a multiple of 64; in true f32
     csrc/resunit_stack.cu's (n, cp, k, cp) f32 [u][c_in][tap][c_out],
     padded to a multiple of 16; zero in the padding, and the biases f32
     (n, 2, cp) either way."""
@@ -344,10 +345,12 @@ def test_packed_resunit_layout(rounded):
                for _ in range(2))]
     if rounded:
         cp = port.wide_geometry(c, 7, 1, DILATIONS).cp
-        p1, p2, pb = port._packed_mma([(w1, w2)], b, c, cp)
-        assert cp == 96 and p1.dtype == p2.dtype == torch.bfloat16
-        assert p1.shape == (1, 7, cp, cp) and p2.shape == (1, 1, cp, cp)
-        want, real = w1.permute(2, 0, 1).bfloat16(), p1[0, :, :c, :c]
+        p1, p2, pb = port._packed_wide([(w1, w2)], b, c, cp)
+        assert cp == 128 and p1.dtype == p2.dtype == torch.bfloat16
+        assert p1.shape == (1, cp // 64, 7, cp // 8, 8, 8, 8)
+        assert p2.shape == (1, cp // 64, 1, cp // 8, 8, 8, 8)
+        full = p1[0].permute(1, 0, 3, 4, 2, 5).reshape(7, cp, cp)
+        want, real = w1.permute(2, 0, 1).bfloat16(), full[:, :c, :c]
     else:
         cp = port.unit_geometry(c, 7, 1, DILATIONS).cp
         p1, p2, pb = port._packed_unit([(w1, w2)], b, c, cp)

@@ -1,7 +1,7 @@
 """Launch geometries and weight packs of the folded stack's two kernels that
 take every unit shape: csrc/resunit_stack.cu (true f32 on the FMA units,
 also the archived stack's kernel) and csrc/wide_stack_mma.cu (bf16 operands
-on the tensor cores above C = 32).
+on the tensor cores above C = 32), and the latter's split of the batch.
 
 The kernels run only on the card, where chip_smoke.py holds them to their
 plain versions; here, without a card, every width from 1 to WIDEST at the
@@ -65,10 +65,13 @@ def test_unit_geometry_fits_or_raises(k, k2, dilations):
 @pytest.mark.parametrize("k2", KERNEL_SIZES2)
 @pytest.mark.parametrize("k", KERNEL_SIZES)
 def test_wide_geometry_fits_or_raises(k, k2, dilations):
-    """csrc/wide_stack_mma.cu: a warp per 32 output channels, rows of warps
-    of 64 samples, up to 16 warps; the staged rows cover the tile, k2 - 1
-    more samples and the look-back, and with the weight stages fit a
-    block's shared memory."""
+    """csrc/wide_stack_mma.cu: channels padded to a multiple of 64 (a
+    wgmma's M), up to 2 consumer warpgroups, the most that fit, of 128
+    samples or else of 64; the operand's
+    rows cover the tile, the first conv's look-back and the alignment, a2's
+    the tile and k2 - 1 more, and with the epilogue's staging and at least
+    two weight stages fit a block's shared memory; the most warpgroups that
+    fit, and as many stages as fit, up to WIDE_MAX_STAGES."""
     d = max(dilations)
     for c in range(1, WIDEST + 1):
         try:
@@ -76,19 +79,31 @@ def test_wide_geometry_fits_or_raises(k, k2, dilations):
         except ValueError as err:
             assert _named(err, c, k, k2, dilations), err
             continue
-        wn = g.cp // port.WIDE_WARP_N
-        assert g.cp % port.WIDE_WARP_N == 0
-        assert c <= g.cp < c + port.WIDE_WARP_N
-        assert g.warps == g.warps_m * wn <= port.WIDE_MAX_WARPS
-        assert g.rows == port.WIDE_WARP_ROWS * g.warps_m
-        assert g.rows <= port.WIDE_MAX_ROWS
-        assert g.tile == g.rows - (k2 - 1) >= 1
+        assert g.cp % port.WIDE_M == 0 and c <= g.cp < c + port.WIDE_M
+        assert g.n in port.WIDE_N and 1 <= g.warpgroups <= port.WIDE_MAX_WG
+        assert g.tile == g.n * g.warpgroups >= k2 - 1
         assert g.halo == (k - 1) * d + k2 - 1
-        assert g.kc in port.WIDE_KC and g.cp % g.kc == 0
-        assert g.buffers in (2, 3)
-        yrows = max(g.rows + (k - 1) * d, g.rows + k2 - 1)
-        assert g.smem == port.wide_smem(g.cp, yrows, g.kc,
-                                        g.buffers) <= port.BLOCK_SMEM
+        assert g.cp % port.WIDE_KC == 0
+        assert port.WIDE_MIN_STAGES <= g.stages <= port.WIDE_MAX_STAGES
+
+        def rows(wgs, n=g.n):
+            tile = n * wgs
+            return tile + (k - 1) * d + port.WIDE_ALIGN, tile + k2 - 1
+
+        assert g.smem == port.wide_smem(g.cp, *rows(g.warpgroups),
+                                        g.warpgroups, g.stages)
+        assert g.smem <= port.BLOCK_SMEM
+        if g.stages < port.WIDE_MAX_STAGES:
+            assert port.wide_smem(g.cp, *rows(g.warpgroups), g.warpgroups,
+                                  g.stages + 1) > port.BLOCK_SMEM
+        if g.warpgroups < port.WIDE_MAX_WG:
+            wgs = port.WIDE_MAX_WG
+            assert port.wide_smem(g.cp, *rows(wgs, min(port.WIDE_N)), wgs,
+                                  port.WIDE_MIN_STAGES) > port.BLOCK_SMEM
+        if g.n < port.WIDE_N[0]:
+            assert port.wide_smem(g.cp, *rows(g.warpgroups, port.WIDE_N[0]),
+                                  g.warpgroups,
+                                  port.WIDE_MIN_STAGES) > port.BLOCK_SMEM
         assert g.launches == len(dilations)
 
 
@@ -104,15 +119,33 @@ def test_unit_geometry_at_symad_stacks(c, threads, rows, kc1, kc2):
         c, threads, rows, rows, kc1, kc2, 54)
 
 
-@pytest.mark.parametrize("c,warps,rows,kc", [
-    (48, 8, 256, 64), (64, 8, 256, 64), (128, 16, 256, 128),
-    (256, 16, 128, 64)])
-def test_wide_geometry_at_symad_stacks(c, warps, rows, kc):
+@pytest.mark.parametrize("c,n,warpgroups,stages", [
+    (48, 128, 2, 8), (64, 128, 2, 8), (128, 128, 2, 8), (256, 64, 2, 6),
+    (512, 64, 1, 3)])
+def test_wide_geometry_at_symad_stacks(c, n, warpgroups, stages):
     """The autoencoder units at the probe's widths (and C = 48, padded to
-    64): up to 256 samples and 16 warps, three weight buffers."""
+    64, and C = 512): two warpgroups of 128 samples to C = 128, two of 64
+    at C = 256 and one of 64 at C = 512; the ring as deep as fits."""
     g = port.wide_geometry(c, 7, 1, (1, 3, 9))
-    assert (g.warps, g.rows, g.tile, g.kc, g.buffers) == (
-        warps, rows, rows, kc, 3)
+    assert (g.n, g.warpgroups, g.tile, g.stages) == (
+        n, warpgroups, n * warpgroups, stages)
+
+
+@pytest.mark.parametrize("c,t,k,n,stages", [
+    (256, 8000, 11, 64, 6), (256, 8000, 7, 64, 7), (256, 8000, 3, 64, 8),
+    (128, 40000, 11, 128, 8), (128, 40000, 3, 128, 8),
+    (64, 160000, 11, 128, 8), (64, 160000, 7, 128, 8)])
+def test_wide_geometry_at_vocoder_stages(c, t, k, n, stages):
+    """The vocoders' resblocks above C = 32 (k = k2, dilations 1, 3, 5) at
+    B = 16 x 10 s: two warpgroups, of 128 samples to C = 128 and of 64 at
+    C = 256, and a split of each row into 8 segments of whole tiles on 132
+    SMs, one block a segment."""
+    g = port.wide_geometry(c, k, k, (1, 3, 5))
+    assert (g.cp, g.n, g.warpgroups, g.tile, g.stages) == (
+        c, n, 2, 2 * n, stages)
+    sp = port.wide_split(g, 16, t, 132)
+    assert sp.nseg == 8 and sp.grid == 128 and sp.seg % g.tile == 0
+    assert sp.seg * (sp.nseg - 1) < t <= sp.seg * sp.nseg
 
 
 def _units(c, k, k2, n, seed):
